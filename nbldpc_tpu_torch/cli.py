@@ -1,0 +1,127 @@
+"""Command-line entry point: `run` (a Monte-Carlo sweep) and `bench`.
+
+    python -m nbldpc_tpu_torch run --code gf16_n204_k102_c8 --snr 1.5 2.0 \\
+        --iters 50 --set sim.frames_per_step=8192
+    python -m nbldpc_tpu_torch run --config configs/gf16_qspa.json --device cpu
+    python -m nbldpc_tpu_torch bench        # H100 throughput benchmark
+
+`--device cuda` (the default) needs a card and never falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+
+def _add_run_parser(sub):
+    p = sub.add_parser("run", help="run a BER/FER Monte-Carlo sweep")
+    p.add_argument("--config", help="JSON/TOML RunConfig file")
+    p.add_argument("--set", action="append", default=[], dest="overrides",
+                   help="dotted config override, e.g. decoder.max_iters=50")
+    p.add_argument("--code", help="standard code name or alist path")
+    p.add_argument("--decoder", choices=["qspa", "ems", "tems"])
+    p.add_argument("--snr", type=float, nargs="+", help="Eb/N0 points (dB)")
+    p.add_argument("--iters", type=int)
+    p.add_argument("--frames", type=int, help="max frames per SNR")
+    p.add_argument("--report", help="write JSON report to this path")
+    p.add_argument("--mesh-snr", type=int, default=1)
+    p.add_argument("--mesh-data", type=int, default=0)
+    p.add_argument("--no-mesh", action="store_true")
+    p.add_argument("--profile", help="torch.profiler trace directory")
+    p.add_argument("--random-codewords", action="store_true")
+    p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
+
+
+def resolve_device(name: str):
+    """A torch.device for `name`; a CUDA device without a card raises."""
+    import torch
+
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available")
+    return dev
+
+
+def build_config(args):
+    from nbldpc_tpu_torch.utils.config import (
+        CodeConfig, RunConfig, apply_overrides, load_config,
+    )
+
+    cfg = load_config(args.config) if args.config else RunConfig()
+    if args.code:
+        is_path = "/" in args.code or args.code.endswith(".alist")
+        cfg = dataclasses.replace(
+            cfg, code=CodeConfig(path=args.code if is_path else None,
+                                 name=None if is_path else args.code))
+    if args.decoder:
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, kind=args.decoder))
+    if args.iters:
+        cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, max_iters=args.iters))
+    if args.snr:
+        cfg = dataclasses.replace(cfg, channel=dataclasses.replace(cfg.channel, ebn0_db=tuple(args.snr)))
+    if args.frames:
+        cfg = dataclasses.replace(cfg, sim=dataclasses.replace(cfg.sim, max_frames=args.frames))
+    if args.random_codewords:
+        cfg = dataclasses.replace(cfg, channel=dataclasses.replace(cfg.channel, zero_codeword=False))
+    if args.overrides:
+        cfg = apply_overrides(cfg, args.overrides)
+    return cfg
+
+
+def cmd_run(args) -> int:
+    if args.mesh_snr > 1 or args.mesh_data > 1:
+        raise NotImplementedError(
+            "multi-GPU runs are not ported yet (ROADMAP queue 1 item 12)")
+    cfg = build_config(args)
+    device = resolve_device(args.device)
+
+    from nbldpc_tpu_torch import sim
+    from nbldpc_tpu_torch.utils import report as rep
+
+    rep.setup_logging()
+
+    def progress(t, counters):
+        rep.emit_step_record(t, counters)
+
+    if args.profile:
+        from pathlib import Path
+
+        import torch.profiler as tp
+
+        acts = [tp.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(tp.ProfilerActivity.CUDA)
+        with tp.profile(activities=acts) as prof:
+            result = sim.run_sweep(cfg, device=device, progress=progress)
+        Path(args.profile).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(args.profile) / "trace.json"))
+    else:
+        result = sim.run_sweep(cfg, device=device, progress=progress)
+
+    print(result.table())
+    print(f"throughput: {result.throughput_syms_per_s:.3e} coded symbols/s")
+    if args.report:
+        rep.save_report(result, args.report, cfg)
+    return 0
+
+
+def cmd_bench(_args) -> int:
+    from nbldpc_tpu_torch import bench
+
+    return bench.main()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="nbldpc_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    _add_run_parser(sub)
+    sub.add_parser("bench", help="run the H100 throughput benchmark")
+    args = ap.parse_args(argv)
+    if args.cmd == "run":
+        return cmd_run(args)
+    return cmd_bench(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,91 @@
+"""Shared decoder loop: VN update, tentative decision, syndrome check.
+
+    init V = prior -> [CN update -> VN update -> decision -> syndrome] x iters
+
+Batch-last layout: messages [M, dc_max, q, B] / [N, dv_max, q, B], priors
+[N, q, B], hard decisions [N, B]. Messages are log-domain, normalized so
+the max over q is 0. Converged frames keep running (no dynamic shapes);
+only their hard/done/iters outputs are frozen.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from nbldpc_tpu_torch.graph import TannerGraph
+
+
+class DecodeResult(NamedTuple):
+    hard: torch.Tensor    # [B, N] int32 tentative symbol decisions
+    done: torch.Tensor    # [B] bool: syndrome satisfied
+    iters: torch.Tensor   # [B] int32: iterations run until convergence/budget
+
+
+CnUpdateFn = Callable[[torch.Tensor, TannerGraph], torch.Tensor]
+
+
+def argmax_q(post: torch.Tensor) -> torch.Tensor:
+    """[N, q, B] -> [N, B] int32 (ties go to the lowest symbol)."""
+    return torch.argmax(post, dim=1).to(torch.int32)
+
+
+def satisfied(graph: TannerGraph, hard: torch.Tensor) -> torch.Tensor:
+    """hard [N, B] -> [B] bool: every check of the frame is satisfied."""
+    return (graph.syndrome_bl(hard) == 0).all(dim=0)
+
+
+def decode_bl(
+    graph: TannerGraph,
+    llr: torch.Tensor,
+    cn_update_bl: CnUpdateFn,
+    max_iters: int,
+    early_term: bool = True,
+    stats_each_iter: bool = True,
+) -> DecodeResult:
+    """Batch-last decode of llr [B, N, q] (transposed once at entry/exit).
+
+    The state carries the VN-major extrinsics and the posterior, so each
+    iteration does one down-gather and one up-gather.
+
+    early_term=True stops once every frame is done (checked on the host
+    each iteration). stats_each_iter=False (fixed-budget throughput mode,
+    forced True when early_term is set) skips the per-iteration decision:
+    `done` stays at its initial value during the loop, frames done at
+    initialization report 0 iterations and the rest max_iters, and the
+    decision is taken after the loop.
+    """
+    B = llr.shape[0]
+    stats_each_iter = bool(stats_each_iter) or early_term
+    llr = llr.permute(1, 2, 0)                                 # [N, q, B]
+    llr = llr - llr.amax(dim=1, keepdim=True)
+    Cv = torch.zeros((graph.n, graph.dv_max, graph.q, B), dtype=llr.dtype,
+                     device=llr.device)
+    posterior = llr
+    hard = argmax_q(llr)
+    done = satisfied(graph, hard)
+    iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
+
+    for _ in range(max_iters):
+        if early_term and bool(done.all()):
+            break
+        Vv = posterior[:, None] - Cv                           # leave-one-out
+        Vv = Vv - Vv.amax(dim=2, keepdim=True)                 # normalize (q)
+        U = graph.gather_cn_x_bl(Vv)                           # [M, dc, q, B]
+        Chat = cn_update_bl(U, graph)
+        Cv = graph.gather_vn_x_bl(Chat)                        # [N, dv, q, B]
+        posterior = llr + Cv.sum(dim=1)
+        if not stats_each_iter:
+            iters = iters + (~done).to(torch.int32)
+            continue
+        hard_new = argmax_q(posterior)
+        done_new = satisfied(graph, hard_new)
+        iters = iters + (~done).to(torch.int32)
+        hard = torch.where(done[None, :], hard, hard_new)
+        done = done | done_new
+
+    if not stats_each_iter:
+        hard = argmax_q(posterior)
+        done = satisfied(graph, hard)
+    return DecodeResult(hard=hard.T.contiguous(), done=done, iters=iters)

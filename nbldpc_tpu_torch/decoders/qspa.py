@@ -1,0 +1,79 @@
+"""QSPA: q-ary sum-product decoder with a Hadamard-domain check-node update.
+
+The CN update is a circular convolution over (GF(2^p), +), computed in the
+Walsh-Hadamard domain: softmax -> WHT -> leave-one-out product over the
+check's dc edges (sign/log-magnitude form, so products over 50 iterations
+do not underflow) -> inverse WHT -> floor -> log. The GF weight
+permutations live in the routing gathers (graph.gather_*_x_bl).
+
+Three implementations (`cn_impl`):
+  "resident" - kernels/qspa_resident.py: the whole decode in one CUDA
+               kernel (q <= 32, any batch size), probability-domain BP;
+  "kernel"   - kernels/cn_qspa.py's CUDA check-node kernel inside decode_bl;
+  "torch"    - decode_bl with the plain check-node update (the semantic
+               reference, and what runs on the CPU);
+  "auto"     - "resident" for a CUDA tensor when q <= 32, else "kernel";
+               "torch" for a CPU tensor.
+The resident path can differ from the log-domain paths in rare fp ties.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nbldpc_tpu_torch.decoders import common
+from nbldpc_tpu_torch.graph import TannerGraph
+from nbldpc_tpu_torch.kernels import cn_qspa
+
+CN_IMPLS = ("auto", "resident", "kernel", "torch")
+
+
+def qspa_cn_update_bl(U: torch.Tensor, graph: TannerGraph) -> torch.Tensor:
+    """Batch-last CN update, U [M, dc_max, q, B] log-domain x-domain -> same.
+
+    Maskless: pad CN slots arrive as log-delta0, whose spectrum adds exactly
+    0 to the leave-one-out log-sum, and pad outputs are never read."""
+    return cn_qspa.cn_update_plain(U)
+
+
+def qspa_cn_update_bl_kernel(U: torch.Tensor, graph: TannerGraph) -> torch.Tensor:
+    """The CUDA check-node kernel (plain version on a CPU tensor)."""
+    return cn_qspa.cn_update(U)
+
+
+def pick_impl(cn_impl: str, graph: TannerGraph, llr: torch.Tensor) -> str:
+    """Resolve "auto" from the tensor's device and the field size."""
+    if cn_impl not in CN_IMPLS:
+        raise ValueError(f"cn_impl={cn_impl!r}; expected one of {CN_IMPLS}")
+    if cn_impl != "auto":
+        return cn_impl
+    if llr.device.type != "cuda":
+        return "torch"
+    return "resident" if graph.q <= 32 else "kernel"
+
+
+def decode(
+    graph: TannerGraph,
+    llr: torch.Tensor,
+    max_iters: int = 20,
+    early_term: bool = True,
+    cn_impl: str = "auto",
+    mm_precision: str = "f32",
+    stats_each_iter: bool = True,
+) -> common.DecodeResult:
+    """QSPA decode of a batch: llr [B, N, q] f32 -> DecodeResult."""
+    if mm_precision != "f32":
+        raise NotImplementedError(
+            f"mm_precision={mm_precision!r}: only f32 is ported; bf16 message "
+            "storage is ROADMAP queue 1 item 6 (port only if an H100 "
+            "measurement justifies it)")
+    impl = pick_impl(cn_impl, graph, llr)
+    if impl == "resident":
+        from nbldpc_tpu_torch.kernels import qspa_resident as qr
+
+        dec = qr.get_resident_decoder(graph, max_iters, early_term, stats_each_iter)
+        hard, done, iters = qr.resident_decode(dec, llr)
+        return common.DecodeResult(hard=hard, done=done, iters=iters)
+    cn = qspa_cn_update_bl_kernel if impl == "kernel" else qspa_cn_update_bl
+    return common.decode_bl(graph, llr, cn, max_iters, early_term,
+                            stats_each_iter=stats_each_iter)

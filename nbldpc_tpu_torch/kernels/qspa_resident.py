@@ -1,0 +1,200 @@
+"""Whole-decode resident QSPA (q <= 32): CUDA kernel + plain version.
+
+Probability-domain BP, the same decode as the JAX package's resident
+kernel: the state (prior, posterior, edge messages) is never
+renormalized, the check-node softmax takes no max-subtraction, the
+leave-one-out product of spectra is a direct prefix x suffix product, and
+the extrinsic is floored at 1e-12 before the log. The invariants that make
+this safe: every edge message lies in [log(1e-12), 0], so the largest
+permuted variable message of a real slot is >= -27.6 (dv - 1) and its
+exp cannot underflow to an all-zero row.
+
+It differs from the log-domain decode_bl path in rare floating-point ties,
+so each is held against its own counterpart.
+
+`resident_decode` launches csrc/qspa_resident.cu for a CUDA tensor and runs
+`decode_plain` for a CPU tensor. Both take llr [B, N, q] and return
+(hard [B, N] int32, done [B] bool, iters [B] int32).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nbldpc_tpu_torch.decoders.common import argmax_q, satisfied
+from nbldpc_tpu_torch.graph import TannerGraph
+from nbldpc_tpu_torch.kernels.wht import wht_axis
+
+PROB_FLOOR = 1e-12
+# per-block shared memory a kernel may ask for on sm_90
+MAX_SMEM_BYTES = 232448
+
+
+class ResidentQSPA:
+    """Tables and options of one resident decode configuration."""
+
+    def __init__(self, graph: TannerGraph, max_iters: int, early_term: bool = True,
+                 stats_each_iter: bool = True):
+        if graph.q > 32:
+            raise ValueError("the resident decoder supports q <= 32")
+        self.graph = graph
+        self.max_iters = int(max_iters)
+        self.early_term = bool(early_term)
+        # throughput mode (False) only exists for a fixed budget
+        self.stats_each_iter = bool(stats_each_iter) or self.early_term
+        g, dev = graph, graph.device
+        q, m, dc = g.q, g.m, g.dc_max
+        E = m * dc
+        self.smem_bytes = (2 * g.n + E) * q * 4 + 4 * g.n
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+        host = g.np
+        gf = g.gf
+        # exp-order basis: 0, alpha^0, alpha^1, ..., alpha^(q-2)
+        n2e = np.concatenate([[0], gf.exp[: q - 1]])
+        self.cn_vn = t(host["cn_vn"].reshape(-1))
+        self.cn_real = t(host["cn_mask"].reshape(-1))
+        self.perm_down = t(host["perm_down"].reshape(-1))
+        self.vn_edge = t(host["vn_edge"].reshape(-1))
+        self.syn_k = t(host["syn_k"].reshape(-1))
+        self.n2e = t(n2e)
+        self.n2e_list = [int(x) for x in n2e]
+
+        # plain-version gather indices over flat [rows * q, B] views
+        pd = host["perm_down"].reshape(E, q).astype(np.int64)
+        pu = host["perm_up"].reshape(E, q).astype(np.int64)
+        e_q = np.arange(E, dtype=np.int64)[:, None] * q
+        self._idx_post = torch.from_numpy(
+            (host["cn_vn"].reshape(E, 1).astype(np.int64) * q + pd).reshape(-1)).to(dev)
+        self._idx_lc = torch.from_numpy((e_q + pd).reshape(-1)).to(dev)
+        self._idx_up = torch.from_numpy((e_q + pu).reshape(-1)).to(dev)
+        self._vn_edge = torch.from_numpy(
+            np.minimum(host["vn_edge"], E - 1).astype(np.int64)).to(dev)
+        self._real = torch.from_numpy(host["cn_mask"].reshape(E)).to(dev)
+
+    # ---- plain version ----------------------------------------------------
+
+    def _iteration(self, prior, post, lc):
+        """One BP iteration on [rows, q, B] tensors; returns (post, lc)."""
+        g = self.graph
+        q, m, dc = g.q, g.m, g.dc_max
+        B = prior.shape[-1]
+        U = (post.reshape(-1, B).index_select(0, self._idx_post)
+             - lc.reshape(-1, B).index_select(0, self._idx_lc)).view(-1, q, B)
+        Ex = torch.exp(U)
+        S = Ex[:, self.n2e_list[0]]
+        for k in self.n2e_list[1:]:
+            S = S + Ex[:, k]
+        P = Ex / S[:, None]
+        if g.has_cn_pads:
+            delta0 = torch.zeros(q, 1, dtype=P.dtype, device=P.device)
+            delta0[0] = 1.0
+            P = torch.where(self._real[:, None, None], P, delta0)
+        F = wht_axis(P, axis=1).view(m, dc, q, B)
+        outs = []
+        runp = None
+        for j in range(dc):
+            sj = None
+            for k in range(dc - 1, j, -1):
+                sj = F[:, k] if sj is None else sj * F[:, k]
+            if runp is None:
+                G = sj if sj is not None else torch.ones_like(F[:, j])
+            else:
+                G = runp if sj is None else runp * sj
+            runp = F[:, j] if runp is None else runp * F[:, j]
+            W = wht_axis(G, axis=1)
+            outs.append(torch.log(torch.clamp_min(W * (1.0 / q), PROB_FLOOR)))
+        lcx = torch.stack(outs, dim=1).reshape(-1, B)            # x-domain
+        lc = lcx.index_select(0, self._idx_up).view(m * dc, q, B)  # c-domain
+        acc = None
+        for s in range(g.dv_max):
+            vals = lc.index_select(0, self._vn_edge[:, s])
+            if g.has_vn_pads:
+                vals = torch.where(g.vn_mask[:, s, None, None], vals, 0.0)
+            acc = vals if acc is None else acc + vals
+        return prior + acc, lc
+
+
+def decode_plain(dec: ResidentQSPA, llr: torch.Tensor):
+    """Plain PyTorch resident decode: llr [B, N, q] -> (hard, done, iters)."""
+    decode_plain.calls += 1
+    g = dec.graph
+    B = llr.shape[0]
+    prior = llr.permute(1, 2, 0).to(torch.float32)
+    prior = prior - prior.amax(dim=1, keepdim=True)
+    post = prior
+    lc = torch.zeros(g.m * g.dc_max, g.q, B, dtype=torch.float32, device=llr.device)
+    hard = argmax_q(post)
+    done0 = satisfied(g, hard)
+    done = done0
+    iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
+    for _ in range(dec.max_iters):
+        if dec.stats_each_iter and bool(done.all()):
+            break                       # every output is final
+        post, lc = dec._iteration(prior, post, lc)
+        if not dec.stats_each_iter:
+            iters = iters + (~done0).to(torch.int32)
+            continue
+        hard_new = argmax_q(post)
+        done_new = satisfied(g, hard_new)
+        hard = torch.where(done[None, :], hard, hard_new)
+        iters = iters + (~done).to(torch.int32)
+        done = done | done_new
+    if not dec.stats_each_iter:
+        hard = argmax_q(post)
+        done = satisfied(g, hard)
+    return hard.T.contiguous(), done, iters
+
+
+decode_plain.calls = 0
+
+
+def resident_decode(dec: ResidentQSPA, llr: torch.Tensor):
+    """Resident decode of llr [B, N, q] f32: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    g = dec.graph
+    if llr.device.type == "cpu":
+        return decode_plain(dec, llr)
+    if llr.device != dec.cn_vn.device:
+        raise ValueError(f"llr on {llr.device}, graph tables on {dec.cn_vn.device}")
+    if (llr.dtype != torch.float32 or llr.ndim != 3 or not llr.is_contiguous()
+            or llr.shape[1:] != (g.n, g.q)):
+        raise ValueError(
+            f"resident_decode: llr must be a contiguous [B, {g.n}, {g.q}] float32 tensor")
+    if dec.smem_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"resident_decode: a frame needs {dec.smem_bytes} B of "
+                         f"shared memory, more than {MAX_SMEM_BYTES}")
+    from nbldpc_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    B = llr.shape[0]
+    hard = torch.empty((B, g.n), dtype=torch.int32, device=llr.device)
+    done = torch.empty(B, dtype=torch.bool, device=llr.device)
+    iters = torch.empty(B, dtype=torch.int32, device=llr.device)
+    with torch.cuda.device(llr.device):
+        rc = lib.qspa_resident_decode(
+            llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
+            B, g.n, g.m, g.dc_max, g.dv_max, g.q,
+            dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(), dec.perm_down.data_ptr(),
+            dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(), dec.n2e.data_ptr(),
+            dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),
+            _build.stream_ptr(llr.device))
+    _build.check(rc, "qspa_resident_decode")
+    resident_decode.launches += 1
+    return hard, done, iters
+
+
+resident_decode.launches = 0
+
+
+def get_resident_decoder(graph: TannerGraph, max_iters: int, early_term: bool,
+                         stats_each_iter: bool = True) -> ResidentQSPA:
+    """A ResidentQSPA for this configuration, cached on the graph."""
+    key = (int(max_iters), bool(early_term), bool(stats_each_iter))
+    cache = graph.__dict__.setdefault("_resident_cache", {})
+    if key not in cache:
+        cache[key] = ResidentQSPA(graph, max_iters, early_term, stats_each_iter)
+    return cache[key]

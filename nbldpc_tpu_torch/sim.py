@@ -1,0 +1,241 @@
+"""Monte-Carlo BER/SER/FER simulation engine.
+
+One `step` processes [S, B] frames, all SNR points at once (per-SNR sigma
+is data), through noise -> llr_init -> decode -> error counters, on one
+device. The host loop accumulates per-SNR counters until every SNR point
+hits its stop rule (max frames or max frame errors); it fetches the
+counters once per step.
+
+Reproducibility: the noise of macro-batch t comes from a torch.Generator
+seeded from (seed, t) through np.random.SeedSequence, so a resumed sweep
+draws exactly the frames an uninterrupted one would.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init
+from nbldpc_tpu_torch.decoders import qspa
+from nbldpc_tpu_torch.gf import get_field
+from nbldpc_tpu_torch.graph import TannerGraph
+from nbldpc_tpu_torch.utils.config import DecoderConfig, RunConfig
+
+
+def get_decode_fn(dec: DecoderConfig, cn_impl: str = "auto"):
+    """(graph, llr [B,N,q]) -> DecodeResult for the configured decoder."""
+    if dec.kind == "qspa":
+        return lambda graph, llr: qspa.decode(
+            graph, llr, dec.max_iters, dec.early_term, cn_impl=cn_impl,
+            mm_precision=dec.mm_precision, stats_each_iter=dec.stats_each_iter,
+        )
+    if dec.kind in ("ems", "tems"):
+        raise NotImplementedError(
+            f"decoder {dec.kind!r} is not ported yet (ROADMAP queue 1)")
+    raise ValueError(f"unknown decoder kind {dec.kind!r}")
+
+
+def step_generator(seed: int, t: int, device) -> torch.Generator:
+    """The noise generator of macro-batch t, a function of (seed, t) only."""
+    s = np.random.SeedSequence([int(seed), int(t)]).generate_state(1, np.uint64)[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(s))
+    return gen
+
+
+@dataclasses.dataclass
+class Counters:
+    """Per-SNR Monte-Carlo accumulators (host-side numpy)."""
+
+    frames: np.ndarray
+    frame_errors: np.ndarray
+    symbol_errors: np.ndarray
+    bit_errors: np.ndarray
+    iter_sum: np.ndarray
+    converged: np.ndarray
+
+    @staticmethod
+    def zeros(s: int) -> "Counters":
+        z = lambda: np.zeros(s, dtype=np.int64)
+        return Counters(z(), z(), z(), z(), z(), z())
+
+    def add(self, step_out: dict) -> None:
+        for f in dataclasses.fields(self):
+            getattr(self, f.name)[...] += np.asarray(step_out[f.name], np.int64)
+
+    def asdict(self) -> dict:
+        return {f.name: getattr(self, f.name).tolist() for f in dataclasses.fields(self)}
+
+
+def make_sim_step(
+    graph: TannerGraph,
+    dec: DecoderConfig,
+    batch_per_snr: int,
+    n_snr: int,
+    zero_codeword: bool = True,
+    cn_impl: str = "auto",
+) -> Callable:
+    """Build step(gen, sigmas [S] f32 on the graph's device) -> counters
+    {name: int64 tensor [S]} on the device.
+
+    The step draws S*B all-zero-codeword frames, adds AWGN from `gen`,
+    computes LLRs, decodes and reduces the error counters over frames."""
+    if not zero_codeword:
+        raise NotImplementedError(
+            "random-codeword mode needs encode.py, which is not ported yet "
+            "(ROADMAP queue 1 item 10)")
+    decode_fn = get_decode_fn(dec, cn_impl)
+    S, B, N, p, q = n_snr, batch_per_snr, graph.n, graph.gf.p, graph.q
+    device = graph.device
+
+    def step(gen: torch.Generator, sigmas: torch.Tensor) -> dict:
+        sig = sigmas.to(torch.float32)[:, None, None, None]            # [S,1,1,1]
+        noise = torch.randn((S, B, N, p), generator=gen, device=device)
+        y = 1.0 + sig * noise                        # BPSK of the zero codeword
+        llr = llr_init(y, sig, q)                                      # [S,B,N,q]
+        res = decode_fn(graph, llr.reshape(S * B, N, q))
+        hard = res.hard.reshape(S, B, N)
+        sym_err = hard != 0
+        bit_err = sum(((hard >> t) & 1) for t in range(p))
+        return {
+            "frames": torch.full((S,), B, dtype=torch.int64, device=device),
+            "frame_errors": sym_err.any(dim=-1).sum(dim=1),
+            "symbol_errors": sym_err.sum(dim=(1, 2)),
+            "bit_errors": bit_err.sum(dim=(1, 2), dtype=torch.int64),
+            "iter_sum": res.iters.reshape(S, B).sum(dim=1, dtype=torch.int64),
+            "converged": res.done.reshape(S, B).sum(dim=1),
+        }
+
+    return step
+
+
+def fetch(out: dict) -> dict:
+    """Device counters -> host numpy, in one transfer."""
+    names = [f.name for f in dataclasses.fields(Counters)]
+    host = torch.stack([out[k].to(torch.int64) for k in names]).cpu().numpy()
+    return dict(zip(names, host))
+
+
+@dataclasses.dataclass
+class SweepResult:
+    ebn0_db: list
+    counters: Counters
+    wall_seconds: float
+    steps: int
+    config_hash: str = ""
+
+    def finalize(self, n_symbols: int, p_bits: int):
+        self._bits_per_frame = n_symbols * p_bits
+        self._syms_per_frame = n_symbols
+        return self
+
+    @property
+    def ber(self):
+        f = np.maximum(self.counters.frames, 1)
+        return self.counters.bit_errors / (f * self._bits_per_frame)
+
+    @property
+    def ser(self):
+        f = np.maximum(self.counters.frames, 1)
+        return self.counters.symbol_errors / (f * self._syms_per_frame)
+
+    @property
+    def fer(self):
+        f = np.maximum(self.counters.frames, 1)
+        return self.counters.frame_errors / f
+
+    @property
+    def avg_iters(self):
+        f = np.maximum(self.counters.frames, 1)
+        return self.counters.iter_sum / f
+
+    @property
+    def throughput_syms_per_s(self):
+        total = int(self.counters.frames.sum()) * self._syms_per_frame
+        return total / max(self.wall_seconds, 1e-9)
+
+    def table(self) -> str:
+        rows = ["Eb/N0(dB)   frames      BER         SER         FER      avg_iters"]
+        for i, snr in enumerate(self.ebn0_db):
+            rows.append(
+                f"{snr:8.2f} {self.counters.frames[i]:9d}"
+                f"  {self.ber[i]:.4e}  {self.ser[i]:.4e}  {self.fer[i]:.4e}"
+                f"  {self.avg_iters[i]:8.2f}"
+            )
+        return "\n".join(rows)
+
+
+def run_sweep(
+    cfg: RunConfig,
+    device,
+    progress: Optional[Callable[[int, Counters], None]] = None,
+) -> SweepResult:
+    """Full Monte-Carlo sweep per RunConfig on one device."""
+    spec = cfg.code.load()
+    graph = TannerGraph(spec, device=device)
+    snrs = list(cfg.channel.ebn0_db)
+    S, B = len(snrs), cfg.sim.frames_per_step
+    sigma_np = np.asarray([float(ebn0_to_sigma(s, spec.k / spec.n)) for s in snrs],
+                          dtype=np.float32)
+    step = make_sim_step(graph, cfg.decoder, B, S, cfg.channel.zero_codeword)
+
+    counters = Counters.zeros(S)
+    start_t = 0
+    ckpt = None
+    if cfg.sim.checkpoint_path:
+        from nbldpc_tpu_torch.utils.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(cfg.sim.checkpoint_path, cfg.config_hash())
+        resumed = ckpt.load()
+        if resumed is not None:
+            start_t, counters = resumed
+
+    t0 = time.perf_counter()
+    t = start_t
+    while True:
+        done = (counters.frames >= cfg.sim.max_frames) | (
+            counters.frame_errors >= cfg.sim.max_frame_errors
+        )
+        if bool(np.all(done)):
+            break
+        # SNR points that hit their stop rule give their batch slots to the
+        # still-active points (active points ordered by frames served,
+        # filled round-robin): deterministic given the counters.
+        slot_point = np.arange(S)
+        n_done = int(done.sum())
+        if 0 < n_done < S:
+            active = np.flatnonzero(~done)
+            order = active[np.argsort(counters.frames[active], kind="stable")]
+            for k, s in enumerate(np.flatnonzero(done)):
+                slot_point[s] = order[k % len(order)]
+        sig = torch.from_numpy(sigma_np[slot_point]).to(graph.device)
+        o = fetch(step(step_generator(cfg.sim.seed, t, graph.device), sig))
+        if n_done:
+            remapped = {}
+            for name, arr in o.items():
+                acc = np.zeros(S, np.int64)
+                np.add.at(acc, slot_point, np.asarray(arr, np.int64))
+                remapped[name] = acc
+            o = remapped
+        counters.add(o)
+        t += 1
+        if progress:
+            progress(t, counters)
+        if ckpt and cfg.sim.checkpoint_every and t % cfg.sim.checkpoint_every == 0:
+            ckpt.save(t, counters)
+    wall = time.perf_counter() - t0
+    if ckpt:
+        ckpt.save(t, counters)
+    res = SweepResult(
+        ebn0_db=snrs,
+        counters=counters,
+        wall_seconds=wall,
+        steps=t - start_t,
+        config_hash=cfg.config_hash(),
+    )
+    return res.finalize(spec.n, get_field(spec.q).p)

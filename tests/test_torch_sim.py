@@ -1,0 +1,190 @@
+"""The port's sim engine, CLI, configs and checkpoints against the JAX
+package's formats; the port imports no JAX."""
+
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import nbldpc_tpu.sim as jsim
+import nbldpc_tpu.utils.config as jcfg
+from nbldpc_tpu.codegen import make_peg_code
+from nbldpc_tpu.utils.report import sweep_report as jax_sweep_report
+
+from nbldpc_tpu_torch import cli, sim
+from nbldpc_tpu_torch.code import save_alist
+from nbldpc_tpu_torch.utils import config as tcfg
+
+from tests.test_torch_qspa import port_graph
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def tiny_alist(tmp_path_factory):
+    from nbldpc_tpu.code import save_alist as jax_save_alist
+
+    path = tmp_path_factory.mktemp("codes") / "tiny.alist"
+    jax_save_alist(make_peg_code(16, 8, 4, dv=2, seed=5), path)
+    return path
+
+
+def _cfg(mod, path, ckpt=None):
+    """The same tiny RunConfig in either package's dataclasses."""
+    return mod.RunConfig(
+        code=mod.CodeConfig(path=str(path)),
+        decoder=mod.DecoderConfig(kind="qspa", max_iters=4),
+        channel=mod.ChannelConfig(ebn0_db=(2.0,)),
+        sim=mod.SimConfig(frames_per_step=16, max_frames=64, max_frame_errors=10**9,
+                          seed=9, checkpoint_path=str(ckpt) if ckpt else None,
+                          checkpoint_every=1),
+    )
+
+
+def test_cli_run_cpu_writes_jax_report_keys(tiny_alist, tmp_path):
+    rep = tmp_path / "rep.json"
+    rc = cli.main(["run", "--code", str(tiny_alist), "--snr", "1.0", "3.0",
+                   "--iters", "4", "--frames", "32", "--set", "sim.frames_per_step=16",
+                   "--device", "cpu", "--report", str(rep)])
+    assert rc == 0
+    got = json.loads(rep.read_text())
+    jres = jsim.SweepResult(ebn0_db=[1.0, 3.0], counters=jsim.Counters.zeros(2),
+                            wall_seconds=1.0, steps=1).finalize(16, 2)
+    want = jax_sweep_report(jres, jcfg.RunConfig())
+    assert set(got) == set(want)
+    assert set(got["config"]) == set(want["config"])
+    assert got["frames"] == [32, 32]
+    assert got["steps"] == 2
+    assert got["frame_errors"][0] >= got["frame_errors"][1]
+
+
+@pytest.mark.parametrize("name", sorted(p.name for p in (ROOT / "configs").glob("*.json")))
+def test_config_hash_equal_across_packages(name):
+    path = ROOT / "configs" / name
+    a, b = tcfg.load_config(path), jcfg.load_config(path)
+    assert a.config_hash() == b.config_hash()
+    over = ["decoder.max_iters=50", "channel.ebn0_db=[1.0,2.0]"]
+    assert (tcfg.apply_overrides(a, over).config_hash()
+            == jcfg.apply_overrides(b, over).config_hash())
+    assert tcfg.RunConfig().config_hash() == jcfg.RunConfig().config_hash()
+
+
+def test_jax_checkpoint_resumes_in_port(tiny_alist, tmp_path):
+    ckpt = tmp_path / "sweep.ckpt"
+    jcfg_run = _cfg(jcfg, tiny_alist, ckpt)
+
+    def killer(t, counters):
+        if t >= 2:
+            raise KeyboardInterrupt    # crash in macro-batch 2 of 4
+
+    with pytest.raises(KeyboardInterrupt):
+        jsim.run_sweep(jcfg_run, mesh=None, progress=killer)
+    saved = json.loads(ckpt.read_text())
+    assert saved["step"] == 1
+
+    tcfg_run = _cfg(tcfg, tiny_alist, ckpt)
+    assert tcfg_run.config_hash() == jcfg_run.config_hash()
+    res = sim.run_sweep(tcfg_run, device="cpu")
+    assert res.steps == 3                          # resumed at t = 1
+    assert res.counters.frames.tolist() == [64]
+    for k in ("frame_errors", "symbol_errors", "bit_errors", "iter_sum"):
+        assert getattr(res.counters, k)[0] >= saved["counters"][k][0]
+
+
+def test_port_kill_and_resume_exact(tiny_alist, tmp_path):
+    ref = sim.run_sweep(_cfg(tcfg, tiny_alist), device="cpu")
+    cfg = _cfg(tcfg, tiny_alist, tmp_path / "sweep.ckpt")
+
+    def killer(t, counters):
+        if t >= 2:
+            raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        sim.run_sweep(cfg, device="cpu", progress=killer)
+    resumed = sim.run_sweep(cfg, device="cpu")
+    assert resumed.steps < ref.steps
+    assert resumed.counters.asdict() == ref.counters.asdict()
+
+    other = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, max_iters=5))
+    with pytest.raises(ValueError, match="different config"):
+        sim.run_sweep(other, device="cpu")
+
+
+def test_finished_snr_slots_reallocated(tiny_alist):
+    cfg = dataclasses.replace(
+        _cfg(tcfg, tiny_alist),
+        channel=tcfg.ChannelConfig(ebn0_db=(-4.0, 6.0)),
+        sim=tcfg.SimConfig(frames_per_step=16, max_frames=96, max_frame_errors=3, seed=1),
+    )
+    res = sim.run_sweep(cfg, device="cpu")
+    # point 0 stops on errors within a step; point 1 then gets all slots
+    assert res.counters.frame_errors[0] >= 3
+    assert res.counters.frames.sum() == res.steps * 2 * 16
+    assert res.counters.frames[1] >= 96 or res.counters.frame_errors[1] >= 3
+
+
+def test_sim_step_counts_and_generator(small_codes):
+    g = port_graph(small_codes["gf16_tiny"])
+    dec = tcfg.DecoderConfig(kind="qspa", max_iters=4)
+    step = sim.make_sim_step(g, dec, batch_per_snr=8, n_snr=2)
+    sig = torch.tensor([1.2, 0.3])
+    a = sim.fetch(step(sim.step_generator(3, 7, "cpu"), sig))
+    b = sim.fetch(step(sim.step_generator(3, 7, "cpu"), sig))
+    assert {k: v.tolist() for k, v in a.items()} == {k: v.tolist() for k, v in b.items()}
+    assert a["frames"].tolist() == [8, 8]
+    assert np.all(a["converged"] <= 8) and np.all(a["bit_errors"] >= a["symbol_errors"])
+    with pytest.raises(NotImplementedError, match="encode.py"):
+        sim.make_sim_step(g, dec, 8, 1, zero_codeword=False)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        sim.make_sim_step(g, dataclasses.replace(dec, kind="ems"), 8, 1)
+
+
+def test_cli_refusals(tiny_alist):
+    base = ["run", "--code", str(tiny_alist), "--frames", "16"]
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        cli.main(base + ["--mesh-snr", "2", "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(base + ["--device", "cuda"])
+    with pytest.raises(FileNotFoundError, match="codegen"):
+        tcfg.CodeConfig(name="no_such_code").load()
+
+
+def test_port_imports_no_jax():
+    """Every module of the port imports with jax and nbldpc_tpu blocked."""
+    code = """
+import importlib, pkgutil, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'nbldpc_tpu'):
+            raise ImportError('blocked ' + name)
+sys.meta_path.insert(0, Block())
+import nbldpc_tpu_torch
+for m in pkgutil.walk_packages(nbldpc_tpu_torch.__path__, 'nbldpc_tpu_torch.'):
+    if m.name != 'nbldpc_tpu_torch.__main__':
+        importlib.import_module(m.name)
+importlib.import_module('chip_smoke')
+bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'nbldpc_tpu')]
+assert not bad, bad
+print('ok')
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_port_save_alist_roundtrip(small_codes, tmp_path):
+    from nbldpc_tpu_torch.code import load_alist
+
+    g = port_graph(small_codes["gf16_irr"])
+    save_alist(g.spec, tmp_path / "irr.alist")
+    back = load_alist(tmp_path / "irr.alist")
+    np.testing.assert_array_equal(back.dense_h(), g.spec.dense_h())
