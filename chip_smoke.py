@@ -8,11 +8,19 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
   3. cn_qspa  - the check-node kernel against its plain version
   4. resident - the whole-decode kernel against its plain version, also at
                 the main path's shape and mode
-  5. main     - `nbldpc_tpu_torch.cli.main(["run", ...])` at the flagship
+  5. cn_ems   - the EMS check-node kernels (classic and bubble) against
+                their plain version, exact to 0.0
+  6. ems_resident - the whole-decode EMS kernel against its plain version,
+                in the modes of phase 4 and at nm = 8; agreement 1.0
+  7. main     - `nbldpc_tpu_torch.cli.main(["run", ...])` at the flagship
                 config plus a GF(64) run (the check-node kernel's path),
                 with every launch counter read around it; FER held to the
                 JAX package's recorded statistics
-  6. bench    - sim-step throughput, resident kernel and plain torch path
+  8. main_ems - `cli.main(["run", ...])` on the three EMS paths: GF(16) EMS
+                (resident kernel), GF(256) classic and bubble EMS (check-node
+                kernels), each held to its JAX FER record
+  9. bench    - sim-step throughput, resident kernels and plain torch paths,
+                QSPA and EMS
 Then the kernels summary, the card line, and the final status line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -91,9 +99,20 @@ def _graph(code: str, device):
     return TannerGraph(CodeConfig(name=code).load(), device=device)
 
 
+def _u_for(g, B: int, device):
+    """Check-node inputs with the code's real pad structure, from a seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    Vv = torch.from_numpy(
+        (rng.standard_normal((g.n, g.dv_max, g.q, B)) * 3.0).astype(np.float32)
+    ).to(device)
+    return g.gather_cn_x_bl(Vv).contiguous()
+
+
 def phase_cn_qspa(device, main_b64: int):
     """K1 at the flagship shape, the GF(64) main-path shape and GF(256)."""
-    import numpy as np
     import torch
 
     from nbldpc_tpu_torch.kernels import cn_qspa
@@ -102,11 +121,7 @@ def phase_cn_qspa(device, main_b64: int):
     for code, B in (("gf16_n204_k102_c8", 8192), ("gf64_n576_k480", main_b64),
                     ("gf256_n255_k175", 256)):
         g = _graph(code, device)
-        rng = np.random.default_rng(0)
-        Vv = torch.from_numpy(
-            (rng.standard_normal((g.n, g.dv_max, g.q, B)) * 3.0).astype(np.float32)
-        ).to(device)
-        U = g.gather_cn_x_bl(Vv).contiguous()
+        U = _u_for(g, B, device)
         out = cn_qspa.cn_update(U)
         ref = cn_qspa.cn_update_plain(U)
         torch.cuda.synchronize()
@@ -134,27 +149,31 @@ def phase_cn_qspa(device, main_b64: int):
     return rows
 
 
+def _llrs(g, frames_per_snr: int, snrs, device):
+    """All-zero-codeword LLRs [S * frames, N, q] at the given Eb/N0 points."""
+    import torch
+
+    from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init
+    from nbldpc_tpu_torch.sim import step_generator
+
+    sig = torch.tensor([float(ebn0_to_sigma(s, g.spec.k / g.n)) for s in snrs],
+                       device=device).repeat_interleave(frames_per_snr)[:, None, None]
+    gen = step_generator(1234, len(snrs), device)
+    y = 1.0 + sig * torch.randn((sig.shape[0], g.n, g.gf.p), generator=gen,
+                                device=device)
+    return llr_init(y, sig, g.q).contiguous()
+
+
 def phase_resident(device):
     """K0 against its plain version on identical LLRs: the three modes at
     2048 frames, then the main path's shape and mode (2 x 8192 frames at
     1.5 and 2.0 dB, 50 iterations, early termination), where it is timed."""
     import torch
 
-    from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
-    from nbldpc_tpu_torch.sim import step_generator
 
     g = _graph("gf16_n204_k102_c8", device)
-
-    def llrs(frames_per_snr, snrs):
-        sig = torch.tensor([float(ebn0_to_sigma(s, g.spec.k / g.n)) for s in snrs],
-                           device=device).repeat_interleave(frames_per_snr)[:, None, None]
-        gen = step_generator(1234, len(snrs), device)
-        y = 1.0 + sig * torch.randn((sig.shape[0], g.n, g.gf.p), generator=gen,
-                                    device=device)
-        return llr_init(y, sig, g.q).contiguous()
-
-    small, main = llrs(2048, [1.5]), llrs(8192, [1.5, 2.0])
+    small, main = _llrs(g, 2048, [1.5], device), _llrs(g, 8192, [1.5, 2.0], device)
     modes = {"a_early_term": (small, 50, True, True),
              "b_throughput": (small, 50, False, False),
              "c_one_iter": (small, 1, False, True),
@@ -196,24 +215,118 @@ def phase_resident(device):
     return result
 
 
-def _counters():
-    from nbldpc_tpu_torch.kernels import cn_qspa
+def phase_cn_ems(device):
+    """K2 (classic) and K2b (bubble) against their plain versions on the
+    same U: max abs error must be 0.0 and every output finite."""
+    import torch
+
+    from nbldpc_tpu_torch.kernels import cn_ems
+
+    classic = (cn_ems.cn_update, cn_ems.cn_update_plain)
+    bubble = (cn_ems.cn_update_bubble, cn_ems.cn_update_bubble_plain)
+    cases = [("gf16_n204_k102", 8192, "classic", classic, 16, 0.3),
+             ("gf64_n576_k480", 1024, "classic", classic, 8, 0.1),
+             ("gf64_n576_k480", 1024, "bubble", bubble, 8, 0.0),
+             ("gf256_n255_k175", 512, "classic", classic, 16, 0.1),
+             ("gf256_n255_k175", 512, "bubble", bubble, 16, 0.0)]
+    rows = {}
+    for code, B, merge, (kern, plain), nm, offset in cases:
+        U = _u_for(_graph(code, device), B, device)
+        out = kern(U, nm, offset)
+        ref = plain(U, nm, offset)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        finite = bool(torch.isfinite(out).all())
+        p1 = cuda_ms(lambda: plain(U, nm, offset), 1)
+        k1 = cuda_ms(lambda: kern(U, nm, offset), 10)
+        k2 = cuda_ms(lambda: kern(U, nm, offset), 10)
+        p2 = cuda_ms(lambda: plain(U, nm, offset), 1)
+        row = {"phase": "cn_ems", "merge": merge, "shape": list(U.shape), "nm": nm,
+               "offset": offset, "max_abs_err": err, "finite": finite,
+               "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+               "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
+        emit(row)
+        if not finite:
+            fail(f"cn_ems {merge} {list(U.shape)}: non-finite outputs")
+        if err != 0.0:
+            fail(f"cn_ems {merge} {list(U.shape)}: max abs err {err} != 0.0")
+        rows.setdefault(merge, []).append(row)
+    return rows
+
+
+def phase_ems_resident(device):
+    """K3 against its plain version on identical LLRs (gf16_n204_k102,
+    offset 0.3): nm = 16 in the three modes at 2048 frames and at the main
+    path's shape (2 x 8192 frames, 1.5 and 2.0 dB, 50 iterations, early
+    termination), then nm = 8; agreement must be 1.0."""
+    import torch
+
+    from nbldpc_tpu_torch.kernels import ems_resident as er
+
+    g = _graph("gf16_n204_k102", device)
+    small, main = _llrs(g, 2048, [1.5], device), _llrs(g, 8192, [1.5, 2.0], device)
+    modes = {"a_early_term": (small, 50, True, True, 16),
+             "b_throughput": (small, 50, False, False, 16),
+             "c_one_iter": (small, 1, False, True, 16),
+             "d_main_path": (main, 50, True, True, 16),
+             "e_nm8": (small, 50, True, True, 8)}
+    worst = 0
+    result = {}
+    for name, (llr, iters, et, stats, nm) in modes.items():
+        B = llr.shape[0]
+        dec = er.ResidentEMS(g, iters, nm, 0.3, et, stats)
+        hk, dk, ik = er.resident_decode(dec, llr)
+        hp, dp, ip = er.decode_plain(dec, llr)
+        torch.cuda.synchronize()
+        same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
+        agree = float(same.float().mean())
+        worst = max(worst, int((hk - hp).abs().max()), int((ik - ip).abs().max()),
+                    int((dk != dp).any()))
+        fe_k = int((hk != 0).any(dim=1).sum())
+        fe_p = int((hp != 0).any(dim=1).sum())
+        rec = {"phase": "ems_resident", "mode": name, "nm": nm, "frames": B,
+               "agreement": agree, "frame_errors_kernel": fe_k,
+               "frame_errors_plain": fe_p}
+        if name in ("b_throughput", "d_main_path"):
+            p1 = cuda_ms(lambda: er.decode_plain(dec, llr), 1)
+            k1 = cuda_ms(lambda: er.resident_decode(dec, llr), 5)
+            k2 = cuda_ms(lambda: er.resident_decode(dec, llr), 5)
+            p2 = cuda_ms(lambda: er.decode_plain(dec, llr), 1)
+            rec.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                       ms_runs=[k1, k2], plain_ms_runs=[p1, p2])
+            result.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+        emit(rec)
+        if agree != 1.0:
+            fail(f"ems_resident mode {name}: agreement {agree} != 1.0")
+    result["max_abs_err"] = worst
+    return result
+
+
+def _counted():
+    """(name, function, attribute) of every kernel wrapper and plain version."""
+    from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa
+    from nbldpc_tpu_torch.kernels import ems_resident as er
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
-    return {"qspa_resident": qr.resident_decode.launches,
-            "qspa_resident_plain": qr.decode_plain.calls,
-            "cn_qspa": cn_qspa.cn_update.launches,
-            "cn_qspa_plain": cn_qspa.cn_update_plain.calls}
+    return [("qspa_resident", qr.resident_decode, "launches"),
+            ("qspa_resident_plain", qr.decode_plain, "calls"),
+            ("cn_qspa", cn_qspa.cn_update, "launches"),
+            ("cn_qspa_plain", cn_qspa.cn_update_plain, "calls"),
+            ("ems_resident", er.resident_decode, "launches"),
+            ("ems_resident_plain", er.decode_plain, "calls"),
+            ("cn_ems", cn_ems.cn_update, "launches"),
+            ("cn_ems_plain", cn_ems.cn_update_plain, "calls"),
+            ("cn_ems_bubble", cn_ems.cn_update_bubble, "launches"),
+            ("cn_ems_bubble_plain", cn_ems.cn_update_bubble_plain, "calls")]
+
+
+def _counters():
+    return {name: getattr(fn, attr) for name, fn, attr in _counted()}
 
 
 def _reset_counters():
-    from nbldpc_tpu_torch.kernels import cn_qspa
-    from nbldpc_tpu_torch.kernels import qspa_resident as qr
-
-    qr.resident_decode.launches = 0
-    qr.decode_plain.calls = 0
-    cn_qspa.cn_update.launches = 0
-    cn_qspa.cn_update_plain.calls = 0
+    for _, fn, attr in _counted():
+        setattr(fn, attr, 0)
 
 
 def phase_main(main_b64: int):
@@ -266,13 +379,82 @@ def phase_main(main_b64: int):
     return counts
 
 
+# The EMS paths through the user's entry point: (name, cli arguments, the
+# kernel it must launch, JAX FER record in fer_curves_r5.json, Eb/N0 of the
+# comparison).
+EMS_PATHS = [
+    ("A_gf16_ems_resident",
+     ["--config", "configs/gf16_ems_nm16.json", "--snr", "1.5", "2.0", "--iters", "20",
+      "--set", "sim.frames_per_step=4096", "--set", "sim.max_frames=8192"],
+     "ems_resident", "gf16_ems_nm16_20it", 1.5),
+    ("B_gf256_ems_classic",
+     ["--code", "gf256_n255_k175", "--decoder", "ems", "--set", "decoder.nm=16",
+      "--set", "decoder.offset=0.1", "--iters", "10", "--snr", "2.5",
+      "--set", "sim.frames_per_step=512", "--set", "sim.max_frames=2048"],
+     "cn_ems", "gf256_ems_nm16_10it", 2.5),
+    ("C_gf256_ems_bubble",
+     ["--code", "gf256_n255_k175", "--decoder", "ems", "--set", "decoder.nm=16",
+      "--set", "decoder.ems_merge=bubble", "--set", "decoder.offset=0.0",
+      "--iters", "10", "--snr", "2.5",
+      "--set", "sim.frames_per_step=512", "--set", "sim.max_frames=2048"],
+     "cn_ems_bubble", "gf256_ems_bubble_10it", 2.5),
+]
+
+
+def phase_main_ems():
+    """The three EMS paths through cli.main, counters zeroed just before
+    each and read just after: the path's kernel launched, no plain version
+    ran, and the FER is consistent with the JAX record (|z| < 3.3)."""
+    from nbldpc_tpu_torch import cli
+
+    out_dir = ROOT / "build" / "nbldpc_tpu_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    records = json.loads((ROOT / "benchmarks/results/fer_curves_r5.json").read_text())
+    launches = {}
+    for name, args, kernel, ref_name, snr in EMS_PATHS:
+        rep = out_dir / f"smoke_{name}.json"
+        _reset_counters()
+        t0 = time.perf_counter()
+        rc = cli.main(["run", *args, "--set", "sim.max_frame_errors=1000000",
+                       "--report", str(rep)])
+        seconds = time.perf_counter() - t0
+        counts = _counters()
+        r = json.loads(rep.read_text())
+        ref = next(e for e in records if e["config"] == ref_name)
+        i_ref = ref["ebn0_db"].index(snr)
+        k_ref, n_ref = ref["frame_errors"][i_ref], ref["frames"][i_ref]
+        i = r["ebn0_db"].index(snr)
+        z = two_prop_z(r["frame_errors"][i], r["frames"][i], k_ref, n_ref)
+        emit({"phase": "main_ems", "path": name, "launches": counts, "seconds": seconds,
+              "ebn0_db": r["ebn0_db"], "fer": r["fer"], "frames": r["frames"],
+              "frame_errors": r["frame_errors"], "avg_iters": r["avg_iters"],
+              "reference": [ref_name, snr, k_ref, n_ref], "z_vs_reference": z})
+        if rc != 0:
+            fail(f"{name}: cli.main returned {rc}")
+        if counts[kernel] < 1:
+            fail(f"{name}: the {kernel} kernel never launched: {counts}")
+        ran_plain = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+        if ran_plain:
+            fail(f"{name}: a plain version ran on the path: {ran_plain}")
+        want = 8192 if kernel == "ems_resident" else 2048
+        if not all(0.0 <= f <= 1.0 for f in r["fer"]) or set(r["frames"]) != {want}:
+            fail(f"{name}: bad report {r}")
+        if len(r["fer"]) > 1 and not r["fer"][1] < r["fer"][0]:
+            fail(f"{name}: FER(2.0 dB) {r['fer'][1]} not below FER(1.5 dB) {r['fer'][0]}")
+        if not abs(z) < 3.3:
+            fail(f"{name}: FER at {snr} dB inconsistent with {ref_name}: z = {z}")
+        launches[kernel] = counts[kernel]
+    return launches
+
+
 def phase_bench(card: str):
     from nbldpc_tpu_torch import bench
 
     rows = []
-    for code in bench.CODES:
+    for code, kind in [(c, "qspa") for c in bench.CODES] + [(bench.EMS_CODE, "ems")]:
         for impl in ("torch", "resident", "resident", "torch"):
-            rec = bench.measure(code, impl, reps=10 if impl == "resident" else 3)
+            rec = bench.measure(code, impl, reps=10 if impl == "resident" else 3,
+                                kind=kind)
             rec.update(phase="bench", card=card)
             emit(rec)
             rows.append(rec)
@@ -299,7 +481,10 @@ def main() -> int:
     phase_build()
     cn_rows = phase_cn_qspa(device, main_b64)
     res = phase_resident(device)
+    ems_rows = phase_cn_ems(device)
+    ems_res = phase_ems_resident(device)
     counts = phase_main(main_b64)
+    counts.update(phase_main_ems())
     phase_bench(card)
 
     k1 = cn_rows[0]
@@ -315,6 +500,19 @@ def main() -> int:
          "launches": counts["cn_qspa"],
          "max_abs_err": max(r["max_abs_err_above_-15"] for r in cn_rows),
          "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
+        {"name": "ems_resident", "route": "cuda",
+         "source": "nbldpc_tpu_torch/csrc/ems_resident.cu",
+         "replaces": "nbldpc_tpu/kernels/ems_resident.py:145",
+         "launches": counts["ems_resident"], "max_abs_err": ems_res["max_abs_err"],
+         "ms": ems_res["ms"], "plain_ms": ems_res["plain_ms"]},
+        *({"name": name, "route": "cuda",
+           "source": "nbldpc_tpu_torch/csrc/cn_ems.cu",
+           "replaces": replaces, "launches": counts[name],
+           "max_abs_err": max(r["max_abs_err"] for r in ems_rows[merge]),
+           "ms": ems_rows[merge][-1]["ms"], "plain_ms": ems_rows[merge][-1]["plain_ms"]}
+          for name, merge, replaces in (
+              ("cn_ems", "classic", "nbldpc_tpu/kernels/cn_ems.py:91"),
+              ("cn_ems_bubble", "bubble", "nbldpc_tpu/kernels/cn_ems.py:101"))),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,7 @@ names:
   - GF(2^p) tables                                       (gf.py)
   - alist codes and Tanner-graph index tables           (code.py, graph.py)
   - BPSK binary image, AWGN, LLR-vector init            (channel.py)
-  - QSPA decoder and its shared loop                    (decoders/)
+  - QSPA and EMS decoders and their shared loop         (decoders/)
   - CUDA kernels and their plain PyTorch versions       (kernels/, csrc/)
   - Monte-Carlo BER/FER engine, CLI, benchmark          (sim.py, cli.py, bench.py)
 """

@@ -1,10 +1,12 @@
 """Throughput benchmark on one GPU: decoded coded symbols/s and frames/s.
 
-The timed unit is the full sim step (noise -> llr_init -> QSPA decode ->
-error counters) at the fixed 50-iteration budget in throughput mode
+The timed unit is the full sim step (noise -> llr_init -> decode -> error
+counters) at the fixed 50-iteration budget in throughput mode
 (early_term=False, stats_each_iter=False), f32, B = 8192 frames, all-zero
 codeword, sigma = 0.63 (about 2 dB at rate 1/2). Steps run back to back
-after warm-up and are timed with CUDA events.
+after warm-up and are timed with CUDA events. QSPA runs on CODES, EMS
+(nm = 16, offset 0.3, BASELINE config 3's decoder) on EMS_CODE, under the
+same conditions, so the two decoders' symbols/s compare directly.
 
     python -m nbldpc_tpu_torch bench
 
@@ -24,6 +26,8 @@ from nbldpc_tpu_torch.sim import make_sim_step, step_generator
 from nbldpc_tpu_torch.utils.config import CodeConfig, DecoderConfig
 
 CODES = ("gf16_n204_k102_c8", "gf16_n204_k102")
+EMS_CODE = "gf16_n204_k102"
+EMS_NM, EMS_OFFSET = 16, 0.3
 BATCH = 8192
 ITERS = 50
 SIGMA = 0.63
@@ -36,16 +40,17 @@ def card_info() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def measure(code: str, cn_impl: str, reps: int = 10) -> dict:
-    """Time `reps` sim steps on the current CUDA device after two warm-up
-    steps; one result record."""
+def measure(code: str, cn_impl: str, reps: int = 10, kind: str = "qspa") -> dict:
+    """Time `reps` sim steps of decoder `kind` ("qspa" or "ems") on the
+    current CUDA device after two warm-up steps; one result record."""
     if not torch.cuda.is_available():
         raise RuntimeError("bench.measure needs a CUDA device")
     device = torch.device("cuda", torch.cuda.current_device())
     spec = CodeConfig(name=code).load()
     graph = TannerGraph(spec, device=device)
-    dec = DecoderConfig(kind="qspa", max_iters=ITERS, early_term=False,
-                        stats_each_iter=False, mm_precision="f32")
+    dec = DecoderConfig(kind=kind, max_iters=ITERS, early_term=False,
+                        stats_each_iter=False, mm_precision="f32",
+                        nm=EMS_NM, offset=EMS_OFFSET if kind == "ems" else 0.0)
     step = make_sim_step(graph, dec, BATCH, 1, cn_impl=cn_impl)
     sig = torch.tensor([SIGMA], dtype=torch.float32, device=device)
     for t in range(2):
@@ -62,6 +67,7 @@ def measure(code: str, cn_impl: str, reps: int = 10) -> dict:
     ms = start.elapsed_time(end) / reps
     return {
         "code": code,
+        "decoder": kind,
         "cn_impl": cn_impl,
         "batch": BATCH,
         "iters": ITERS,
@@ -77,9 +83,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("the benchmark needs a CUDA device")
     print(card_info(), flush=True)
-    for code in CODES:
+    for code, kind in [(c, "qspa") for c in CODES] + [(EMS_CODE, "ems")]:
         for impl in ("resident", "torch"):
-            print(json.dumps(measure(code, impl)), flush=True)
+            print(json.dumps(measure(code, impl, kind=kind)), flush=True)
     return 0
 
 

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled by nvcc for sm_90a into one shared library with a
-plain C interface, loaded with ctypes. The library lands in
+Each source is compiled by its own nvcc process for sm_90a, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ctypes. The library lands in
 build/nbldpc_tpu_torch/ under the repository root, named by a hash of the
 sources and flags: the first CUDA use builds it, and a changed source
 builds a new one. Every C entry point returns cudaGetLastError() (or the
@@ -30,13 +31,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures: name -> argtypes (every entry returns int, a cudaError_t)
 SIGNATURES = {
     "cn_qspa_update": [_P, _P, _I, _I, _I, _I, _P],
+    # U, out, M, dc, q, B, nm, offset, stream
+    "cn_ems_update": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "cn_ems_update_bubble": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "qspa_resident_decode": [_P, _P, _P, _P,            # llr, hard, done, iters
                              _I, _I, _I, _I, _I, _I,    # B N M dc dv q
                              _P, _P, _P, _P, _P, _P,    # tables
                              _I, _I, _I, _P],           # iters, modes, stream
+    "ems_resident_decode": [_P, _P, _P, _P,             # llr, hard, done, iters
+                            _I, _I, _I, _I, _I, _I,     # B N M dc dv q
+                            _I, _F,                     # nm, offset
+                            _P, _P, _P, _P, _P,         # tables
+                            _I, _I, _I, _P],            # iters, modes, stream
 }
 
 def nvcc_path() -> str:
@@ -59,20 +69,43 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile csrc/*.cu into the hashed library unless it already exists."""
+    """Compile csrc/*.cu into the hashed library unless it already exists:
+    one nvcc per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-c"]
+    if verbose:
+        compile_flags.insert(0, "-Xptxas=-v")
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc_path(), *compile_flags, "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors, logs = [], []
+    for src, proc in zip(_sources(), procs):
+        _, err = proc.communicate()
+        logs.append(f"--- {src.name}\n{err}")
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    try:
+        if not errors:
+            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                errors.append(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    if errors:
+        raise RuntimeError("\n".join(errors))
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, file=sys.stderr, flush=True)
+        print("\n".join(logs), file=sys.stderr, flush=True)
     os.replace(tmp, out)
     return out
 

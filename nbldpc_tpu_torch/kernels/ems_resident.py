@@ -1,0 +1,117 @@
+"""Whole-decode resident EMS (q <= 32, classic merge): CUDA kernel + plain version.
+
+The same decode as the JAX package's resident EMS kernel:
+  prior = llr - max_q llr;  post = prior;  lc = 0        (lc in c-domain)
+  per iteration, per edge e = (m, j) with variable v and weight h:
+    Ve    = post[v] - lc[e], minus its max over q
+    U(x)  = Ve(h^-1 x)                       (gather through perm_down);
+            pad slots are forced to delta0 = (0, NEG, ...)
+    O     = classic EMS check-node update of the check's dc operands
+            (decoders/ems._cn_ems_core), then (O - max) + offset, min 0,
+            max NEG
+    lc[e](c) = O(h c)                        (gather through perm_up)
+  post[v] = prior[v] + sum of lc over v's edges, in vn_edge slot order
+  hard = argmax over q (ties to the lowest symbol), syndrome by syn_k bits.
+EMS has only adds and max, so the kernel, which adds in this association,
+gives the same hard decisions, done flags and iteration counts.
+
+`resident_decode` launches csrc/ems_resident.cu for a CUDA tensor and runs
+`decode_plain` for a CPU tensor. Both take llr [B, N, q] and return
+(hard [B, N] int32, done [B] bool, iters [B] int32).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nbldpc_tpu_torch.decoders import ems
+from nbldpc_tpu_torch.graph import TannerGraph
+from nbldpc_tpu_torch.kernels import qspa_resident as qr
+
+# threads of one block (one frame); checks run on groups of q lanes
+THREADS = 256
+MAX_DC = 32
+
+
+class ResidentEMS(qr.ResidentQSPA):
+    """Tables and options of one resident EMS decode configuration: the
+    resident QSPA's routing tables, with the EMS check-node update."""
+
+    def __init__(self, graph: TannerGraph, max_iters: int, nm: int | None = None,
+                 offset: float = 0.0, early_term: bool = True,
+                 stats_each_iter: bool = True):
+        if graph.dc_max > MAX_DC:
+            raise ValueError(f"the resident EMS decoder supports dc <= {MAX_DC}")
+        super().__init__(graph, max_iters, early_term, stats_each_iter)
+        self.nm = min(graph.q if nm is None else int(nm), graph.q)
+        if self.nm < 1:
+            raise ValueError(f"nm={nm} must be >= 1")
+        self.offset = float(offset)
+        g = graph
+        # state (prior, posterior, edge messages), hard decisions, and per
+        # q-lane group the dense backward partials B_0..B_{dc-3} of its check
+        groups = THREADS // g.q
+        self.smem_bytes = ((2 * g.n + g.m * g.dc_max) * g.q + g.n
+                           + groups * max(g.dc_max - 2, 0) * g.q) * 4
+
+    def _iteration(self, prior, post, lc):
+        """One EMS iteration on [rows, q, B] tensors; returns (post, lc)."""
+        g = self.graph
+        q, m, dc = g.q, g.m, g.dc_max
+        B = prior.shape[-1]
+        U = self._down(post, lc)
+        U = U - U.amax(dim=1, keepdim=True)
+        if g.has_cn_pads:
+            d0 = ems._delta0(q, U.device).view(q, 1)
+            U = torch.where(self._real[:, None, None], U, d0)
+        O = torch.stack(ems._cn_ems_core(list(U.view(m, dc, q, B).unbind(1)), self.nm), 1)
+        return self._up(prior, ems._postprocess(O, self.offset, dim=2).reshape(-1, B))
+
+
+def decode_plain(dec: ResidentEMS, llr: torch.Tensor):
+    """Plain PyTorch resident EMS decode: llr [B, N, q] -> (hard, done, iters)."""
+    decode_plain.calls += 1
+    return qr.run_plain(dec, llr)
+
+
+decode_plain.calls = 0
+
+
+def resident_decode(dec: ResidentEMS, llr: torch.Tensor):
+    """Resident EMS decode of llr [B, N, q] f32: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    g = dec.graph
+    if llr.device.type == "cpu":
+        return decode_plain(dec, llr)
+    hard, done, iters = qr.checked_outputs(dec, llr, "resident_decode")
+    if llr.shape[0] == 0:
+        return hard, done, iters
+    from nbldpc_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    with torch.cuda.device(llr.device):
+        rc = lib.ems_resident_decode(
+            llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
+            llr.shape[0], g.n, g.m, g.dc_max, g.dv_max, g.q, dec.nm, dec.offset,
+            dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(), dec.perm_down.data_ptr(),
+            dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(),
+            dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),
+            _build.stream_ptr(llr.device))
+    _build.check(rc, "ems_resident_decode")
+    resident_decode.launches += 1
+    return hard, done, iters
+
+
+resident_decode.launches = 0
+
+
+def get_resident_ems(graph: TannerGraph, max_iters: int, nm: int, offset: float,
+                     early_term: bool, stats_each_iter: bool = True) -> ResidentEMS:
+    """A ResidentEMS for this configuration, cached on the graph."""
+    key = ("ems", int(max_iters), int(nm), float(offset), bool(early_term),
+           bool(stats_each_iter))
+    cache = graph.__dict__.setdefault("_resident_cache", {})
+    if key not in cache:
+        cache[key] = ResidentEMS(graph, max_iters, nm, offset, early_term,
+                                 stats_each_iter)
+    return cache[key]

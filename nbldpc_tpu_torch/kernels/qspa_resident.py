@@ -77,14 +77,31 @@ class ResidentQSPA:
 
     # ---- plain version ----------------------------------------------------
 
+    def _down(self, post, lc):
+        """x-domain edge inputs [E, q, B]: post[v](h^-1 x) - lc[e](h^-1 x)."""
+        B = post.shape[-1]
+        return (post.reshape(-1, B).index_select(0, self._idx_post)
+                - lc.reshape(-1, B).index_select(0, self._idx_lc)).view(-1, self.graph.q, B)
+
+    def _up(self, prior, lcx):
+        """x-domain edge outputs [E * q, B] -> (post, c-domain lc): post sums
+        each variable's messages in vn_edge slot order."""
+        g = self.graph
+        lc = lcx.index_select(0, self._idx_up).view(g.m * g.dc_max, g.q, -1)
+        acc = None
+        for s in range(g.dv_max):
+            vals = lc.index_select(0, self._vn_edge[:, s])
+            if g.has_vn_pads:
+                vals = torch.where(g.vn_mask[:, s, None, None], vals, 0.0)
+            acc = vals if acc is None else acc + vals
+        return prior + acc, lc
+
     def _iteration(self, prior, post, lc):
         """One BP iteration on [rows, q, B] tensors; returns (post, lc)."""
         g = self.graph
         q, m, dc = g.q, g.m, g.dc_max
         B = prior.shape[-1]
-        U = (post.reshape(-1, B).index_select(0, self._idx_post)
-             - lc.reshape(-1, B).index_select(0, self._idx_lc)).view(-1, q, B)
-        Ex = torch.exp(U)
+        Ex = torch.exp(self._down(post, lc))
         S = Ex[:, self.n2e_list[0]]
         for k in self.n2e_list[1:]:
             S = S + Ex[:, k]
@@ -107,20 +124,12 @@ class ResidentQSPA:
             runp = F[:, j] if runp is None else runp * F[:, j]
             W = wht_axis(G, axis=1)
             outs.append(torch.log(torch.clamp_min(W * (1.0 / q), PROB_FLOOR)))
-        lcx = torch.stack(outs, dim=1).reshape(-1, B)            # x-domain
-        lc = lcx.index_select(0, self._idx_up).view(m * dc, q, B)  # c-domain
-        acc = None
-        for s in range(g.dv_max):
-            vals = lc.index_select(0, self._vn_edge[:, s])
-            if g.has_vn_pads:
-                vals = torch.where(g.vn_mask[:, s, None, None], vals, 0.0)
-            acc = vals if acc is None else acc + vals
-        return prior + acc, lc
+        return self._up(prior, torch.stack(outs, dim=1).reshape(-1, B))
 
 
-def decode_plain(dec: ResidentQSPA, llr: torch.Tensor):
-    """Plain PyTorch resident decode: llr [B, N, q] -> (hard, done, iters)."""
-    decode_plain.calls += 1
+def run_plain(dec, llr: torch.Tensor):
+    """The resident decode loop in plain PyTorch around dec._iteration:
+    llr [B, N, q] -> (hard, done, iters)."""
     g = dec.graph
     B = llr.shape[0]
     prior = llr.permute(1, 2, 0).to(torch.float32)
@@ -149,7 +158,31 @@ def decode_plain(dec: ResidentQSPA, llr: torch.Tensor):
     return hard.T.contiguous(), done, iters
 
 
+def decode_plain(dec: ResidentQSPA, llr: torch.Tensor):
+    """Plain PyTorch resident decode: llr [B, N, q] -> (hard, done, iters)."""
+    decode_plain.calls += 1
+    return run_plain(dec, llr)
+
+
 decode_plain.calls = 0
+
+
+def checked_outputs(dec, llr: torch.Tensor, name: str):
+    """Check llr for a resident kernel; allocate its (hard, done, iters)."""
+    g = dec.graph
+    if llr.device != dec.cn_vn.device:
+        raise ValueError(f"llr on {llr.device}, graph tables on {dec.cn_vn.device}")
+    if (llr.dtype != torch.float32 or llr.ndim != 3 or not llr.is_contiguous()
+            or llr.shape[1:] != (g.n, g.q)):
+        raise ValueError(
+            f"{name}: llr must be a contiguous [B, {g.n}, {g.q}] float32 tensor")
+    if dec.smem_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: a frame needs {dec.smem_bytes} B of "
+                         f"shared memory, more than {MAX_SMEM_BYTES}")
+    B = llr.shape[0]
+    return (torch.empty((B, g.n), dtype=torch.int32, device=llr.device),
+            torch.empty(B, dtype=torch.bool, device=llr.device),
+            torch.empty(B, dtype=torch.int32, device=llr.device))
 
 
 def resident_decode(dec: ResidentQSPA, llr: torch.Tensor):
@@ -158,26 +191,16 @@ def resident_decode(dec: ResidentQSPA, llr: torch.Tensor):
     g = dec.graph
     if llr.device.type == "cpu":
         return decode_plain(dec, llr)
-    if llr.device != dec.cn_vn.device:
-        raise ValueError(f"llr on {llr.device}, graph tables on {dec.cn_vn.device}")
-    if (llr.dtype != torch.float32 or llr.ndim != 3 or not llr.is_contiguous()
-            or llr.shape[1:] != (g.n, g.q)):
-        raise ValueError(
-            f"resident_decode: llr must be a contiguous [B, {g.n}, {g.q}] float32 tensor")
-    if dec.smem_bytes > MAX_SMEM_BYTES:
-        raise ValueError(f"resident_decode: a frame needs {dec.smem_bytes} B of "
-                         f"shared memory, more than {MAX_SMEM_BYTES}")
+    hard, done, iters = checked_outputs(dec, llr, "resident_decode")
+    if llr.shape[0] == 0:
+        return hard, done, iters
     from nbldpc_tpu_torch.kernels import _build
 
     lib = _build.library()
-    B = llr.shape[0]
-    hard = torch.empty((B, g.n), dtype=torch.int32, device=llr.device)
-    done = torch.empty(B, dtype=torch.bool, device=llr.device)
-    iters = torch.empty(B, dtype=torch.int32, device=llr.device)
     with torch.cuda.device(llr.device):
         rc = lib.qspa_resident_decode(
             llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
-            B, g.n, g.m, g.dc_max, g.dv_max, g.q,
+            llr.shape[0], g.n, g.m, g.dc_max, g.dv_max, g.q,
             dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(), dec.perm_down.data_ptr(),
             dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(), dec.n2e.data_ptr(),
             dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),

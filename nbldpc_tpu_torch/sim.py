@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init
-from nbldpc_tpu_torch.decoders import qspa
+from nbldpc_tpu_torch.decoders import ems, qspa
 from nbldpc_tpu_torch.gf import get_field
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.utils.config import DecoderConfig, RunConfig
@@ -34,7 +34,13 @@ def get_decode_fn(dec: DecoderConfig, cn_impl: str = "auto"):
             graph, llr, dec.max_iters, dec.early_term, cn_impl=cn_impl,
             mm_precision=dec.mm_precision, stats_each_iter=dec.stats_each_iter,
         )
-    if dec.kind in ("ems", "tems"):
+    if dec.kind == "ems":
+        return lambda graph, llr: ems.decode(
+            graph, llr, dec.max_iters, nm=dec.nm, offset=dec.offset,
+            early_term=dec.early_term, cn_impl=cn_impl,
+            stats_each_iter=dec.stats_each_iter, merge=dec.ems_merge,
+        )
+    if dec.kind == "tems":
         raise NotImplementedError(
             f"decoder {dec.kind!r} is not ported yet (ROADMAP queue 1)")
     raise ValueError(f"unknown decoder kind {dec.kind!r}")

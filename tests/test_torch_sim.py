@@ -143,7 +143,7 @@ def test_sim_step_counts_and_generator(small_codes):
     with pytest.raises(NotImplementedError, match="encode.py"):
         sim.make_sim_step(g, dec, 8, 1, zero_codeword=False)
     with pytest.raises(NotImplementedError, match="not ported"):
-        sim.make_sim_step(g, dataclasses.replace(dec, kind="ems"), 8, 1)
+        sim.make_sim_step(g, dataclasses.replace(dec, kind="tems"), 8, 1)
 
 
 def test_cli_refusals(tiny_alist):
