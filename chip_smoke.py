@@ -12,15 +12,22 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 their plain version, exact to 0.0
   6. ems_resident - the whole-decode EMS kernel against its plain version,
                 in the modes of phase 4 and at nm = 8; agreement 1.0
-  7. main     - `nbldpc_tpu_torch.cli.main(["run", ...])` at the flagship
+  7. cn_tems  - the T-EMS check-node kernel against its plain version at
+                GF(16), GF(64) (BASELINE config 4's shape, exact scan and
+                n_r = 8) and GF(256), exact to 0.0
+  8. main     - `nbldpc_tpu_torch.cli.main(["run", ...])` at the flagship
                 config plus a GF(64) run (the check-node kernel's path),
                 with every launch counter read around it; FER held to the
                 JAX package's recorded statistics
-  8. main_ems - `cli.main(["run", ...])` on the three EMS paths: GF(16) EMS
+  9. main_ems - `cli.main(["run", ...])` on the three EMS paths: GF(16) EMS
                 (resident kernel), GF(256) classic and bubble EMS (check-node
                 kernels), each held to its JAX FER record
-  9. bench    - sim-step throughput, resident kernels and plain torch paths,
-                QSPA and EMS
+ 10. main_tems - `cli.main(["run", ...])` on BASELINE config 4
+                (configs/gf64_tems_earlyterm.json, 1024 frames per step):
+                path D at its n_r = 8, path E with the exact scan, each
+                held to its JAX FER record
+ 11. bench    - sim-step throughput, kernel paths and plain torch paths,
+                QSPA, EMS and T-EMS
 Then the kernels summary, the card line, and the final status line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -215,11 +222,35 @@ def phase_resident(device):
     return result
 
 
-def phase_cn_ems(device):
-    """K2 (classic) and K2b (bubble) against their plain versions on the
-    same U: max abs error must be 0.0 and every output finite."""
+def _hold_cn(phase: str, device, code: str, B: int, kern, plain, args, **label) -> dict:
+    """A check-node kernel against its plain version on the same U, timed
+    plain, kernel, kernel, plain: max abs error must be 0.0 and every output
+    finite."""
     import torch
 
+    U = _u_for(_graph(code, device), B, device)
+    out = kern(U, *args)
+    ref = plain(U, *args)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    finite = bool(torch.isfinite(out).all())
+    p1 = cuda_ms(lambda: plain(U, *args), 1)
+    k1 = cuda_ms(lambda: kern(U, *args), 10)
+    k2 = cuda_ms(lambda: kern(U, *args), 10)
+    p2 = cuda_ms(lambda: plain(U, *args), 1)
+    row = {"phase": phase, **label, "shape": list(U.shape), "max_abs_err": err,
+           "finite": finite, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+           "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
+    emit(row)
+    if not finite:
+        fail(f"{phase} {label} {list(U.shape)}: non-finite outputs")
+    if err != 0.0:
+        fail(f"{phase} {label} {list(U.shape)}: max abs err {err} != 0.0")
+    return row
+
+
+def phase_cn_ems(device):
+    """K2 (classic) and K2b (bubble) against their plain versions."""
     from nbldpc_tpu_torch.kernels import cn_ems
 
     classic = (cn_ems.cn_update, cn_ems.cn_update_plain)
@@ -231,26 +262,9 @@ def phase_cn_ems(device):
              ("gf256_n255_k175", 512, "bubble", bubble, 16, 0.0)]
     rows = {}
     for code, B, merge, (kern, plain), nm, offset in cases:
-        U = _u_for(_graph(code, device), B, device)
-        out = kern(U, nm, offset)
-        ref = plain(U, nm, offset)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        finite = bool(torch.isfinite(out).all())
-        p1 = cuda_ms(lambda: plain(U, nm, offset), 1)
-        k1 = cuda_ms(lambda: kern(U, nm, offset), 10)
-        k2 = cuda_ms(lambda: kern(U, nm, offset), 10)
-        p2 = cuda_ms(lambda: plain(U, nm, offset), 1)
-        row = {"phase": "cn_ems", "merge": merge, "shape": list(U.shape), "nm": nm,
-               "offset": offset, "max_abs_err": err, "finite": finite,
-               "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-               "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
-        emit(row)
-        if not finite:
-            fail(f"cn_ems {merge} {list(U.shape)}: non-finite outputs")
-        if err != 0.0:
-            fail(f"cn_ems {merge} {list(U.shape)}: max abs err {err} != 0.0")
-        rows.setdefault(merge, []).append(row)
+        rows.setdefault(merge, []).append(_hold_cn(
+            "cn_ems", device, code, B, kern, plain, (nm, offset),
+            merge=merge, nm=nm, offset=offset))
     return rows
 
 
@@ -302,9 +316,21 @@ def phase_ems_resident(device):
     return result
 
 
+def phase_cn_tems(device):
+    """K5 against its plain version (offset 2.0, config 4's) at GF(16),
+    config 4's shape with the exact scan and n_r = 8, and GF(256)."""
+    from nbldpc_tpu_torch.kernels import cn_tems
+
+    cases = [("gf16_n204_k102", 8192, 0), ("gf64_n576_k480", 1024, 0),
+             ("gf64_n576_k480", 1024, 8), ("gf256_n255_k175", 512, 8)]
+    return [_hold_cn("cn_tems", device, code, B, cn_tems.cn_update,
+                     cn_tems.cn_update_plain, (2.0, n_r), n_r=n_r, offset=2.0)
+            for code, B, n_r in cases]
+
+
 def _counted():
     """(name, function, attribute) of every kernel wrapper and plain version."""
-    from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa
+    from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems
     from nbldpc_tpu_torch.kernels import ems_resident as er
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
@@ -317,7 +343,9 @@ def _counted():
             ("cn_ems", cn_ems.cn_update, "launches"),
             ("cn_ems_plain", cn_ems.cn_update_plain, "calls"),
             ("cn_ems_bubble", cn_ems.cn_update_bubble, "launches"),
-            ("cn_ems_bubble_plain", cn_ems.cn_update_bubble_plain, "calls")]
+            ("cn_ems_bubble_plain", cn_ems.cn_update_bubble_plain, "calls"),
+            ("cn_tems", cn_tems.cn_update, "launches"),
+            ("cn_tems_plain", cn_tems.cn_update_plain, "calls")]
 
 
 def _counters():
@@ -379,39 +407,50 @@ def phase_main(main_b64: int):
     return counts
 
 
-# The EMS paths through the user's entry point: (name, cli arguments, the
-# kernel it must launch, JAX FER record in fer_curves_r5.json, Eb/N0 of the
-# comparison).
+# Paths through the user's entry point: (name, cli arguments, the kernel it
+# must launch, JAX FER record in fer_curves_r5.json, Eb/N0 of the
+# comparison, frames per SNR point).
 EMS_PATHS = [
     ("A_gf16_ems_resident",
      ["--config", "configs/gf16_ems_nm16.json", "--snr", "1.5", "2.0", "--iters", "20",
       "--set", "sim.frames_per_step=4096", "--set", "sim.max_frames=8192"],
-     "ems_resident", "gf16_ems_nm16_20it", 1.5),
+     "ems_resident", "gf16_ems_nm16_20it", 1.5, 8192),
     ("B_gf256_ems_classic",
      ["--code", "gf256_n255_k175", "--decoder", "ems", "--set", "decoder.nm=16",
       "--set", "decoder.offset=0.1", "--iters", "10", "--snr", "2.5",
       "--set", "sim.frames_per_step=512", "--set", "sim.max_frames=2048"],
-     "cn_ems", "gf256_ems_nm16_10it", 2.5),
+     "cn_ems", "gf256_ems_nm16_10it", 2.5, 2048),
     ("C_gf256_ems_bubble",
      ["--code", "gf256_n255_k175", "--decoder", "ems", "--set", "decoder.nm=16",
       "--set", "decoder.ems_merge=bubble", "--set", "decoder.offset=0.0",
       "--iters", "10", "--snr", "2.5",
       "--set", "sim.frames_per_step=512", "--set", "sim.max_frames=2048"],
-     "cn_ems_bubble", "gf256_ems_bubble_10it", 2.5),
+     "cn_ems_bubble", "gf256_ems_bubble_10it", 2.5, 2048),
+]
+# BASELINE config 4 as it stands (n_r = 8, offset 2.0, 20 iterations, early
+# termination, 1024 frames per step), then with the exact scan
+_TEMS_ARGS = ["--config", "configs/gf64_tems_earlyterm.json", "--snr", "3.0", "3.5",
+              "--set", "sim.max_frames=12288"]
+TEMS_PATHS = [
+    ("D_gf64_tems_nr8", _TEMS_ARGS, "cn_tems", "gf64_tems_nr8_20it", 3.5, 12288),
+    ("E_gf64_tems_exact", [*_TEMS_ARGS, "--set", "decoder.tems_nr=0"],
+     "cn_tems", "gf64_tems_20it", 3.5, 12288),
 ]
 
 
-def phase_main_ems():
-    """The three EMS paths through cli.main, counters zeroed just before
-    each and read just after: the path's kernel launched, no plain version
-    ran, and the FER is consistent with the JAX record (|z| < 3.3)."""
+def phase_paths(phase: str, paths):
+    """Paths through cli.main, counters zeroed just before each and read
+    just after: the path's kernel launched, no plain version ran, FER falls
+    from the first SNR point to the second, and the FER is consistent with
+    the JAX record (|z| < 3.3). Returns each kernel's launches, summed over
+    its paths."""
     from nbldpc_tpu_torch import cli
 
     out_dir = ROOT / "build" / "nbldpc_tpu_torch"
     out_dir.mkdir(parents=True, exist_ok=True)
     records = json.loads((ROOT / "benchmarks/results/fer_curves_r5.json").read_text())
     launches = {}
-    for name, args, kernel, ref_name, snr in EMS_PATHS:
+    for name, args, kernel, ref_name, snr, frames in paths:
         rep = out_dir / f"smoke_{name}.json"
         _reset_counters()
         t0 = time.perf_counter()
@@ -425,7 +464,7 @@ def phase_main_ems():
         k_ref, n_ref = ref["frame_errors"][i_ref], ref["frames"][i_ref]
         i = r["ebn0_db"].index(snr)
         z = two_prop_z(r["frame_errors"][i], r["frames"][i], k_ref, n_ref)
-        emit({"phase": "main_ems", "path": name, "launches": counts, "seconds": seconds,
+        emit({"phase": phase, "path": name, "launches": counts, "seconds": seconds,
               "ebn0_db": r["ebn0_db"], "fer": r["fer"], "frames": r["frames"],
               "frame_errors": r["frame_errors"], "avg_iters": r["avg_iters"],
               "reference": [ref_name, snr, k_ref, n_ref], "z_vs_reference": z})
@@ -436,14 +475,14 @@ def phase_main_ems():
         ran_plain = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
         if ran_plain:
             fail(f"{name}: a plain version ran on the path: {ran_plain}")
-        want = 8192 if kernel == "ems_resident" else 2048
-        if not all(0.0 <= f <= 1.0 for f in r["fer"]) or set(r["frames"]) != {want}:
+        if not all(0.0 <= f <= 1.0 for f in r["fer"]) or set(r["frames"]) != {frames}:
             fail(f"{name}: bad report {r}")
         if len(r["fer"]) > 1 and not r["fer"][1] < r["fer"][0]:
-            fail(f"{name}: FER(2.0 dB) {r['fer'][1]} not below FER(1.5 dB) {r['fer'][0]}")
+            fail(f"{name}: FER({r['ebn0_db'][1]} dB) {r['fer'][1]} not below "
+                 f"FER({r['ebn0_db'][0]} dB) {r['fer'][0]}")
         if not abs(z) < 3.3:
             fail(f"{name}: FER at {snr} dB inconsistent with {ref_name}: z = {z}")
-        launches[kernel] = counts[kernel]
+        launches[kernel] = launches.get(kernel, 0) + counts[kernel]
     return launches
 
 
@@ -451,10 +490,9 @@ def phase_bench(card: str):
     from nbldpc_tpu_torch import bench
 
     rows = []
-    for code, kind in [(c, "qspa") for c in bench.CODES] + [(bench.EMS_CODE, "ems")]:
-        for impl in ("torch", "resident", "resident", "torch"):
-            rec = bench.measure(code, impl, reps=10 if impl == "resident" else 3,
-                                kind=kind)
+    for code, kind, (fast, plain) in bench.ROWS:
+        for impl in (plain, fast, fast, plain):
+            rec = bench.measure(code, impl, reps=10 if impl == fast else 3, kind=kind)
             rec.update(phase="bench", card=card)
             emit(rec)
             rows.append(rec)
@@ -483,8 +521,10 @@ def main() -> int:
     res = phase_resident(device)
     ems_rows = phase_cn_ems(device)
     ems_res = phase_ems_resident(device)
+    tems_rows = phase_cn_tems(device)
     counts = phase_main(main_b64)
-    counts.update(phase_main_ems())
+    counts.update(phase_paths("main_ems", EMS_PATHS))
+    counts.update(phase_paths("main_tems", TEMS_PATHS))
     phase_bench(card)
 
     k1 = cn_rows[0]
@@ -513,6 +553,13 @@ def main() -> int:
           for name, merge, replaces in (
               ("cn_ems", "classic", "nbldpc_tpu/kernels/cn_ems.py:91"),
               ("cn_ems_bubble", "bubble", "nbldpc_tpu/kernels/cn_ems.py:101"))),
+        {"name": "cn_tems", "route": "cuda",
+         "source": "nbldpc_tpu_torch/csrc/cn_tems.cu",
+         "replaces": "nbldpc_tpu/kernels/cn_tems.py:33",
+         "launches": counts["cn_tems"],
+         "max_abs_err": max(r["max_abs_err"] for r in tems_rows),
+         # BASELINE config 4's check-node shape and n_r, the main path's
+         "ms": tems_rows[2]["ms"], "plain_ms": tems_rows[2]["plain_ms"]},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,17 +1,21 @@
 """Throughput benchmark on one GPU: decoded coded symbols/s and frames/s.
 
 The timed unit is the full sim step (noise -> llr_init -> decode -> error
-counters) at the fixed 50-iteration budget in throughput mode
-(early_term=False, stats_each_iter=False), f32, B = 8192 frames, all-zero
-codeword, sigma = 0.63 (about 2 dB at rate 1/2). Steps run back to back
-after warm-up and are timed with CUDA events. QSPA runs on CODES, EMS
-(nm = 16, offset 0.3, BASELINE config 3's decoder) on EMS_CODE, under the
-same conditions, so the two decoders' symbols/s compare directly.
+counters) at a fixed iteration budget in throughput mode
+(early_term=False, stats_each_iter=False), f32, all-zero codeword. Steps run
+back to back after warm-up and are timed with CUDA events. Each decoder
+kind has its own batch, budget and noise (DECODERS):
+  qspa - CODES, B = 8192, 50 iterations, sigma = 0.63 (about 2 dB at rate 1/2);
+  ems  - EMS_CODE under the same conditions (nm = 16, offset 0.3, BASELINE
+         config 3's decoder), so its symbols/s compare with QSPA's directly;
+  tems - TEMS_CODE at BASELINE config 4's decoder and batch
+         (configs/gf64_tems_earlyterm.json: n_r = 8, offset 2.0, B = 1024,
+         20 iterations), sigma from 3.5 dB.
 
     python -m nbldpc_tpu_torch bench
 
 prints the card's name and power limit, then one JSON line per
-(code, implementation).
+(code, decoder, implementation) of ROWS.
 """
 
 from __future__ import annotations
@@ -21,16 +25,25 @@ import subprocess
 
 import torch
 
+from nbldpc_tpu_torch.channel import ebn0_to_sigma
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.sim import make_sim_step, step_generator
 from nbldpc_tpu_torch.utils.config import CodeConfig, DecoderConfig
 
 CODES = ("gf16_n204_k102_c8", "gf16_n204_k102")
 EMS_CODE = "gf16_n204_k102"
-EMS_NM, EMS_OFFSET = 16, 0.3
-BATCH = 8192
-ITERS = 50
-SIGMA = 0.63
+TEMS_CODE = "gf64_n576_k480"
+# per decoder kind: frames per step, iteration budget, noise (sigma, or
+# Eb/N0 in dB at the code's rate) and the DecoderConfig fields it sets
+DECODERS = {
+    "qspa": dict(batch=8192, iters=50, sigma=0.63, config={}),
+    "ems": dict(batch=8192, iters=50, sigma=0.63, config=dict(nm=16, offset=0.3)),
+    "tems": dict(batch=1024, iters=20, ebn0_db=3.5, config=dict(tems_nr=8, offset=2.0)),
+}
+# (code, decoder kind, implementations) in the order `bench` runs them
+ROWS = ([(c, "qspa", ("resident", "torch")) for c in CODES]
+        + [(EMS_CODE, "ems", ("resident", "torch")),
+           (TEMS_CODE, "tems", ("kernel", "torch"))])
 
 
 def card_info() -> str:
@@ -41,18 +54,20 @@ def card_info() -> str:
 
 
 def measure(code: str, cn_impl: str, reps: int = 10, kind: str = "qspa") -> dict:
-    """Time `reps` sim steps of decoder `kind` ("qspa" or "ems") on the
+    """Time `reps` sim steps of decoder `kind` (a key of DECODERS) on the
     current CUDA device after two warm-up steps; one result record."""
     if not torch.cuda.is_available():
         raise RuntimeError("bench.measure needs a CUDA device")
     device = torch.device("cuda", torch.cuda.current_device())
     spec = CodeConfig(name=code).load()
     graph = TannerGraph(spec, device=device)
-    dec = DecoderConfig(kind=kind, max_iters=ITERS, early_term=False,
-                        stats_each_iter=False, mm_precision="f32",
-                        nm=EMS_NM, offset=EMS_OFFSET if kind == "ems" else 0.0)
-    step = make_sim_step(graph, dec, BATCH, 1, cn_impl=cn_impl)
-    sig = torch.tensor([SIGMA], dtype=torch.float32, device=device)
+    s = DECODERS[kind]
+    batch, iters = s["batch"], s["iters"]
+    sigma = s["sigma"] if "sigma" in s else float(ebn0_to_sigma(s["ebn0_db"], spec.k / spec.n))
+    dec = DecoderConfig(kind=kind, max_iters=iters, early_term=False,
+                        stats_each_iter=False, mm_precision="f32", **s["config"])
+    step = make_sim_step(graph, dec, batch, 1, cn_impl=cn_impl)
+    sig = torch.tensor([sigma], dtype=torch.float32, device=device)
     for t in range(2):
         step(step_generator(0, 1000 + t, device), sig)
     torch.cuda.synchronize(device)
@@ -69,11 +84,12 @@ def measure(code: str, cn_impl: str, reps: int = 10, kind: str = "qspa") -> dict
         "code": code,
         "decoder": kind,
         "cn_impl": cn_impl,
-        "batch": BATCH,
-        "iters": ITERS,
+        "batch": batch,
+        "iters": iters,
+        "sigma": sigma,
         "ms_per_step": ms,
-        "symbols_per_s": BATCH * spec.n / (ms * 1e-3),
-        "frames_per_s": BATCH / (ms * 1e-3),
+        "symbols_per_s": batch * spec.n / (ms * 1e-3),
+        "frames_per_s": batch / (ms * 1e-3),
         "frame_errors_last_step": int(out["frame_errors"][0]),
         "device": torch.cuda.get_device_name(device),
     }
@@ -83,8 +99,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("the benchmark needs a CUDA device")
     print(card_info(), flush=True)
-    for code, kind in [(c, "qspa") for c in CODES] + [(EMS_CODE, "ems")]:
-        for impl in ("resident", "torch"):
+    for code, kind, impls in ROWS:
+        for impl in impls:
             print(json.dumps(measure(code, impl, kind=kind)), flush=True)
     return 0
 

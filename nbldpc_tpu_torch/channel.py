@@ -58,3 +58,19 @@ def llr_init(y: torch.Tensor, sigma, q: int) -> torch.Tensor:
 def transmit(gen: torch.Generator, codeword: torch.Tensor, sigma, q: int) -> torch.Tensor:
     """codeword [..., N] -> llr [..., N, q]: modulate + AWGN + LLR init."""
     return llr_init(awgn(gen, modulate(codeword, q), sigma), sigma, q)
+
+
+def inject_errors(codeword: torch.Tensor, positions, values, q: int) -> torch.Tensor:
+    """Deterministic symbol corruption (fault injection for decoder tests):
+    XOR-add GF error values at the given positions of the last axis."""
+    err = torch.zeros_like(codeword)
+    err[..., torch.as_tensor(positions, dtype=torch.long)] = torch.as_tensor(
+        values, dtype=codeword.dtype, device=codeword.device)
+    return codeword ^ err
+
+
+def perfect_llr(codeword: torch.Tensor, q: int, confidence: float = 40.0) -> torch.Tensor:
+    """Noiseless LLRs for a codeword [..., N] -> [..., N, q]: 0 at the
+    codeword's symbol, -confidence elsewhere."""
+    onehot = torch.nn.functional.one_hot(codeword.long(), q).to(torch.float32)
+    return confidence * (onehot - 1.0)

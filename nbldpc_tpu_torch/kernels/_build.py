@@ -38,6 +38,8 @@ SIGNATURES = {
     # U, out, M, dc, q, B, nm, offset, stream
     "cn_ems_update": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "cn_ems_update_bubble": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # U, out, M, dc, q, B, n_r, offset, stream
+    "cn_tems_update": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "qspa_resident_decode": [_P, _P, _P, _P,            # llr, hard, done, iters
                              _I, _I, _I, _I, _I, _I,    # B N M dc dv q
                              _P, _P, _P, _P, _P, _P,    # tables
@@ -48,6 +50,12 @@ SIGNATURES = {
                             _P, _P, _P, _P, _P,         # tables
                             _I, _I, _I, _P],            # iters, modes, stream
 }
+
+# the field sizes the check-node kernels (cn_ems, cn_tems) take, and their
+# largest check degree (32-bit column masks, 32-entry column tables)
+QS = (2, 4, 8, 16, 32, 64, 128, 256)
+MAX_DC = 32
+
 
 def nvcc_path() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -134,3 +142,39 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_cn_input(name: str, U, min_dc: int) -> tuple:
+    """Validate a check-node kernel's input U [M, dc, q, B] and return its
+    shape. Raises ValueError for a tensor off the card, a dtype other than
+    float32, a non-contiguous tensor, q outside QS or dc outside
+    [min_dc, MAX_DC]."""
+    import torch
+
+    if U.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {U.device}")
+    if U.dtype != torch.float32 or U.ndim != 4 or not U.is_contiguous():
+        raise ValueError(f"{name}: U must be a contiguous [M, dc, q, B] float32 tensor")
+    M, dc, q, B = U.shape
+    if q not in QS:
+        raise ValueError(f"{name}: q={q} unsupported")
+    if not min_dc <= dc <= MAX_DC:
+        raise ValueError(f"{name}: dc={dc} outside [{min_dc}, {MAX_DC}]")
+    return M, dc, q, B
+
+
+def launch_cn(wrapper, name: str, U, *args):
+    """Launch the C entry point `name`(U, out, M, dc, q, B, *args, stream) on
+    a checked U, count the launch on `wrapper.launches` and return out."""
+    import torch
+
+    lib = library()
+    out = torch.empty_like(U)
+    if U.numel() == 0:
+        return out
+    with torch.cuda.device(U.device):
+        rc = getattr(lib, name)(U.data_ptr(), out.data_ptr(), *U.shape, *args,
+                                stream_ptr(U.device))
+    check(rc, name)
+    wrapper.launches += 1
+    return out

@@ -14,10 +14,7 @@ from __future__ import annotations
 import torch
 
 from nbldpc_tpu_torch.decoders import ems
-
-# largest check degree the kernels take (their per-thread masks are 32 bits)
-MAX_DC = 32
-QS = (2, 4, 8, 16, 32, 64, 128, 256)
+from nbldpc_tpu_torch.kernels import _build
 
 
 def cn_update_plain(U: torch.Tensor, nm: int, offset: float) -> torch.Tensor:
@@ -38,30 +35,10 @@ cn_update_bubble_plain.calls = 0
 
 def _launch(wrapper, name: str, U: torch.Tensor, nm: int, offset: float) -> torch.Tensor:
     """Check U, launch the C entry point `name`, count the launch on `wrapper`."""
-    if U.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {U.device}")
-    if U.dtype != torch.float32 or U.ndim != 4 or not U.is_contiguous():
-        raise ValueError(f"{name}: U must be a contiguous [M, dc, q, B] float32 tensor")
-    M, dc, q, B = U.shape
-    if q not in QS:
-        raise ValueError(f"{name}: q={q} unsupported")
-    if not 2 <= dc <= MAX_DC:
-        raise ValueError(f"{name}: dc={dc} outside [2, {MAX_DC}]")
+    q = _build.check_cn_input(name, U, min_dc=2)[2]
     if nm < 1:
         raise ValueError(f"{name}: nm={nm} must be >= 1")
-    from nbldpc_tpu_torch.kernels import _build
-
-    lib = _build.library()
-    out = torch.empty_like(U)
-    if U.numel() == 0:
-        return out
-    with torch.cuda.device(U.device):
-        rc = getattr(lib, name)(U.data_ptr(), out.data_ptr(), M, dc, q, B,
-                                min(int(nm), q), float(offset),
-                                _build.stream_ptr(U.device))
-    _build.check(rc, name)
-    wrapper.launches += 1
-    return out
+    return _build.launch_cn(wrapper, name, U, min(int(nm), q), float(offset))
 
 
 def cn_update(U: torch.Tensor, nm: int, offset: float) -> torch.Tensor:

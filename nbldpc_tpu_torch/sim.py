@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init
-from nbldpc_tpu_torch.decoders import ems, qspa
+from nbldpc_tpu_torch.decoders import ems, qspa, tems
 from nbldpc_tpu_torch.gf import get_field
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.utils.config import DecoderConfig, RunConfig
@@ -41,8 +41,10 @@ def get_decode_fn(dec: DecoderConfig, cn_impl: str = "auto"):
             stats_each_iter=dec.stats_each_iter, merge=dec.ems_merge,
         )
     if dec.kind == "tems":
-        raise NotImplementedError(
-            f"decoder {dec.kind!r} is not ported yet (ROADMAP queue 1)")
+        return lambda graph, llr: tems.decode(
+            graph, llr, dec.max_iters, offset=dec.offset, early_term=dec.early_term,
+            cn_impl=cn_impl, stats_each_iter=dec.stats_each_iter, n_r=dec.tems_nr,
+        )
     raise ValueError(f"unknown decoder kind {dec.kind!r}")
 
 

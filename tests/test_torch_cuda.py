@@ -14,7 +14,7 @@ import torch
 
 from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init
 from nbldpc_tpu_torch.graph import TannerGraph
-from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa
+from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems
 from nbldpc_tpu_torch.kernels import ems_resident as er
 from nbldpc_tpu_torch.kernels import qspa_resident as qr
 from nbldpc_tpu_torch.utils.config import CodeConfig
@@ -147,3 +147,38 @@ def test_ems_wrappers_reject_bad_input(cuda_device):
             fn(torch.zeros((2, 4, 12, 8), device=cuda_device), 8, 0.0)
         with pytest.raises(ValueError):
             fn(torch.zeros((2, 1, 16, 8), device=cuda_device), 8, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code,n_r", [("gf16_n204_k102", 0), ("gf16_n204_k102", 8),
+                                      ("gf64_n576_k480", 0), ("gf64_n576_k480", 8),
+                                      ("gf256_n255_k175", 8)])
+def test_cn_tems_kernel_matches_plain(cuda_device, code, n_r):
+    g = _graph(code, cuda_device)
+    U = _random_u(g, 37, cuda_device)             # not a multiple of any tile
+    before = cn_tems.cn_update.launches
+    out = cn_tems.cn_update(U, 2.0, n_r)
+    assert cn_tems.cn_update.launches == before + 1
+    ref = cn_tems.cn_update_plain(U, 2.0, n_r)
+    assert bool(torch.isfinite(out).all())
+    # one add per candidate, the rest max and select: exact
+    assert float((out - ref).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cn_tems_wrapper_rejects_bad_input(cuda_device):
+    good = torch.zeros((2, 4, 16, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="device"):
+        cn_tems._launch(good.cpu(), 0.0, 0)                # the kernel takes no CPU tensor
+    for bad in (good.double(),                             # wrong dtype
+                good.transpose(0, 1),                      # not contiguous
+                torch.zeros((2, 2, 16, 8), device=cuda_device),    # dc < 3
+                torch.zeros((2, 4, 12, 8), device=cuda_device),    # q not a power of 2
+                torch.zeros((2, 4, 512, 8), device=cuda_device)):  # q above 256
+        with pytest.raises(ValueError):
+            cn_tems.cn_update(bad, 0.0, 0)
+    with pytest.raises(ValueError, match="n_r"):
+        cn_tems.cn_update(good, 0.0, 16)                   # n_r >= q
+    before = cn_tems.cn_update.launches
+    cn_tems.cn_update(good, 0.0, 15)
+    assert cn_tems.cn_update.launches == before + 1

@@ -17,7 +17,7 @@ from nbldpc_tpu.decoders import ems as jems
 from nbldpc_tpu.kernels.cn_ems import ems_cn_update_bl_pallas
 
 from nbldpc_tpu_torch import sim
-from nbldpc_tpu_torch.decoders import ems as tems
+from nbldpc_tpu_torch.decoders import ems as pems
 from nbldpc_tpu_torch.kernels import cn_ems
 from nbldpc_tpu_torch.utils import config as tcfg
 
@@ -45,7 +45,7 @@ def test_cn_classic_matches_jax(small_codes, highq_codes, q, nm):
     jg = jgraph.TannerGraph(_spec(small_codes, highq_codes, q))
     _, U = random_u(jg, B=6, seed=q + nm)
     want = np.asarray(jems.ems_cn_update_bl(jnp.asarray(U), jg, nm=nm, offset=0.3))
-    got = tems.ems_cn_update_bl(torch.from_numpy(U), None, nm=nm, offset=0.3).numpy()
+    got = pems.ems_cn_update_bl(torch.from_numpy(U), None, nm=nm, offset=0.3).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
@@ -56,14 +56,14 @@ def test_cn_bubble_matches_jax(highq_codes, q, nm):
     _, U = random_u(jg, B=6, seed=2 * q)
     want = np.asarray(jems.ems_cn_update_bl(jnp.asarray(U), jg, nm=nm, offset=0.1,
                                             merge="bubble"))
-    got = tems.ems_cn_update_bl(torch.from_numpy(U), None, nm=nm, offset=0.1,
+    got = pems.ems_cn_update_bl(torch.from_numpy(U), None, nm=nm, offset=0.1,
                                 merge="bubble").numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
 def test_bubble_pairs_and_candidates():
-    pairs = tems.bubble_pairs(16)
+    pairs = pems.bubble_pairs(16)
     assert pairs == jems.bubble_pairs(16)
     assert len(pairs) + min(2 * 16, 256) == 119      # K2b's candidate count
 
@@ -103,7 +103,7 @@ def test_decode_matches_jax(small_codes, code, mode):
     _, llr = noisy_llrs(spec, 16, 2.0, seed=3)
     kw = dict(max_iters=8, nm=8, offset=0.3, **MODES[mode])
     ref = jems.decode(jgraph.TannerGraph(spec), jnp.asarray(llr), use_pallas="no", **kw)
-    res = tems.decode(port_graph(spec), torch.from_numpy(llr), cn_impl="torch", **kw)
+    res = pems.decode(port_graph(spec), torch.from_numpy(llr), cn_impl="torch", **kw)
     _assert_same(res, ref)
 
 
@@ -113,7 +113,7 @@ def test_decode_bubble_matches_jax(highq_codes):
     kw = dict(max_iters=4, nm=8, offset=0.0, merge="bubble")
     ref = jems.decode(jgraph.TannerGraph(spec), jnp.asarray(llr), use_pallas="no", **kw)
     calls = cn_ems.cn_update_bubble_plain.calls
-    res = tems.decode(port_graph(spec), torch.from_numpy(llr), cn_impl="auto", **kw)
+    res = pems.decode(port_graph(spec), torch.from_numpy(llr), cn_impl="auto", **kw)
     assert cn_ems.cn_update_bubble_plain.calls > calls
     _assert_same(res, ref)
 
@@ -122,17 +122,17 @@ def test_dispatch(small_codes, highq_codes):
     g16 = port_graph(small_codes["gf16_tiny"])
     g64 = port_graph(highq_codes[64])
     llr16 = torch.zeros((2, g16.n, g16.q))
-    assert tems.pick_impl("auto", g16, llr16) == "torch"
-    assert tems.pick_impl("auto", g64, torch.zeros((2, g64.n, 64))) == "torch"
+    assert pems.pick_impl("auto", g16, llr16) == "torch"
+    assert pems.pick_impl("auto", g64, torch.zeros((2, g64.n, 64))) == "torch"
     for impl in ("resident", "kernel", "torch"):
-        assert tems.pick_impl(impl, g16, llr16) == impl
-    assert tems.pick_impl("kernel", g16, llr16, merge="bubble") == "kernel"
+        assert pems.pick_impl(impl, g16, llr16) == impl
+    assert pems.pick_impl("kernel", g16, llr16, merge="bubble") == "kernel"
     with pytest.raises(ValueError, match="classic"):
-        tems.pick_impl("resident", g16, llr16, merge="bubble")
+        pems.pick_impl("resident", g16, llr16, merge="bubble")
     with pytest.raises(ValueError):
-        tems.pick_impl("pallas", g16, llr16)
+        pems.pick_impl("pallas", g16, llr16)
     with pytest.raises(ValueError):
-        tems.pick_impl("auto", g16, llr16, merge="stack")
+        pems.pick_impl("auto", g16, llr16, merge="stack")
 
 
 def test_dispatch_auto_on_cuda_tensor(small_codes, highq_codes):
@@ -145,9 +145,9 @@ def test_dispatch_auto_on_cuda_tensor(small_codes, highq_codes):
     class Cuda:
         device = torch.device("cuda")
 
-    assert tems.pick_impl("auto", g16, Cuda) == "resident"
-    assert tems.pick_impl("auto", g16, Cuda, merge="bubble") == "kernel"
-    assert tems.pick_impl("auto", g64, Cuda) == "kernel"
+    assert pems.pick_impl("auto", g16, Cuda) == "resident"
+    assert pems.pick_impl("auto", g16, Cuda, merge="bubble") == "kernel"
+    assert pems.pick_impl("auto", g64, Cuda) == "kernel"
 
 
 def test_sim_step_ems_counts(small_codes):

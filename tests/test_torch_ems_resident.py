@@ -14,7 +14,7 @@ import nbldpc_tpu.graph as jgraph
 from nbldpc_tpu.kernels.ems_resident import ResidentEMS as JaxResidentEMS
 
 from nbldpc_tpu_torch.code import load_alist
-from nbldpc_tpu_torch.decoders import ems as tems
+from nbldpc_tpu_torch.decoders import ems as pems
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import cn_ems
 from nbldpc_tpu_torch.kernels import ems_resident as er
@@ -53,8 +53,8 @@ def test_resident_ems_matches_decode_bl(small_codes):
     g = port_graph(spec)
     _, llr = noisy_llrs(spec, 12, 2.0, seed=9)
     kw = dict(max_iters=6, nm=8, offset=0.3, early_term=True)
-    a = tems.decode(g, torch.from_numpy(llr), cn_impl="resident", **kw)
-    b = tems.decode(g, torch.from_numpy(llr), cn_impl="torch", **kw)
+    a = pems.decode(g, torch.from_numpy(llr), cn_impl="resident", **kw)
+    b = pems.decode(g, torch.from_numpy(llr), cn_impl="torch", **kw)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
 
@@ -63,7 +63,7 @@ def test_resident_ems_dispatch_caches_decoder(small_codes):
     g = port_graph(small_codes["gf16_tiny"])
     _, llr = noisy_llrs(small_codes["gf16_tiny"], 5, 2.5, seed=6)
     calls, cn_calls = er.decode_plain.calls, cn_ems.cn_update_plain.calls
-    res = tems.decode(g, torch.from_numpy(llr), max_iters=4, nm=8, cn_impl="resident")
+    res = pems.decode(g, torch.from_numpy(llr), max_iters=4, nm=8, cn_impl="resident")
     assert er.decode_plain.calls == calls + 1
     assert cn_ems.cn_update_plain.calls == cn_calls
     assert res.hard.shape == (5, g.n)           # any batch size, no tile rule

@@ -142,8 +142,12 @@ def test_sim_step_counts_and_generator(small_codes):
     assert np.all(a["converged"] <= 8) and np.all(a["bit_errors"] >= a["symbol_errors"])
     with pytest.raises(NotImplementedError, match="encode.py"):
         sim.make_sim_step(g, dec, 8, 1, zero_codeword=False)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        sim.make_sim_step(g, dataclasses.replace(dec, kind="tems"), 8, 1)
+    t_step = sim.make_sim_step(g, dataclasses.replace(dec, kind="tems", tems_nr=4), 8, 2)
+    t = sim.fetch(t_step(sim.step_generator(3, 7, "cpu"), sig))
+    assert set(t) == set(a)
+    assert all(v.shape == (2,) for v in t.values())
+    assert t["frames"].tolist() == [8, 8]
+    assert np.all(t["converged"] <= 8) and np.all(t["bit_errors"] >= t["symbol_errors"])
 
 
 def test_cli_refusals(tiny_alist):
