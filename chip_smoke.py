@@ -5,30 +5,50 @@
 Phases, in order, each printing one JSON line (any failure exits non-zero):
   1. device   - card name, power limit and compute capability (9, 0)
   2. build    - nvcc builds csrc/*.cu into build/nbldpc_tpu_torch/
-  3. cn_qspa  - the check-node kernel against its plain version
-  4. resident - the whole-decode kernel against its plain version, also at
-                the main path's shape and mode
-  5. cn_ems   - the EMS check-node kernels (classic and bubble) against
-                their plain version, exact to 0.0
-  6. ems_resident - the whole-decode EMS kernel against its plain version,
+  3. cn_qspa  - the check-node kernel against its plain version, at the
+                flagship shape, the shapes of phase highq_qspa and config
+                5's bench step
+  4. resident - the whole-decode kernel (K0) against its plain version,
+                also at the main path's shape and mode
+  5. resident_cl - the large-field whole-decode kernel (K0-cl) against the
+                same plain version at GF(64) and GF(256) in the modes of
+                phase 4, each batch holding converged and failed frames,
+                and at BASELINE config 5's step (8 points x 512 frames,
+                early termination); timed at GF(64) and at config 5's
+                bench shape
+  6. cn_ems   - the EMS check-node kernels (classic and bubble) against
+                their plain version, exact to 0.0, classic also at config
+                5's step shape
+  7. ems_resident - the whole-decode EMS kernel against its plain version,
                 in the modes of phase 4 and at nm = 8; agreement 1.0
-  7. cn_tems  - the T-EMS check-node kernel against its plain version at
+  8. cn_tems  - the T-EMS check-node kernel against its plain version at
                 GF(16), GF(64) (BASELINE config 4's shape, exact scan and
                 n_r = 8) and GF(256), exact to 0.0
-  8. main     - `nbldpc_tpu_torch.cli.main(["run", ...])` at the flagship
-                config plus a GF(64) run (the check-node kernel's path),
-                with every launch counter read around it; FER held to the
-                JAX package's recorded statistics
-  9. main_ems - `cli.main(["run", ...])` on the three EMS paths: GF(16) EMS
+  9. highq_qspa - `qspa.decode` through K0-cl against `qspa.decode` through
+                the check-node kernel (K1) on the same LLRs, GF(64) and
+                GF(256): symbol agreement > 0.99, done agreement > 0.95
+ 10. main     - `nbldpc_tpu_torch.cli.main(["run", ...])` at the flagship
+                config plus a GF(64) QSPA run (K0-cl), with every launch
+                counter read around it; FER held to the JAX package's
+                recorded statistics
+ 11. main_ems - `cli.main(["run", ...])` on the three EMS paths: GF(16) EMS
                 (resident kernel), GF(256) classic and bubble EMS (check-node
                 kernels), each held to its JAX FER record
- 10. main_tems - `cli.main(["run", ...])` on BASELINE config 4
+ 12. main_tems - `cli.main(["run", ...])` on BASELINE config 4
                 (configs/gf64_tems_earlyterm.json, 1024 frames per step):
                 path D at its n_r = 8, path E with the exact scan, each
                 held to its JAX FER record
- 11. bench    - sim-step throughput, kernel paths and plain torch paths,
-                QSPA, EMS and T-EMS
-Then the kernels summary, the card line, and the final status line.
+ 13. main_cfg5 - `cli.main(["run", ...])` on BASELINE config 5
+                (configs/gf256_sweep_2host.json, all 8 points, 20
+                iterations, 512 frames per point and step; max_frames cut
+                to 2048 per point): QSPA through K0-cl and the EMS half
+                through K2; then GF(256) QSPA at 10 iterations, 2.5 dB,
+                16384 frames, held to its JAX FER record
+ 14. bench    - sim-step throughput, kernel paths and plain torch paths,
+                QSPA, EMS, T-EMS and config 5's QSPA
+Then the kernels summary (each kernel's launches on the paths above, its
+worst error against its plain version, its time, its plain version's time
+and the bound of the same work), the card line, and the final status line.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -75,6 +95,95 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
+# operations outside the tensor cores, and HBM bytes.
+PEAK_F32_OPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take for work of `ops` f32 operations
+    that reads its inputs once and writes its outputs once (`nbytes`): the
+    larger of the two times, and which one sets it."""
+    t_ops = ops / PEAK_F32_OPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return ({"bound_ms": t_ops, "bound_by": "operations"} if t_ops >= t_bytes
+            else {"bound_ms": t_bytes, "bound_by": "bytes"})
+
+
+# Operation counts, the arithmetic each algorithm needs (an exp, a log, a
+# compare or a select counts as one operation, as an add does).
+
+def qspa_edge_ops(q: int) -> int:
+    """One QSPA check-node update of one edge: subtract, exp, softmax sum
+    and divide, the forward WHT, about three products of the leave-one-out
+    prefix x suffix, the inverse WHT, then scale, floor and log."""
+    return 10 * q + 2 * q * (q.bit_length() - 1)
+
+
+def resident_bytes(g, B: int) -> int:
+    """A resident decode's inputs read once and outputs written once: LLRs,
+    graph tables (cn_vn, cn_real, perm_down, syn_k, vn_edge, n2e), hard
+    decisions, done flags and iteration counts."""
+    E = g.m * g.dc_max
+    tables = E * (2 + g.q + g.gf.p) + g.n * g.dv_max + g.q
+    return 4 * (B * g.n * g.q + tables + B * g.n + B) + B
+
+
+def resident_qspa_bound(g, B: int, frame_iters: int) -> dict:
+    """K0 and K0-cl: every frame-iteration the run needed updates each real
+    edge and adds each variable's dv messages and prior, then compares for
+    the decision; the start normalizes the prior."""
+    per_iter = g.spec.num_edges * qspa_edge_ops(g.q) + g.n * g.q * (g.dv_max + 2)
+    return bound(frame_iters * per_iter + B * 2 * g.n * g.q, resident_bytes(g, B))
+
+
+def resident_ems_bound(g, B: int, frame_iters: int, nm: int) -> dict:
+    """K3: every frame-iteration the run needed updates each check (classic
+    EMS) and adds each variable's dv messages and prior, then compares for
+    the decision; the start normalizes the prior."""
+    per_iter = (g.m * ems_check_ops(g.q, g.dc_max, nm)
+                + g.n * g.q * (g.dv_max + 2))
+    return bound(frame_iters * per_iter + B * 2 * g.n * g.q, resident_bytes(g, B))
+
+
+def ems_check_ops(q: int, dc: int, nm: int) -> int:
+    """One classic EMS check node: normalize each operand, extract its top
+    nm (nm rounds over q) when nm < q, 3 (dc - 2) merges of 2 q nm
+    operations (each re-extracted when nm < q), then postprocess (max,
+    subtract, offset, clip) each output."""
+    nm = min(nm, q)
+    extract = nm * q if nm < q else 0
+    return dc * (2 * q + extract + 4 * q) + 3 * (dc - 2) * (2 * q * nm + extract)
+
+
+def bubble_check_ops(q: int, dc: int, nm: int) -> int:
+    """One bubble EMS check node: normalize and extract each operand's top
+    nm, 3 (dc - 2) merges over the P staircase pairs (t + 1)(s + 1) <= 2 nm
+    (add and xor per pair, nm extraction rounds over pairs and min(2 nm, q)
+    fills), dense scatter and postprocess of each output."""
+    pairs = sum(1 for t in range(nm) for s in range(nm) if (t + 1) * (s + 1) <= 2 * nm)
+    merge = 2 * pairs + nm * (pairs + min(2 * nm, q))
+    return dc * (2 * q + nm * q + 5 * q) + 3 * (dc - 2) * merge
+
+
+def tems_check_ops(q: int, dc: int, n_r: int) -> int:
+    """One T-EMS check node: per column max, argmax, subtract and permute
+    (4 q), the per-row top-3 over the columns (3 q), then per column the
+    two-deviation candidates (3 operations each: q (q - 1) for the exact
+    scan; n_r argmax rounds of 2 q and n_r q candidates with n_r > 0) and
+    the output rotation, offset and clip (3 q)."""
+    scan = 3 * q * (q - 1) if n_r == 0 else 2 * n_r * q + 3 * n_r * q
+    return dc * (4 * q + 3 * q) + dc * (scan + 3 * q)
+
+
+def cn_qspa_elem_ops(q: int) -> int:
+    """K1 per element of U: max-subtracted softmax (5), WHT, log-magnitude
+    and sign (2), leave-one-out sums (3), exp and sign (2), inverse WHT,
+    scale, floor, log (3) and max renormalization (2)."""
+    return 17 + 2 * (q.bit_length() - 1)
+
+
 def phase_device():
     import torch
 
@@ -118,15 +227,22 @@ def _u_for(g, B: int, device):
     return g.gather_cn_x_bl(Vv).contiguous()
 
 
-def phase_cn_qspa(device, main_b64: int):
-    """K1 at the flagship shape, the GF(64) main-path shape and GF(256)."""
+def phase_cn_qspa(device):
+    """K1 at the flagship shape, at the shapes its decode path runs in
+    phase highq_qspa (frames x points of HIGHQ) and at config 5's bench
+    step (the K1 path of bench row qspa_gf256_n255_k175). Returns the rows
+    by label."""
     import torch
 
+    from nbldpc_tpu_torch import bench
     from nbldpc_tpu_torch.kernels import cn_qspa
 
-    rows = []
-    for code, B in (("gf16_n204_k102_c8", 8192), ("gf64_n576_k480", main_b64),
-                    ("gf256_n255_k175", 256)):
+    cfg5 = bench.ROWS_BY_NAME["qspa_gf256_n255_k175"]
+    cases = [("flagship", "gf16_n204_k102_c8", 8192),
+             *((f"highq_{code}", code, frames * len(snrs)) for code, frames, snrs in HIGHQ),
+             ("cfg5_bench", cfg5.code, cfg5.batch)]
+    rows = {}
+    for label, code, B in cases:
         g = _graph(code, device)
         U = _u_for(g, B, device)
         out = cn_qspa.cn_update(U)
@@ -143,16 +259,17 @@ def phase_cn_qspa(device, main_b64: int):
         k1 = cuda_ms(lambda: cn_qspa.cn_update(U), 20)
         k2 = cuda_ms(lambda: cn_qspa.cn_update(U), 20)
         plain2 = cuda_ms(lambda: cn_qspa.cn_update_plain(U), 5)
-        row = {"phase": "cn_qspa", "shape": list(U.shape),
+        row = {"phase": "cn_qspa", "case": label, "shape": list(U.shape),
                "max_abs_err_above_-15": err, "max_abs_err_tail": tail_err,
                "ms": (k1 + k2) / 2, "plain_ms": (plain1 + plain2) / 2,
-               "ms_runs": [k1, k2], "plain_ms_runs": [plain1, plain2]}
+               "ms_runs": [k1, k2], "plain_ms_runs": [plain1, plain2],
+               **bound(U.numel() * cn_qspa_elem_ops(g.q), 2 * 4 * U.numel())}
         emit(row)
         if not finite:
             fail(f"cn_qspa {list(U.shape)}: non-finite outputs")
         if not err <= 1e-4:
             fail(f"cn_qspa {list(U.shape)}: max abs err {err} > 1e-4")
-        rows.append(row)
+        rows[label] = row
     return rows
 
 
@@ -171,22 +288,21 @@ def _llrs(g, frames_per_snr: int, snrs, device):
     return llr_init(y, sig, g.q).contiguous()
 
 
-def phase_resident(device):
-    """K0 against its plain version on identical LLRs: the three modes at
-    2048 frames, then the main path's shape and mode (2 x 8192 frames at
-    1.5 and 2.0 dB, 50 iterations, early termination), where it is timed."""
+def _hold_resident(phase: str, code: str, g, modes: dict, timed, mixed=()) -> dict:
+    """A resident QSPA kernel (K0 or K0-cl, by q) against the plain version
+    on identical LLRs, mode by mode: (llr, max_iters, early_term,
+    stats_each_iter). A frame agrees when hard, done and iters all equal;
+    one iteration (mode c_one_iter) needs agreement >= 0.999, every other
+    mode >= 0.995 with frame-error counts within |z| < 3. In the modes in
+    `mixed` the plain decode must leave some frames in error and decode
+    the others right. The modes in `timed` are timed plain, kernel,
+    kernel, plain; the last of them gives ms, plain_ms and the bound."""
     import torch
 
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
-    g = _graph("gf16_n204_k102_c8", device)
-    small, main = _llrs(g, 2048, [1.5], device), _llrs(g, 8192, [1.5, 2.0], device)
-    modes = {"a_early_term": (small, 50, True, True),
-             "b_throughput": (small, 50, False, False),
-             "c_one_iter": (small, 1, False, True),
-             "d_main_path": (main, 50, True, True)}
     worst = 0
-    result = {}
+    result = {"agreement_min": 1.0}
     for name, (llr, iters, et, stats) in modes.items():
         B = llr.shape[0]
         dec = qr.ResidentQSPA(g, iters, et, stats)
@@ -195,40 +311,108 @@ def phase_resident(device):
         torch.cuda.synchronize()
         same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
         agree = float(same.float().mean())
+        result["agreement_min"] = min(result["agreement_min"], agree)
         fe_k = int((hk != 0).any(dim=1).sum())
         fe_p = int((hp != 0).any(dim=1).sum())
         z = two_prop_z(fe_k, B, fe_p, B)
-        rec = {"phase": "resident", "mode": name, "frames": B, "agreement": agree,
-               "frame_errors_kernel": fe_k, "frame_errors_plain": fe_p, "z": z}
+        rec = {"phase": phase, "code": code, "mode": name, "frames": B,
+               "iters": iters, "agreement": agree, "frame_errors_kernel": fe_k,
+               "frame_errors_plain": fe_p, "z": z}
         if name == "c_one_iter":
-            worst = max(int((hk - hp).abs().max()), int((ik - ip).abs().max()),
+            worst = max(worst, int((hk - hp).abs().max()), int((ik - ip).abs().max()),
                         int((dk != dp).sum() > 0))
             if agree < 0.999:
                 emit(rec)
-                fail(f"resident mode {name}: agreement {agree} < 0.999")
+                fail(f"{phase} {code} mode {name}: agreement {agree} < 0.999")
         elif agree < 0.995 or abs(z) >= 3:
             emit(rec)
-            fail(f"resident mode {name}: agreement {agree}, z {z}")
-        if name in ("b_throughput", "d_main_path"):
+            fail(f"{phase} {code} mode {name}: agreement {agree}, z {z}")
+        if name in mixed and not 0 < fe_p < B:
+            emit(rec)
+            fail(f"{phase} {code} mode {name}: {fe_p} of {B} frames in error; "
+                 f"the mode needs both converged and failed frames")
+        if name in timed:
             p1 = cuda_ms(lambda: qr.decode_plain(dec, llr), 1)
             k1 = cuda_ms(lambda: qr.resident_decode(dec, llr), 5)
             k2 = cuda_ms(lambda: qr.resident_decode(dec, llr), 5)
             p2 = cuda_ms(lambda: qr.decode_plain(dec, llr), 1)
             rec.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                       ms_runs=[k1, k2], plain_ms_runs=[p1, p2])
-            result.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+                       ms_runs=[k1, k2], plain_ms_runs=[p1, p2],
+                       **resident_qspa_bound(g, B, int(ik.sum())))
+            result.update({k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
         emit(rec)
     result["max_abs_err"] = worst
     return result
 
 
-def _hold_cn(phase: str, device, code: str, B: int, kern, plain, args, **label) -> dict:
+def phase_resident(device):
+    """K0 against its plain version on identical LLRs: the three modes at
+    2048 frames, then the main path's shape and mode (2 x 8192 frames at
+    1.5 and 2.0 dB, 50 iterations, early termination), where it is timed."""
+    code = "gf16_n204_k102_c8"
+    g = _graph(code, device)
+    small, main = _llrs(g, 2048, [1.5], device), _llrs(g, 8192, [1.5, 2.0], device)
+    modes = {"a_early_term": (small, 50, True, True),
+             "b_throughput": (small, 50, False, False),
+             "c_one_iter": (small, 1, False, True),
+             "d_main_path": (main, 50, True, True)}
+    return _hold_resident("resident", code, g, modes, ("b_throughput", "d_main_path"))
+
+
+# The large-field checks: (code, frames per Eb/N0 point, points) of phase
+# resident_cl (the modes of phase 4 at 20 iterations) and of phase
+# highq_qspa; at these points some frames of each batch fail to converge
+HIGHQ = (("gf64_n576_k480", 1024, [3.0, 3.5]), ("gf256_n255_k175", 512, [2.0, 2.5]))
+
+
+def phase_resident_cl(device):
+    """K0-cl against the plain version at GF(64) and GF(256) in the modes
+    of phase 4, each batch with converged and failed frames; at GF(256)
+    also at BASELINE config 5's step as `cli run` decodes it (512 frames at
+    each of its 8 points, 20 iterations, early termination) and at its
+    bench shape (4096 frames at 3.0 dB, 20 iterations at the fixed
+    budget). Timed at GF(64) in throughput mode and at the bench shape,
+    whose numbers go to the kernels summary."""
+    from nbldpc_tpu_torch import bench
+
+    cfg = json.loads((ROOT / CFG5).read_text())
+    worst, result = 0, {"agreement_min": 1.0}
+    for code, frames, snrs in HIGHQ:
+        g = _graph(code, device)
+        llr = _llrs(g, frames, snrs, device)
+        modes = {"a_early_term": (llr, 20, True, True),
+                 "b_throughput": (llr, 20, False, False),
+                 "c_one_iter": (llr, 1, False, True)}
+        mixed = ("a_early_term", "b_throughput")
+        timed = ("b_throughput",)
+        row = bench.ROWS_BY_NAME["qspa_gf256_n255_k175"]
+        if code == cfg["code"]["name"]:
+            d = cfg["decoder"]
+            modes["d_bench_shape"] = (_llrs(g, row.batch, [row.noise], device),
+                                      row.iters, False, False)
+            modes["e_cfg5_step"] = (
+                _llrs(g, cfg["sim"]["frames_per_step"], cfg["channel"]["ebn0_db"], device),
+                d["max_iters"], d["early_term"], True)
+            mixed += ("e_cfg5_step",)
+            timed = ("d_bench_shape",)
+        r = _hold_resident("resident_cl", code, g, modes, timed, mixed)
+        worst = max(worst, r.pop("max_abs_err"))
+        result["agreement_min"] = min(result["agreement_min"], r.pop("agreement_min"))
+        result.update(r)
+    result["max_abs_err"] = worst
+    return result
+
+
+def _hold_cn(phase: str, device, code: str, B: int, kern, plain, args, check_ops,
+             **label) -> dict:
     """A check-node kernel against its plain version on the same U, timed
     plain, kernel, kernel, plain: max abs error must be 0.0 and every output
-    finite."""
+    finite. check_ops(q, dc, *args) counts the operations of one (check,
+    frame) for the bound."""
     import torch
 
     U = _u_for(_graph(code, device), B, device)
+    M, dc, q, _ = U.shape
     out = kern(U, *args)
     ref = plain(U, *args)
     torch.cuda.synchronize()
@@ -240,7 +424,8 @@ def _hold_cn(phase: str, device, code: str, B: int, kern, plain, args, **label) 
     p2 = cuda_ms(lambda: plain(U, *args), 1)
     row = {"phase": phase, **label, "shape": list(U.shape), "max_abs_err": err,
            "finite": finite, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-           "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2]}
+           "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+           **bound(M * B * check_ops(q, dc, *args), 2 * 4 * U.numel())}
     emit(row)
     if not finite:
         fail(f"{phase} {label} {list(U.shape)}: non-finite outputs")
@@ -253,17 +438,21 @@ def phase_cn_ems(device):
     """K2 (classic) and K2b (bubble) against their plain versions."""
     from nbldpc_tpu_torch.kernels import cn_ems
 
-    classic = (cn_ems.cn_update, cn_ems.cn_update_plain)
-    bubble = (cn_ems.cn_update_bubble, cn_ems.cn_update_bubble_plain)
+    classic = (cn_ems.cn_update, cn_ems.cn_update_plain, ems_check_ops)
+    bubble = (cn_ems.cn_update_bubble, cn_ems.cn_update_bubble_plain, bubble_check_ops)
+    # the last classic case is config 5's EMS half as `cli run` decodes it
+    # in phase main_cfg5: 8 points x 512 frames per step
     cases = [("gf16_n204_k102", 8192, "classic", classic, 16, 0.3),
              ("gf64_n576_k480", 1024, "classic", classic, 8, 0.1),
              ("gf64_n576_k480", 1024, "bubble", bubble, 8, 0.0),
              ("gf256_n255_k175", 512, "classic", classic, 16, 0.1),
-             ("gf256_n255_k175", 512, "bubble", bubble, 16, 0.0)]
+             ("gf256_n255_k175", 512, "bubble", bubble, 16, 0.0),
+             ("gf256_n255_k175", 4096, "classic", classic, 16, 0.1)]
     rows = {}
-    for code, B, merge, (kern, plain), nm, offset in cases:
+    for code, B, merge, (kern, plain, ops), nm, offset in cases:
         rows.setdefault(merge, []).append(_hold_cn(
             "cn_ems", device, code, B, kern, plain, (nm, offset),
+            lambda q, dc, nm, _offset, ops=ops: ops(q, dc, nm),
             merge=merge, nm=nm, offset=offset))
     return rows
 
@@ -307,8 +496,9 @@ def phase_ems_resident(device):
             k2 = cuda_ms(lambda: er.resident_decode(dec, llr), 5)
             p2 = cuda_ms(lambda: er.decode_plain(dec, llr), 1)
             rec.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                       ms_runs=[k1, k2], plain_ms_runs=[p1, p2])
-            result.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+                       ms_runs=[k1, k2], plain_ms_runs=[p1, p2],
+                       **resident_ems_bound(g, B, int(ik.sum()), nm))
+            result.update({k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
         emit(rec)
         if agree != 1.0:
             fail(f"ems_resident mode {name}: agreement {agree} != 1.0")
@@ -324,7 +514,9 @@ def phase_cn_tems(device):
     cases = [("gf16_n204_k102", 8192, 0), ("gf64_n576_k480", 1024, 0),
              ("gf64_n576_k480", 1024, 8), ("gf256_n255_k175", 512, 8)]
     return [_hold_cn("cn_tems", device, code, B, cn_tems.cn_update,
-                     cn_tems.cn_update_plain, (2.0, n_r), n_r=n_r, offset=2.0)
+                     cn_tems.cn_update_plain, (2.0, n_r),
+                     lambda q, dc, _offset, n_r: tems_check_ops(q, dc, n_r),
+                     n_r=n_r, offset=2.0)
             for code, B, n_r in cases]
 
 
@@ -335,6 +527,7 @@ def _counted():
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
     return [("qspa_resident", qr.resident_decode, "launches"),
+            ("qspa_resident_cl", qr.resident_decode_cl, "launches"),
             ("qspa_resident_plain", qr.decode_plain, "calls"),
             ("cn_qspa", cn_qspa.cn_update, "launches"),
             ("cn_qspa_plain", cn_qspa.cn_update_plain, "calls"),
@@ -357,8 +550,60 @@ def _reset_counters():
         setattr(fn, attr, 0)
 
 
+def _ran_plain(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+
+
+def _sum_counts(*counts: dict) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_highq_qspa(device):
+    """`qspa.decode` through K0-cl ("resident") against `qspa.decode` through
+    K1 inside decode_bl ("kernel") on the same LLRs, 20 iterations with
+    early termination, at the shapes of phase resident_cl: the thresholds
+    of the JAX package's own device test of its large-field resident
+    kernel (symbol agreement > 0.99, done agreement > 0.95). Counters are
+    zeroed just before each decode and read just after; returns the
+    launches summed over the decodes."""
+    import torch
+
+    from nbldpc_tpu_torch.decoders import qspa
+
+    total = {}
+    for code, frames, snrs in HIGHQ:
+        g = _graph(code, device)
+        llr = _llrs(g, frames, snrs, device)
+        out, counts = {}, {}
+        for impl, kernel in (("resident", "qspa_resident_cl"), ("kernel", "cn_qspa")):
+            _reset_counters()
+            out[impl] = qspa.decode(g, llr, max_iters=20, early_term=True, cn_impl=impl)
+            torch.cuda.synchronize()
+            counts[impl] = _counters()
+            if counts[impl][kernel] < 1 or _ran_plain(counts[impl]):
+                fail(f"highq_qspa {code} {impl}: {kernel} did not run alone: "
+                     f"{counts[impl]}")
+        r, k = out["resident"], out["kernel"]
+        sym = float((r.hard == k.hard).float().mean())
+        done = float((r.done == k.done).float().mean())
+        emit({"phase": "highq_qspa", "code": code, "frames": llr.shape[0],
+              "ebn0_db": snrs, "symbol_agreement": sym, "done_agreement": done,
+              "converged_resident": int(r.done.sum()), "converged_kernel": int(k.done.sum()),
+              "launches": {impl: {n: v for n, v in c.items() if v}
+                           for impl, c in counts.items()}})
+        if not (sym > 0.99 and done > 0.95):
+            fail(f"highq_qspa {code}: symbol agreement {sym}, done agreement {done}")
+        total = _sum_counts(total, *counts.values())
+    return total
+
+
 def phase_main(main_b64: int):
-    """The user's entry point, flagship config; then a GF(64) run."""
+    """The user's entry point, flagship config (K0); then a GF(64) QSPA run
+    (K0-cl)."""
     from nbldpc_tpu_torch import cli
 
     out_dir = ROOT / "build" / "nbldpc_tpu_torch"
@@ -394,9 +639,9 @@ def phase_main(main_b64: int):
           "fer_gf64": r64["fer"], "frames_gf64": r64["frames"]})
     if rc16 != 0 or rc64 != 0:
         fail(f"cli.main returned {rc16}, {rc64}")
-    if counts["qspa_resident"] < 1 or counts["cn_qspa"] < 1:
+    if counts["qspa_resident"] < 1 or counts["qspa_resident_cl"] < 1:
         fail(f"a kernel of the main path never launched: {counts}")
-    if counts["qspa_resident_plain"] or counts["cn_qspa_plain"]:
+    if _ran_plain(counts):
         fail(f"a plain version ran on the main path: {counts}")
     if not r16["fer"][1] < r16["fer"][0]:
         fail(f"FER(2.0 dB) {r16['fer'][1]} not below FER(1.5 dB) {r16['fer'][0]}")
@@ -443,7 +688,7 @@ def phase_paths(phase: str, paths):
     just after: the path's kernel launched, no plain version ran, FER falls
     from the first SNR point to the second, and the FER is consistent with
     the JAX record (|z| < 3.3). Returns each kernel's launches, summed over
-    its paths."""
+    the paths."""
     from nbldpc_tpu_torch import cli
 
     out_dir = ROOT / "build" / "nbldpc_tpu_torch"
@@ -472,7 +717,7 @@ def phase_paths(phase: str, paths):
             fail(f"{name}: cli.main returned {rc}")
         if counts[kernel] < 1:
             fail(f"{name}: the {kernel} kernel never launched: {counts}")
-        ran_plain = {k: v for k, v in counts.items() if k.endswith("_plain") and v}
+        ran_plain = _ran_plain(counts)
         if ran_plain:
             fail(f"{name}: a plain version ran on the path: {ran_plain}")
         if not all(0.0 <= f <= 1.0 for f in r["fer"]) or set(r["frames"]) != {frames}:
@@ -482,17 +727,83 @@ def phase_paths(phase: str, paths):
                  f"FER({r['ebn0_db'][0]} dB) {r['fer'][0]}")
         if not abs(z) < 3.3:
             fail(f"{name}: FER at {snr} dB inconsistent with {ref_name}: z = {z}")
-        launches[kernel] = launches.get(kernel, 0) + counts[kernel]
+        launches = _sum_counts(launches, counts)
     return launches
+
+
+# BASELINE config 5 as the file stands (GF(256) (255,175), 8 Eb/N0 points,
+# 20 iterations, early termination, 512 frames per point and step, stop at
+# 200 frame errors), with sim.max_frames cut from 50000 to CFG5_FRAMES per
+# point; `mesh` asks for 2 SNR groups and is ignored on one card. QSPA
+# (K0-cl), then the EMS half (nm = 16, offset 0.1: K2).
+CFG5 = "configs/gf256_sweep_2host.json"
+CFG5_FRAMES = 2048
+CFG5_PATHS = [
+    ("a_cfg5_qspa", [], "qspa_resident_cl"),
+    ("c_cfg5_ems", ["--decoder", "ems", "--set", "decoder.nm=16",
+                    "--set", "decoder.offset=0.1"], "cn_ems"),
+]
+# GF(256) QSPA at 10 iterations, 2.5 dB, against the JAX record
+CFG5_FER_PATH = [
+    ("b_gf256_qspa_10it",
+     ["--code", "gf256_n255_k175", "--decoder", "qspa", "--iters", "10", "--snr", "2.5",
+      "--set", "sim.frames_per_step=4096", "--set", "sim.max_frames=16384"],
+     "qspa_resident_cl", "gf256_qspa_10it", 2.5, 16384),
+]
+
+
+def phase_cfg5():
+    """Config 5's two decoders through cli.main, counters zeroed just before
+    each and read just after: its kernel launched, no plain version ran (and
+    K1 not on the QSPA path), every point reached its stop rule, FER in
+    [0, 1] and lower at the last point than at the first. Then the FER
+    gate. Returns the launches summed over the paths."""
+    from nbldpc_tpu_torch import cli
+
+    out_dir = ROOT / "build" / "nbldpc_tpu_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cfg = json.loads((ROOT / CFG5).read_text())
+    errors_stop = cfg["sim"]["max_frame_errors"]
+    launches = {}
+    for name, extra, kernel in CFG5_PATHS:
+        rep = out_dir / f"smoke_{name}.json"
+        _reset_counters()
+        t0 = time.perf_counter()
+        rc = cli.main(["run", "--config", CFG5, *extra,
+                       "--set", f"sim.max_frames={CFG5_FRAMES}", "--report", str(rep)])
+        seconds = time.perf_counter() - t0
+        counts = _counters()
+        r = json.loads(rep.read_text())
+        emit({"phase": "main_cfg5", "path": name, "config": CFG5,
+              "reduced": {"sim.max_frames": [cfg["sim"]["max_frames"], CFG5_FRAMES]},
+              "launches": counts, "seconds": seconds, "ebn0_db": r["ebn0_db"],
+              "fer": r["fer"], "frames": r["frames"], "frame_errors": r["frame_errors"],
+              "avg_iters": r["avg_iters"]})
+        if rc != 0:
+            fail(f"{name}: cli.main returned {rc}")
+        if counts[kernel] < 1:
+            fail(f"{name}: the {kernel} kernel never launched: {counts}")
+        if _ran_plain(counts) or (kernel == "qspa_resident_cl" and counts["cn_qspa"]):
+            fail(f"{name}: another implementation ran on the path: {counts}")
+        stopped = all(f >= CFG5_FRAMES or e >= errors_stop
+                      for f, e in zip(r["frames"], r["frame_errors"]))
+        if (r["ebn0_db"] != cfg["channel"]["ebn0_db"] or not stopped
+                or not all(0.0 <= f <= 1.0 for f in r["fer"])):
+            fail(f"{name}: bad report {r}")
+        if not r["fer"][-1] < r["fer"][0]:
+            fail(f"{name}: FER at {r['ebn0_db'][-1]} dB not below {r['ebn0_db'][0]} dB")
+        launches = _sum_counts(launches, counts)
+    return _sum_counts(launches, phase_paths("main_cfg5", CFG5_FER_PATH))
 
 
 def phase_bench(card: str):
     from nbldpc_tpu_torch import bench
 
     rows = []
-    for code, kind, (fast, plain) in bench.ROWS:
-        for impl in (plain, fast, fast, plain):
-            rec = bench.measure(code, impl, reps=10 if impl == fast else 3, kind=kind)
+    for row in bench.ROWS:
+        # plain first and last, the kernel path in the middle
+        for impl in (*row.impls[::-1], *row.impls):
+            rec = bench.measure(row, impl, reps=10 if impl == row.impls[0] else 3)
             rec.update(phase="bench", card=card)
             emit(rec)
             rows.append(rec)
@@ -517,50 +828,54 @@ def main() -> int:
 
     card = phase_device()
     phase_build()
-    cn_rows = phase_cn_qspa(device, main_b64)
+    cn_rows = phase_cn_qspa(device)
     res = phase_resident(device)
+    res_cl = phase_resident_cl(device)
     ems_rows = phase_cn_ems(device)
     ems_res = phase_ems_resident(device)
     tems_rows = phase_cn_tems(device)
-    counts = phase_main(main_b64)
-    counts.update(phase_paths("main_ems", EMS_PATHS))
-    counts.update(phase_paths("main_tems", TEMS_PATHS))
+    counts = _sum_counts(phase_highq_qspa(device), phase_main(main_b64),
+                         phase_paths("main_ems", EMS_PATHS),
+                         phase_paths("main_tems", TEMS_PATHS), phase_cfg5())
     phase_bench(card)
 
-    k1 = cn_rows[0]
-    emit({"kernels": [
-        {"name": "qspa_resident", "route": "cuda",
-         "source": "nbldpc_tpu_torch/csrc/qspa_resident.cu",
-         "replaces": "nbldpc_tpu/kernels/qspa_resident.py:677",
-         "launches": counts["qspa_resident"], "max_abs_err": res["max_abs_err"],
-         "ms": res["ms"], "plain_ms": res["plain_ms"]},
-        {"name": "cn_qspa", "route": "cuda",
-         "source": "nbldpc_tpu_torch/csrc/cn_qspa.cu",
-         "replaces": "nbldpc_tpu/kernels/cn_qspa.py:52",
-         "launches": counts["cn_qspa"],
-         "max_abs_err": max(r["max_abs_err_above_-15"] for r in cn_rows),
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "ems_resident", "route": "cuda",
-         "source": "nbldpc_tpu_torch/csrc/ems_resident.cu",
-         "replaces": "nbldpc_tpu/kernels/ems_resident.py:145",
-         "launches": counts["ems_resident"], "max_abs_err": ems_res["max_abs_err"],
-         "ms": ems_res["ms"], "plain_ms": ems_res["plain_ms"]},
-        *({"name": name, "route": "cuda",
-           "source": "nbldpc_tpu_torch/csrc/cn_ems.cu",
-           "replaces": replaces, "launches": counts[name],
-           "max_abs_err": max(r["max_abs_err"] for r in ems_rows[merge]),
-           "ms": ems_rows[merge][-1]["ms"], "plain_ms": ems_rows[merge][-1]["plain_ms"]}
+    def entry(name, source, replaces, max_abs_err, timed, **extra):
+        """One kernel of the summary: `timed` holds its ms, plain_ms and
+        bound of one timed shape. No single PyTorch call computes any of
+        these functions, so library_ms is null."""
+        return {"name": name, "route": "cuda", "source": f"nbldpc_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": counts.get(name, 0),
+                "max_abs_err": max_abs_err,
+                **{k: timed[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": None, **extra}
+
+    kernels = [
+        entry("qspa_resident", "qspa_resident.cu",
+              "nbldpc_tpu/kernels/qspa_resident.py:677", res["max_abs_err"], res,
+              agreement_min=res["agreement_min"]),
+        # the shape of its GF(256) decode path in phase highq_qspa
+        entry("cn_qspa", "cn_qspa.cu", "nbldpc_tpu/kernels/cn_qspa.py:52",
+              max(r["max_abs_err_above_-15"] for r in cn_rows.values()),
+              cn_rows["highq_gf256_n255_k175"]),
+        entry("qspa_resident_cl", "qspa_resident_cl.cu",
+              "nbldpc_tpu/kernels/qspa_resident.py:192", res_cl["max_abs_err"], res_cl,
+              agreement_min=res_cl["agreement_min"]),
+        entry("ems_resident", "ems_resident.cu",
+              "nbldpc_tpu/kernels/ems_resident.py:145", ems_res["max_abs_err"], ems_res),
+        # classic: config 5's EMS step shape; bubble: GF(256), 512 frames
+        *(entry(name, "cn_ems.cu", replaces,
+                max(r["max_abs_err"] for r in ems_rows[merge]), ems_rows[merge][-1])
           for name, merge, replaces in (
               ("cn_ems", "classic", "nbldpc_tpu/kernels/cn_ems.py:91"),
               ("cn_ems_bubble", "bubble", "nbldpc_tpu/kernels/cn_ems.py:101"))),
-        {"name": "cn_tems", "route": "cuda",
-         "source": "nbldpc_tpu_torch/csrc/cn_tems.cu",
-         "replaces": "nbldpc_tpu/kernels/cn_tems.py:33",
-         "launches": counts["cn_tems"],
-         "max_abs_err": max(r["max_abs_err"] for r in tems_rows),
-         # BASELINE config 4's check-node shape and n_r, the main path's
-         "ms": tems_rows[2]["ms"], "plain_ms": tems_rows[2]["plain_ms"]},
-    ]})
+        # BASELINE config 4's check-node shape and n_r, the main path's
+        entry("cn_tems", "cn_tems.cu", "nbldpc_tpu/kernels/cn_tems.py:33",
+              max(r["max_abs_err"] for r in tems_rows), tems_rows[2]),
+    ]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        fail(f"kernels never launched on a path: {idle}")
+    emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,25 +3,33 @@
 The timed unit is the full sim step (noise -> llr_init -> decode -> error
 counters) at a fixed iteration budget in throughput mode
 (early_term=False, stats_each_iter=False), f32, all-zero codeword. Steps run
-back to back after warm-up and are timed with CUDA events. Each decoder
-kind has its own batch, budget and noise (DECODERS):
-  qspa - CODES, B = 8192, 50 iterations, sigma = 0.63 (about 2 dB at rate 1/2);
-  ems  - EMS_CODE under the same conditions (nm = 16, offset 0.3, BASELINE
-         config 3's decoder), so its symbols/s compare with QSPA's directly;
-  tems - TEMS_CODE at BASELINE config 4's decoder and batch
+back to back after warm-up and are timed with CUDA events. Each row of
+ROWS has its own code, batch, budget and noise:
+  qspa_gf16_n204_k102_c8, qspa_gf16_n204_k102 - QSPA, B = 8192,
+         50 iterations, sigma = 0.63 (about 2 dB at rate 1/2);
+  ems_gf16_n204_k102 - EMS under the same conditions (nm = 16, offset 0.3,
+         BASELINE config 3's decoder), so its symbols/s compare with QSPA's;
+  tems_gf64_n576_k480 - T-EMS at BASELINE config 4's decoder and batch
          (configs/gf64_tems_earlyterm.json: n_r = 8, offset 2.0, B = 1024,
-         20 iterations), sigma from 3.5 dB.
+         20 iterations), sigma from 3.5 dB;
+  qspa_gf256_n255_k175 - QSPA at BASELINE config 5's decoder and step
+         (configs/gf256_sweep_2host.json: 20 iterations, 8 Eb/N0 points x
+         512 frames = 4096 frames per step), sigma from 3.0 dB.
 
     python -m nbldpc_tpu_torch bench
+    python -m nbldpc_tpu_torch bench --profile qspa_gf256_n255_k175
 
-prints the card's name and power limit, then one JSON line per
-(code, decoder, implementation) of ROWS.
+prints the card's name and power limit, then one JSON line per (row,
+implementation); with --profile, the device time per kernel of a few
+steps of one row, per implementation (torch.profiler).
 """
 
 from __future__ import annotations
 
 import json
 import subprocess
+import time
+from typing import NamedTuple
 
 import torch
 
@@ -30,20 +38,34 @@ from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.sim import make_sim_step, step_generator
 from nbldpc_tpu_torch.utils.config import CodeConfig, DecoderConfig
 
-CODES = ("gf16_n204_k102_c8", "gf16_n204_k102")
-EMS_CODE = "gf16_n204_k102"
-TEMS_CODE = "gf64_n576_k480"
-# per decoder kind: frames per step, iteration budget, noise (sigma, or
-# Eb/N0 in dB at the code's rate) and the DecoderConfig fields it sets
-DECODERS = {
-    "qspa": dict(batch=8192, iters=50, sigma=0.63, config={}),
-    "ems": dict(batch=8192, iters=50, sigma=0.63, config=dict(nm=16, offset=0.3)),
-    "tems": dict(batch=1024, iters=20, ebn0_db=3.5, config=dict(tems_nr=8, offset=2.0)),
-}
-# (code, decoder kind, implementations) in the order `bench` runs them
-ROWS = ([(c, "qspa", ("resident", "torch")) for c in CODES]
-        + [(EMS_CODE, "ems", ("resident", "torch")),
-           (TEMS_CODE, "tems", ("kernel", "torch"))])
+
+class Row(NamedTuple):
+    """One benchmark row: the decoder on one code at one step shape."""
+
+    name: str
+    code: str
+    kind: str                 # decoder kind
+    impls: tuple              # cn_impl values, the kernel path first
+    batch: int                # frames per step
+    iters: int                # fixed iteration budget
+    noise: float              # sigma, or Eb/N0 in dB when ebn0 is set
+    ebn0: bool = False
+    config: tuple = ()        # (DecoderConfig field, value) pairs
+
+
+ROWS = [
+    Row("qspa_gf16_n204_k102_c8", "gf16_n204_k102_c8", "qspa", ("resident", "torch"),
+        8192, 50, 0.63),
+    Row("qspa_gf16_n204_k102", "gf16_n204_k102", "qspa", ("resident", "torch"),
+        8192, 50, 0.63),
+    Row("ems_gf16_n204_k102", "gf16_n204_k102", "ems", ("resident", "torch"),
+        8192, 50, 0.63, config=(("nm", 16), ("offset", 0.3))),
+    Row("tems_gf64_n576_k480", "gf64_n576_k480", "tems", ("kernel", "torch"),
+        1024, 20, 3.5, ebn0=True, config=(("tems_nr", 8), ("offset", 2.0))),
+    Row("qspa_gf256_n255_k175", "gf256_n255_k175", "qspa",
+        ("resident", "kernel", "torch"), 4096, 20, 3.0, ebn0=True),
+]
+ROWS_BY_NAME = {r.name: r for r in ROWS}
 
 
 def card_info() -> str:
@@ -53,21 +75,26 @@ def card_info() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def measure(code: str, cn_impl: str, reps: int = 10, kind: str = "qspa") -> dict:
-    """Time `reps` sim steps of decoder `kind` (a key of DECODERS) on the
-    current CUDA device after two warm-up steps; one result record."""
+def _step(row: Row, cn_impl: str):
+    """(step, sigma tensor, device, spec) of a row's sim step on the current
+    CUDA device."""
     if not torch.cuda.is_available():
-        raise RuntimeError("bench.measure needs a CUDA device")
+        raise RuntimeError("the benchmark needs a CUDA device")
     device = torch.device("cuda", torch.cuda.current_device())
-    spec = CodeConfig(name=code).load()
+    spec = CodeConfig(name=row.code).load()
     graph = TannerGraph(spec, device=device)
-    s = DECODERS[kind]
-    batch, iters = s["batch"], s["iters"]
-    sigma = s["sigma"] if "sigma" in s else float(ebn0_to_sigma(s["ebn0_db"], spec.k / spec.n))
-    dec = DecoderConfig(kind=kind, max_iters=iters, early_term=False,
-                        stats_each_iter=False, mm_precision="f32", **s["config"])
-    step = make_sim_step(graph, dec, batch, 1, cn_impl=cn_impl)
+    sigma = float(ebn0_to_sigma(row.noise, spec.k / spec.n)) if row.ebn0 else row.noise
+    dec = DecoderConfig(kind=row.kind, max_iters=row.iters, early_term=False,
+                        stats_each_iter=False, mm_precision="f32", **dict(row.config))
+    step = make_sim_step(graph, dec, row.batch, 1, cn_impl=cn_impl)
     sig = torch.tensor([sigma], dtype=torch.float32, device=device)
+    return step, sig, device, spec
+
+
+def measure(row: Row, cn_impl: str, reps: int = 10) -> dict:
+    """Time `reps` sim steps of `row` with `cn_impl` on the current CUDA
+    device after two warm-up steps; one result record."""
+    step, sig, device, spec = _step(row, cn_impl)
     for t in range(2):
         step(step_generator(0, 1000 + t, device), sig)
     torch.cuda.synchronize(device)
@@ -81,27 +108,64 @@ def measure(code: str, cn_impl: str, reps: int = 10, kind: str = "qspa") -> dict
     torch.cuda.synchronize(device)
     ms = start.elapsed_time(end) / reps
     return {
-        "code": code,
-        "decoder": kind,
+        "row": row.name,
+        "code": row.code,
+        "decoder": row.kind,
         "cn_impl": cn_impl,
-        "batch": batch,
-        "iters": iters,
-        "sigma": sigma,
+        "batch": row.batch,
+        "iters": row.iters,
+        "sigma": float(sig[0]),
         "ms_per_step": ms,
-        "symbols_per_s": batch * spec.n / (ms * 1e-3),
-        "frames_per_s": batch / (ms * 1e-3),
+        "symbols_per_s": row.batch * spec.n / (ms * 1e-3),
+        "frames_per_s": row.batch / (ms * 1e-3),
         "frame_errors_last_step": int(out["frame_errors"][0]),
         "device": torch.cuda.get_device_name(device),
     }
 
 
-def main() -> int:
+def profile(row: Row, cn_impl: str, steps: int = 3, top: int = 12) -> dict:
+    """Device time per kernel over `steps` sim steps of `row` after one
+    warm-up step (torch.profiler): wall ms per step on the host clock, the
+    summed device ms per step, and the `top` kernels by device time."""
+    import torch.profiler as tp
+
+    step, sig, device, _ = _step(row, cn_impl)
+    step(step_generator(0, 1000, device), sig)
+    torch.cuda.synchronize(device)
+    with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(steps):
+            step(step_generator(0, t, device), sig)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    kernels = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == tp.DeviceType.CUDA:
+            kernels.append((dev_us / 1e3 / steps, ev.count // steps, ev.key))
+    kernels.sort(reverse=True)
+    device_ms = sum(k[0] for k in kernels)
+    wall_ms = wall * 1e3 / steps
+    return {"row": row.name, "cn_impl": cn_impl, "steps": steps,
+            "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+            "idle_share": 1.0 - device_ms / wall_ms,
+            "kernels": [{"name": k[2][:120], "ms_per_step": k[0], "launches_per_step": k[1],
+                         "share": k[0] / device_ms} for k in kernels[:top]],
+            "device": torch.cuda.get_device_name(device)}
+
+
+def main(profile_row: str | None = None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("the benchmark needs a CUDA device")
     print(card_info(), flush=True)
-    for code, kind, impls in ROWS:
-        for impl in impls:
-            print(json.dumps(measure(code, impl, kind=kind)), flush=True)
+    if profile_row is not None:
+        row = ROWS_BY_NAME[profile_row]
+        for impl in row.impls:
+            print(json.dumps(profile(row, impl)), flush=True)
+        return 0
+    for row in ROWS:
+        for impl in row.impls:
+            print(json.dumps(measure(row, impl)), flush=True)
     return 0
 
 

@@ -4,6 +4,7 @@
         --iters 50 --set sim.frames_per_step=8192
     python -m nbldpc_tpu_torch run --config configs/gf16_qspa.json --device cpu
     python -m nbldpc_tpu_torch bench        # H100 throughput benchmark
+    python -m nbldpc_tpu_torch bench --profile qspa_gf256_n255_k175
 
 `--device cuda` (the default) needs a card and never falls back to the CPU.
 """
@@ -106,17 +107,19 @@ def cmd_run(args) -> int:
     return 0
 
 
-def cmd_bench(_args) -> int:
+def cmd_bench(args) -> int:
     from nbldpc_tpu_torch import bench
 
-    return bench.main()
+    return bench.main(args.profile)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="nbldpc_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_run_parser(sub)
-    sub.add_parser("bench", help="run the H100 throughput benchmark")
+    pb = sub.add_parser("bench", help="run the H100 throughput benchmark")
+    pb.add_argument("--profile", metavar="ROW",
+                    help="device time per kernel of one bench row (bench.ROWS names)")
     args = ap.parse_args(argv)
     if args.cmd == "run":
         return cmd_run(args)

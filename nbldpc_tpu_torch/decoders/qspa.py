@@ -8,12 +8,15 @@ permutations live in the routing gathers (graph.gather_*_x_bl).
 
 Three implementations (`cn_impl`):
   "resident" - kernels/qspa_resident.py: the whole decode in one CUDA
-               kernel (q <= 32, any batch size), probability-domain BP;
-  "kernel"   - kernels/cn_qspa.py's CUDA check-node kernel inside decode_bl;
+               kernel, probability-domain BP, any batch size (K0 for
+               q <= 32, K0-cl for 32 < q <= 256);
+  "kernel"   - kernels/cn_qspa.py's CUDA check-node kernel (K1) inside
+               decode_bl;
   "torch"    - decode_bl with the plain check-node update (the semantic
                reference, and what runs on the CPU);
-  "auto"     - "resident" for a CUDA tensor when q <= 32, else "kernel";
-               "torch" for a CPU tensor.
+  "auto"     - "resident" for a CUDA tensor (every q <= 256: the resident
+               kernels take any batch, so the JAX package's tile rule has
+               no counterpart), "torch" for a CPU tensor.
 The resident path can differ from the log-domain paths in rare fp ties.
 """
 
@@ -24,6 +27,7 @@ import torch
 from nbldpc_tpu_torch.decoders import common
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import cn_qspa
+from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
 CN_IMPLS = ("auto", "resident", "kernel", "torch")
 
@@ -47,9 +51,7 @@ def pick_impl(cn_impl: str, graph: TannerGraph, llr: torch.Tensor) -> str:
         raise ValueError(f"cn_impl={cn_impl!r}; expected one of {CN_IMPLS}")
     if cn_impl != "auto":
         return cn_impl
-    if llr.device.type != "cuda":
-        return "torch"
-    return "resident" if graph.q <= 32 else "kernel"
+    return "resident" if llr.device.type == "cuda" else "torch"
 
 
 def decode(
@@ -69,8 +71,6 @@ def decode(
             "measurement justifies it)")
     impl = pick_impl(cn_impl, graph, llr)
     if impl == "resident":
-        from nbldpc_tpu_torch.kernels import qspa_resident as qr
-
         dec = qr.get_resident_decoder(graph, max_iters, early_term, stats_each_iter)
         hard, done, iters = qr.resident_decode(dec, llr)
         return common.DecodeResult(hard=hard, done=done, iters=iters)

@@ -44,6 +44,13 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I,    # B N M dc dv q
                              _P, _P, _P, _P, _P, _P,    # tables
                              _I, _I, _I, _P],           # iters, modes, stream
+    # B N M dc q, out: blocks of the persistent grid, shared bytes per block
+    "qspa_resident_cl_grid": [_I, _I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
+    "qspa_resident_cl_decode": [_P, _P, _P, _P, _P,      # llr, outs, scratch
+                                _I, _I,                  # grid, shared bytes
+                                _I, _I, _I, _I, _I, _I,  # B N M dc dv q
+                                _P, _P, _P, _P, _P, _P,  # tables
+                                _I, _I, _I, _P],         # iters, modes, stream
     "ems_resident_decode": [_P, _P, _P, _P,             # llr, hard, done, iters
                             _I, _I, _I, _I, _I, _I,     # B N M dc dv q
                             _I, _F,                     # nm, offset

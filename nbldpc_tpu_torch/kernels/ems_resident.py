@@ -40,6 +40,8 @@ class ResidentEMS(qr.ResidentQSPA):
     def __init__(self, graph: TannerGraph, max_iters: int, nm: int | None = None,
                  offset: float = 0.0, early_term: bool = True,
                  stats_each_iter: bool = True):
+        if graph.q > 32:
+            raise ValueError("the resident EMS decoder supports q <= 32")
         if graph.dc_max > MAX_DC:
             raise ValueError(f"the resident EMS decoder supports dc <= {MAX_DC}")
         super().__init__(graph, max_iters, early_term, stats_each_iter)
@@ -83,7 +85,7 @@ def resident_decode(dec: ResidentEMS, llr: torch.Tensor):
     g = dec.graph
     if llr.device.type == "cpu":
         return decode_plain(dec, llr)
-    hard, done, iters = qr.checked_outputs(dec, llr, "resident_decode")
+    hard, done, iters = qr.checked_outputs(dec, llr, "resident_decode", dec.smem_bytes)
     if llr.shape[0] == 0:
         return hard, done, iters
     from nbldpc_tpu_torch.kernels import _build

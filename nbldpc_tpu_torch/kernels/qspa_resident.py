@@ -1,7 +1,7 @@
-"""Whole-decode resident QSPA (q <= 32): CUDA kernel + plain version.
+"""Whole-decode resident QSPA (q <= 256): CUDA kernels + plain version.
 
 Probability-domain BP, the same decode as the JAX package's resident
-kernel: the state (prior, posterior, edge messages) is never
+kernels: the state (prior, posterior, edge messages) is never
 renormalized, the check-node softmax takes no max-subtraction, the
 leave-one-out product of spectra is a direct prefix x suffix product, and
 the extrinsic is floored at 1e-12 before the log. The invariants that make
@@ -12,12 +12,16 @@ exp cannot underflow to an all-zero row.
 It differs from the log-domain decode_bl path in rare floating-point ties,
 so each is held against its own counterpart.
 
-`resident_decode` launches csrc/qspa_resident.cu for a CUDA tensor and runs
-`decode_plain` for a CPU tensor. Both take llr [B, N, q] and return
+`resident_decode` runs `decode_plain` for a CPU tensor; for a CUDA tensor
+it launches csrc/qspa_resident.cu (K0, a frame's state in one block's
+shared memory) for q <= 32 and csrc/qspa_resident_cl.cu (K0-cl, the state
+in a global scratch) for 32 < q <= 256. All take llr [B, N, q] and return
 (hard [B, N] int32, done [B] bool, iters [B] int32).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -29,6 +33,9 @@ from nbldpc_tpu_torch.kernels.wht import wht_axis
 PROB_FLOOR = 1e-12
 # per-block shared memory a kernel may ask for on sm_90
 MAX_SMEM_BYTES = 232448
+# the largest field K0 takes; above it K0-cl, up to MAX_Q
+K0_MAX_Q = 32
+MAX_Q = 256
 
 
 class ResidentQSPA:
@@ -36,8 +43,8 @@ class ResidentQSPA:
 
     def __init__(self, graph: TannerGraph, max_iters: int, early_term: bool = True,
                  stats_each_iter: bool = True):
-        if graph.q > 32:
-            raise ValueError("the resident decoder supports q <= 32")
+        if graph.q > MAX_Q:
+            raise ValueError(f"the resident decoder supports q <= {MAX_Q}")
         self.graph = graph
         self.max_iters = int(max_iters)
         self.early_term = bool(early_term)
@@ -46,6 +53,8 @@ class ResidentQSPA:
         g, dev = graph, graph.device
         q, m, dc = g.q, g.m, g.dc_max
         E = m * dc
+        # K0's block: a frame's prior, posterior, messages and hard (K0-cl's
+        # layout is the kernel's own, checked by qspa_resident_cl_grid)
         self.smem_bytes = (2 * g.n + E) * q * 4 + 4 * g.n
 
         def t(a):
@@ -167,8 +176,9 @@ def decode_plain(dec: ResidentQSPA, llr: torch.Tensor):
 decode_plain.calls = 0
 
 
-def checked_outputs(dec, llr: torch.Tensor, name: str):
-    """Check llr for a resident kernel; allocate its (hard, done, iters)."""
+def checked_outputs(dec, llr: torch.Tensor, name: str, smem_bytes: int = 0):
+    """Check llr for a resident kernel that needs `smem_bytes` of shared
+    memory per block; allocate its (hard, done, iters)."""
     g = dec.graph
     if llr.device != dec.cn_vn.device:
         raise ValueError(f"llr on {llr.device}, graph tables on {dec.cn_vn.device}")
@@ -176,8 +186,8 @@ def checked_outputs(dec, llr: torch.Tensor, name: str):
             or llr.shape[1:] != (g.n, g.q)):
         raise ValueError(
             f"{name}: llr must be a contiguous [B, {g.n}, {g.q}] float32 tensor")
-    if dec.smem_bytes > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: a frame needs {dec.smem_bytes} B of "
+    if smem_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: a block needs {smem_bytes} B of "
                          f"shared memory, more than {MAX_SMEM_BYTES}")
     B = llr.shape[0]
     return (torch.empty((B, g.n), dtype=torch.int32, device=llr.device),
@@ -186,12 +196,14 @@ def checked_outputs(dec, llr: torch.Tensor, name: str):
 
 
 def resident_decode(dec: ResidentQSPA, llr: torch.Tensor):
-    """Resident decode of llr [B, N, q] f32: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    """Resident decode of llr [B, N, q] f32: the plain version for a CPU
+    tensor; for a CUDA tensor K0 (q <= 32) or K0-cl (32 < q <= 256)."""
     g = dec.graph
     if llr.device.type == "cpu":
         return decode_plain(dec, llr)
-    hard, done, iters = checked_outputs(dec, llr, "resident_decode")
+    if g.q > K0_MAX_Q:
+        return resident_decode_cl(dec, llr)
+    hard, done, iters = checked_outputs(dec, llr, "resident_decode", dec.smem_bytes)
     if llr.shape[0] == 0:
         return hard, done, iters
     from nbldpc_tpu_torch.kernels import _build
@@ -211,6 +223,46 @@ def resident_decode(dec: ResidentQSPA, llr: torch.Tensor):
 
 
 resident_decode.launches = 0
+
+
+def resident_decode_cl(dec: ResidentQSPA, llr: torch.Tensor):
+    """K0-cl on a CUDA tensor llr [B, N, q] f32, q in {64, 128, 256}: a
+    persistent grid walks the frames, each block through its own slice of a
+    scratch of grid x (N + M dc) x q floats (posterior and edge messages).
+    Raises ValueError on a tensor it does not take, a CPU tensor included;
+    the kernel's own check of q, dc and shared memory raises RuntimeError."""
+    g = dec.graph
+    name = "qspa_resident_cl_decode"
+    if llr.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {llr.device}")
+    hard, done, iters = checked_outputs(dec, llr, name)
+    B = llr.shape[0]
+    if B == 0:
+        return hard, done, iters
+    from nbldpc_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    with torch.cuda.device(llr.device):
+        grid, smem = ctypes.c_int(0), ctypes.c_int(0)
+        _build.check(lib.qspa_resident_cl_grid(B, g.n, g.m, g.dc_max, g.q,
+                                               ctypes.byref(grid), ctypes.byref(smem)),
+                     "qspa_resident_cl_grid")
+        scratch = torch.empty(grid.value * (g.n + g.m * g.dc_max) * g.q,
+                              dtype=torch.float32, device=llr.device)
+        rc = lib.qspa_resident_cl_decode(
+            llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
+            scratch.data_ptr(), grid.value, smem.value,
+            B, g.n, g.m, g.dc_max, g.dv_max, g.q,
+            dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(), dec.perm_down.data_ptr(),
+            dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(), dec.n2e.data_ptr(),
+            dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),
+            _build.stream_ptr(llr.device))
+    _build.check(rc, name)
+    resident_decode_cl.launches += 1
+    return hard, done, iters
+
+
+resident_decode_cl.launches = 0
 
 
 def get_resident_decoder(graph: TannerGraph, max_iters: int, early_term: bool,

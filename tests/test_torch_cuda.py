@@ -8,11 +8,14 @@ without a card. Run them there with:
 
 from pathlib import Path
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init
+from nbldpc_tpu_torch.convert import codespec_from_arrays
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems
 from nbldpc_tpu_torch.kernels import ems_resident as er
@@ -71,6 +74,86 @@ def test_resident_kernel_matches_plain(cuda_device, code, mode):
     same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
     # exact but for ulp-level ties of exp/log that a later iteration may amplify
     assert float(same.float().mean()) >= (0.999 if mode[0] == 1 else 0.99)
+
+
+def _zero_cw_llrs(g, B, ebn0, device, seed=5):
+    """LLRs of B all-zero codewords at ebn0 dB, [B, N, q] contiguous."""
+    sigma = float(ebn0_to_sigma(ebn0, g.spec.k / g.n))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    y = 1.0 + sigma * torch.randn((B, g.n, g.gf.p), generator=gen, device=device)
+    return llr_init(y, sigma, g.q).contiguous()
+
+
+def _random_dv2_spec(q, n, m, seed):
+    """A random code over GF(q) with every variable in 2 distinct checks and
+    every check of degree 2 n / m, random nonzero weights."""
+    rng = np.random.default_rng(seed)
+    dc = 2 * n // m
+    while True:
+        sockets = rng.permutation(np.repeat(np.arange(n), 2)).reshape(m, dc)
+        if all(len(set(r)) == dc for r in sockets):
+            break
+    cols = [np.sort(r) for r in sockets]
+    vals = [rng.integers(1, q, size=dc) for _ in range(m)]
+    return codespec_from_arrays(q, n, m, cols, vals)
+
+
+def _hold_resident_cl(g, llr, mode):
+    """K0-cl against the plain resident decode on the same LLRs: agreement
+    (hard, done and iters all equal) >= 0.999 after one iteration, else
+    >= 0.995 with frame-error counts within |z| < 3."""
+    dec = qr.ResidentQSPA(g, *mode)
+    before = qr.resident_decode_cl.launches
+    hk, dk, ik = qr.resident_decode(dec, llr)
+    assert qr.resident_decode_cl.launches == before + 1
+    hp, dp, ip = qr.decode_plain(dec, llr)
+    same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
+    agree = float(same.float().mean())
+    if mode[0] == 1:
+        assert agree >= 0.999
+        return
+    B = llr.shape[0]
+    fe_k, fe_p = int((hk != 0).any(dim=1).sum()), int((hp != 0).any(dim=1).sum())
+    pooled = (fe_k + fe_p) / (2 * B)
+    se = math.sqrt(pooled * (1 - pooled) * 2 / B)
+    z = 0.0 if se == 0 else (fe_k - fe_p) / B / se
+    assert agree >= 0.995 and abs(z) < 3
+
+
+RESIDENT_MODES = [(1, False, True), (20, True, True), (20, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+@pytest.mark.parametrize("code,ebn0", [("gf64_n576_k480", 3.0), ("gf256_n255_k175", 2.0)])
+def test_resident_cl_kernel_matches_plain(cuda_device, code, ebn0, mode):
+    g = _graph(code, cuda_device)
+    _hold_resident_cl(g, _zero_cw_llrs(g, 300, ebn0, cuda_device), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+def test_resident_cl_kernel_gf128(cuda_device, mode):
+    g = TannerGraph(_random_dv2_spec(128, 96, 24, seed=7), device=cuda_device)
+    _hold_resident_cl(g, _zero_cw_llrs(g, 300, 2.5, cuda_device), mode)
+
+
+@pytest.mark.cuda
+def test_resident_cl_wrapper_rejects_bad_input(cuda_device):
+    g = _graph("gf64_n576_k480", cuda_device)
+    dec = qr.ResidentQSPA(g, 2)
+    good = torch.zeros((4, g.n, g.q), device=cuda_device)
+    for bad in (good.double(),                             # wrong dtype
+                torch.zeros((g.n, 4, g.q), device=cuda_device).transpose(0, 1),
+                torch.zeros((4, g.n, g.q + 1), device=cuda_device)):
+        with pytest.raises(ValueError):
+            qr.resident_decode(dec, bad)
+    with pytest.raises(ValueError, match="device"):
+        qr.resident_decode_cl(dec, good.cpu())             # the kernel takes no CPU tensor
+    before = qr.resident_decode_cl.launches
+    hard, done, iters = qr.resident_decode(dec, good)
+    assert qr.resident_decode_cl.launches == before + 1
+    assert hard.shape == (4, g.n) and done.shape == (4,) and iters.shape == (4,)
 
 
 @pytest.mark.cuda

@@ -55,5 +55,10 @@ def test_resident_dispatch_caches_decoder(small_codes):
     assert qr.get_resident_decoder(g, 4, True) is qr.get_resident_decoder(g, 4, True)
     gf64 = TannerGraph(load_alist(Path(__file__).resolve().parents[1]
                                   / "codes" / "gf64_n576_k480.alist"), "cpu")
-    with pytest.raises(ValueError, match="q <= 32"):
-        qr.ResidentQSPA(gf64, 4)
+    dec64 = qr.ResidentQSPA(gf64, 4)                # q <= 256: K0-cl on a card
+    assert dec64.perm_down.numel() == gf64.m * gf64.dc_max * gf64.q
+    llr64 = torch.zeros((1, gf64.n, gf64.q))
+    assert tqspa.pick_impl("resident", gf64, llr64) == "resident"
+    assert tqspa.pick_impl("auto", gf64, llr64) == "torch"     # CPU tensor
+    with pytest.raises(ValueError, match="device"):
+        qr.resident_decode_cl(dec64, llr64)         # the kernel takes no CPU tensor
