@@ -46,10 +46,18 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 16384 frames, held to its JAX FER record
  14. bench    - sim-step throughput, kernel paths and plain torch paths,
                 QSPA, EMS, T-EMS and config 5's QSPA
+ 15. micro    - the probes P1-P7: the two entry points
+                (nbldpc_tpu_torch.benchmarks.micro_kernels and .micro_layout)
+                as a user runs them, counters read around them; then each
+                probe kernel against its plain version at the JAX scripts'
+                full shapes, exact (max abs error 0.0; P6 and P7 past
+                +-inf), timed with its bound, P3 also against chained
+                torch.addmm calls (cuBLAS SGEMM, TF32 off) as its library time
 Then the kernels summary (each kernel's launches on the paths above, its
-worst error against its plain version, its time, its plain version's time
-and the bound of the same work), the card line, and the final status line.
-Imports nothing of JAX or of the JAX package.
+worst error against its plain version, its time, its plain version's time,
+the bound of the same work and, for P3, the library call's time), the card
+line, and the final status line. Imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -522,7 +530,7 @@ def phase_cn_tems(device):
 
 def _counted():
     """(name, function, attribute) of every kernel wrapper and plain version."""
-    from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems
+    from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems, micro
     from nbldpc_tpu_torch.kernels import ems_resident as er
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
@@ -538,7 +546,8 @@ def _counted():
             ("cn_ems_bubble", cn_ems.cn_update_bubble, "launches"),
             ("cn_ems_bubble_plain", cn_ems.cn_update_bubble_plain, "calls"),
             ("cn_tems", cn_tems.cn_update, "launches"),
-            ("cn_tems_plain", cn_tems.cn_update_plain, "calls")]
+            ("cn_tems_plain", cn_tems.cn_update_plain, "calls"),
+            *((f"micro_{fn.__name__}", fn, "launches") for fn in micro.WRAPPERS)]
 
 
 def _counters():
@@ -810,6 +819,163 @@ def phase_bench(card: str):
     return rows
 
 
+# The probe kernels of phase 15: (name, source, the TPU kernels they replace)
+MICRO_KERNELS = [
+    ("micro_flat_gather", "micro_gather.cu", "benchmarks/micro_pallas.py:54"),
+    ("micro_row_moves", "micro_gather.cu", "benchmarks/micro_pallas.py:73"),
+    ("micro_onehot_gemm", "micro_onehot_gemm.cu", "benchmarks/micro_pallas.py:96"),
+    ("micro_cn_iteration", "micro_cn.cu", "benchmarks/micro_pallas.py:119"),
+    ("micro_rot_softmax", "micro_layout.cu", "benchmarks/micro_layout.py:61"),
+    ("micro_route", "micro_layout.cu",
+     "benchmarks/micro_layout.py:79, benchmarks/micro_layout.py:145"),
+]
+# micro_layout's default depth (phase 15 also holds the kernels at 4x it)
+MICRO_LAYOUT_ITERS = 50
+
+
+def _equal_err(out, ref) -> float:
+    """Max abs error over the entries that differ (0.0 when all are equal,
+    inf included; NaN where a NaN differs)."""
+    differ = out != ref
+    return float((out - ref).abs()[differ].max()) if bool(differ.any()) else 0.0
+
+
+def micro_bounds(name: str, inputs: dict, iters: int) -> dict:
+    """The bound of one probe call: each input read once, each output
+    written once; operations as its docstring in csrc counts them."""
+    if name in ("micro_flat_gather", "micro_row_moves", "micro_onehot_gemm",
+                "micro_cn_iteration"):
+        E, Q, BT = inputs["x"].shape
+        R, xb = E * Q, 4 * 2 * E * Q * BT
+        if name == "micro_flat_gather":
+            return bound(iters * R * BT, xb + 4 * R)
+        if name == "micro_row_moves":
+            return bound(iters * R * BT, xb + 4 * (R + E))
+        if name == "micro_onehot_gemm":
+            return bound(iters * 2 * R * R * BT, xb + 4 * R * R)
+        # normalize (Q adds, Q divides), two WHTs, 1.5 products, scale, floor
+        per_elem = 5.5 + 2 * (Q.bit_length() - 1)
+        return bound(iters * per_elem * R * BT, xb)
+    if name == "micro_rot_softmax":
+        x = inputs["x"]
+        Q = x.shape[0]
+        cols = x.numel() // Q
+        # 4 bits x (Q - 1) rolled elements x (2 multiplies, 1 add); exp,
+        # the serial sum, divide and subtract over Q
+        return bound(iters * cols * (12 * (Q - 1) + 4 * Q - 1),
+                     4 * (2 * x.numel() + inputs["rb"].numel()))
+    post, vn, nbr = inputs["post"], inputs["vn"], inputs["nbr"]
+    Q = post.shape[0]
+    N = nbr.shape[0]
+    frames = post.numel() // (Q * N)
+    E = vn.numel()
+    reached = int((nbr[:, 0] >= 0).sum())          # nodes with an edge
+    # per (q, frame): E scales, E - reached adds, and the blend of N nodes
+    per = Q * (E + (E - reached) + 3 * N)
+    return bound(iters * frames * per,
+                 4 * (2 * post.numel() + E + nbr.numel()))
+
+
+def _hold_micro(name: str, case: str, kernel, plain, inputs: dict, hold_iters: int,
+                time_iters: int, library=None, exact_inf=False) -> dict:
+    """One probe kernel against its plain version on the same inputs at
+    hold_iters iterations; then both timed at time_iters, plain, kernel,
+    kernel, plain, with the library call (if any) beside. kernel(iters) and
+    plain(iters) run the probe. Every probe kernel repeats its plain
+    version's operations in the same order (P4's IEEE divisions and P5's
+    expf included, measured on the H100), so max abs error must be 0.0;
+    with exact_inf the outputs may hold +-inf."""
+    import torch
+
+    out, ref = kernel(hold_iters), plain(hold_iters)
+    torch.cuda.synchronize()
+    err = _equal_err(out, ref)
+    finite = bool(torch.isfinite(out).all())
+    row = {"phase": "micro", "kernel": name, "case": case, "hold_iters": hold_iters,
+           "max_abs_err": err, "finite": finite,
+           "inf_entries": int(torch.isinf(ref).sum()), "iters": time_iters}
+    p1 = cuda_ms(lambda: plain(time_iters), 3)
+    k1 = cuda_ms(lambda: kernel(time_iters), 20)
+    k2 = cuda_ms(lambda: kernel(time_iters), 20)
+    p2 = cuda_ms(lambda: plain(time_iters), 3)
+    row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, ms_runs=[k1, k2],
+               plain_ms_runs=[p1, p2], library_ms=None,
+               **micro_bounds(name, inputs, time_iters))
+    if library is not None:
+        out = kernel(time_iters)
+        row["library_err"] = _equal_err(out, library())
+        row["library_ms"] = (cuda_ms(library, 3) + cuda_ms(library, 3)) / 2
+    emit(row)
+    if err != 0.0 or not (finite or exact_inf):
+        fail(f"micro {case}: max abs err {err} against the plain version, "
+             f"finite {finite}")
+    if library is not None and row["library_err"] != 0.0:
+        fail(f"micro {case}: the library call differs by {row['library_err']}")
+    return row
+
+
+def phase_micro(device, card: str):
+    """P1-P7. The entry points as a user runs them (counters zeroed just
+    before, read just after), then each kernel against its plain version at
+    the JAX scripts' full shapes: P1-P4 at their 20 iterations, P5-P7 held
+    at micro_layout's deeper depth (200: the route passes +-inf there) and
+    timed at its default 50. Returns (launches, the timed row by kernel
+    with its worst error over the kernel's cases)."""
+    import torch
+
+    from nbldpc_tpu_torch.benchmarks import micro_kernels as mk
+    from nbldpc_tpu_torch.benchmarks import micro_layout as ml
+    from nbldpc_tpu_torch.kernels import micro
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    rcs = [mk.main(["--reps", "20"]),
+           ml.main(["--iters", str(MICRO_LAYOUT_ITERS), "--reps", "6"])]
+    seconds = time.perf_counter() - t0
+    counts = {k: v for k, v in _counters().items() if k.startswith("micro_")}
+    emit({"phase": "micro", "entry_points": ["micro_kernels", "micro_layout"], "rcs": rcs,
+          "launches": counts, "seconds": seconds, "card": card})
+    idle = [k for k, v in counts.items() if v < 1]
+    if rcs != [0, 0] or idle:
+        fail(f"micro entry points: rcs {rcs}, kernels never launched {idle}")
+
+    rows = {}
+    x, perm = mk.make_inputs(0)
+    x = x.to(device)
+    R, BT = x.shape[0] * x.shape[1], x.shape[2]
+    for case in mk.NAMES:
+        name = f"micro_{mk.WRAPPERS[case].__name__}"
+        kernel, plain = mk.case(case, x, perm)
+        library = None
+        if case == "matmul_onehot_routing":
+            A, ones = micro.onehot_matrix(perm, device), torch.ones((R, BT), device=device)
+
+            def library(A=A, ones=ones):
+                y = x.reshape(R, BT)
+                for _ in range(mk.ITERS):
+                    y = torch.addmm(ones, A, y)
+                return y.reshape(x.shape)
+        rows[name] = _hold_micro(name, case, lambda _it, f=kernel: f(),
+                                 lambda _it, f=plain: f(), {"x": x}, mk.ITERS, mk.ITERS,
+                                 library)
+    inp = ml.make_inputs(0)
+    for case in ml.NAMES:
+        name = f"micro_{ml.WRAPPERS[case].__name__}"
+        kernel, plain, _ = ml.case(case, inp, device)
+        layout = case.split("_")[1]
+        if case.startswith("elem"):
+            tensors = {"x": inp[f"x_{layout}"], "rb": inp[f"rb_{layout}"]}
+        else:
+            tensors = {"post": inp[f"post_{layout}"], "vn": inp["vn"], "nbr": inp["nbr"]}
+        row = _hold_micro(name, case, kernel, plain, tensors, 4 * MICRO_LAYOUT_ITERS,
+                          MICRO_LAYOUT_ITERS, exact_inf=case.startswith("route"))
+        if case.endswith("new"):
+            rows[name] = row
+        else:
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], row["max_abs_err"])
+    return counts, rows
+
+
 def main() -> int:
     try:
         import torch
@@ -838,11 +1004,14 @@ def main() -> int:
                          phase_paths("main_ems", EMS_PATHS),
                          phase_paths("main_tems", TEMS_PATHS), phase_cfg5())
     phase_bench(card)
+    micro_counts, micro_rows = phase_micro(device, card)
+    counts = _sum_counts(counts, micro_counts)
 
     def entry(name, source, replaces, max_abs_err, timed, **extra):
         """One kernel of the summary: `timed` holds its ms, plain_ms and
-        bound of one timed shape. No single PyTorch call computes any of
-        these functions, so library_ms is null."""
+        bound of one timed shape. library_ms is null unless `extra` gives
+        it: no single PyTorch call computes any of these functions but
+        P3's one-hot product."""
         return {"name": name, "route": "cuda", "source": f"nbldpc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": max_abs_err,
@@ -871,6 +1040,11 @@ def main() -> int:
         # BASELINE config 4's check-node shape and n_r, the main path's
         entry("cn_tems", "cn_tems.cu", "nbldpc_tpu/kernels/cn_tems.py:33",
               max(r["max_abs_err"] for r in tems_rows), tems_rows[2]),
+        # the probes at the JAX scripts' full shapes; micro_rot_softmax and
+        # micro_route timed in the "new" layout at 50 iterations
+        *(entry(name, source, replaces, micro_rows[name]["max_abs_err"], micro_rows[name],
+                library_ms=micro_rows[name]["library_ms"])
+          for name, source, replaces in MICRO_KERNELS),
     ]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

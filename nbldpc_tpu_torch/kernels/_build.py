@@ -56,6 +56,15 @@ SIGNATURES = {
                             _I, _F,                     # nm, offset
                             _P, _P, _P, _P, _P,         # tables
                             _I, _I, _I, _P],            # iters, modes, stream
+    # the probes of kernels/micro.py (P1-P7): x, out, tables, shapes, iters, stream
+    "micro_flat_gather": [_P, _P, _P, _I, _I, _I, _P],               # perm; R BT
+    "micro_row_moves": [_P, _P, _P, _P, _I, _I, _I, _I, _P],         # pi perms; E Q BT
+    "micro_onehot_gemm": [_P, _P, _P, _I, _I, _I, _P],               # A B C; M N K
+    "micro_cn_iteration": [_P, _P, _I, _I, _I, _I, _P],              # E Q BT
+    "micro_rot_softmax": [_P, _P, _P, _I, _I, _I, _I,                # rb; Q DC M TB
+                          _I, _I, _I, _I, _I, _P],                   # sq sj sm sb
+    "micro_route": [_P, _P, _P, _P, _I, _I, _I, _I, _I,              # vn nbr; Q N TB E D
+                    _I, _I, _I, _I, _P],                             # sq sn sb
 }
 
 # the field sizes the check-node kernels (cn_ems, cn_tems) take, and their
@@ -170,18 +179,24 @@ def check_cn_input(name: str, U, min_dc: int) -> tuple:
     return M, dc, q, B
 
 
+def launch(wrapper, name: str, device, *args) -> None:
+    """Call the C entry point `name`(*args, stream) on `device`'s current
+    stream, raise on a CUDA error and count the launch on
+    `wrapper.launches`."""
+    import torch
+
+    with torch.cuda.device(device):
+        rc = getattr(library(), name)(*args, stream_ptr(device))
+    check(rc, name)
+    wrapper.launches += 1
+
+
 def launch_cn(wrapper, name: str, U, *args):
     """Launch the C entry point `name`(U, out, M, dc, q, B, *args, stream) on
     a checked U, count the launch on `wrapper.launches` and return out."""
     import torch
 
-    lib = library()
     out = torch.empty_like(U)
-    if U.numel() == 0:
-        return out
-    with torch.cuda.device(U.device):
-        rc = getattr(lib, name)(U.data_ptr(), out.data_ptr(), *U.shape, *args,
-                                stream_ptr(U.device))
-    check(rc, name)
-    wrapper.launches += 1
+    if U.numel():
+        launch(wrapper, name, U.device, U.data_ptr(), out.data_ptr(), *U.shape, *args)
     return out

@@ -62,21 +62,11 @@ def cn_update(U: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"cn_update: unsupported device {U.device}")
     if U.dtype != torch.float32 or U.ndim != 4 or not U.is_contiguous():
         raise ValueError("cn_update: U must be a contiguous [M, dc, q, B] float32 tensor")
-    M, dc, q, B = U.shape
-    if q not in (2, 4, 8, 16, 32, 64, 128, 256):
-        raise ValueError(f"cn_update: q={q} unsupported")
+    if U.shape[2] not in (2, 4, 8, 16, 32, 64, 128, 256):
+        raise ValueError(f"cn_update: q={U.shape[2]} unsupported")
     from nbldpc_tpu_torch.kernels import _build
 
-    lib = _build.library()
-    out = torch.empty_like(U)
-    if U.numel() == 0:
-        return out
-    with torch.cuda.device(U.device):
-        rc = lib.cn_qspa_update(U.data_ptr(), out.data_ptr(), M, dc, q, B,
-                                _build.stream_ptr(U.device))
-    _build.check(rc, "cn_qspa_update")
-    cn_update.launches += 1
-    return out
+    return _build.launch_cn(cn_update, "cn_qspa_update", U)
 
 
 cn_update.launches = 0

@@ -1,0 +1,412 @@
+"""The routing and layout probes (P1-P7) as Hopper microbenchmarks: CUDA
+kernels and their plain PyTorch versions.
+
+Counterparts of the TPU probes in benchmarks/micro_pallas.py (P1-P4) and
+benchmarks/micro_layout.py (P5-P7). Each wrapper checks its inputs, runs
+the plain version for a CPU tensor and launches its kernel for a CUDA
+tensor, counting the launch on its `launches` attribute:
+
+  flat_gather(x, perm, iters)          P1  csrc/micro_gather.cu, micro_flat_gather
+  row_moves(x, pi, perms, iters)       P2  csrc/micro_gather.cu, micro_row_moves
+  onehot_gemm(A, x, iters)             P3  csrc/micro_onehot_gemm.cu, one launch
+                                           per iteration
+  cn_iteration(x, iters)               P4  csrc/micro_cn.cu, micro_cn_iteration
+  rot_softmax(x, rb, iters, layout)    P5  csrc/micro_layout.cu, micro_rot_softmax
+  route(post, vn, nbr, iters, layout)  P6, P7  csrc/micro_layout.cu, micro_route
+
+P1-P4 work on x [E, Q, BT] (frames innermost). P5 takes X [Q, DC, M, TB]
+("new", frames innermost) or [Q, DC, TB, M] ("old", checks innermost), P6
+and P7 post [Q, N, TB] ("new") or [Q, TB, N] ("old"); one kernel serves
+both layouts through strides. Index tables are int32 and come from the
+makers below (`row_tables`, `onehot_matrix`, `route_tables`), which keep
+every index in range; the wrappers do not read the tables back, since that
+would wait on the card inside every timed call.
+
+Every kernel repeats its plain version's arithmetic in the same order
+(sums over q serial in q, the route sums in ascending edge order, IEEE
+division, expf), so each agrees with it exactly on the H100.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nbldpc_tpu_torch.kernels import _build
+from nbldpc_tpu_torch.kernels.wht import wht_axis
+
+# the probes' fixed constants: P4's check degree, P5's rotation bits
+DC_CN = 4
+ROT_BITS = 4
+PROB_FLOOR = 1e-12
+# the field sizes the register-resident kernels (P4, P5) are built for
+KERNEL_QS = (2, 4, 8, 16, 32)
+# a block keeps one frame in shared memory (at most 227 KB on the H100)
+MAX_SHARED_BYTES = 232448
+
+
+# --- table makers -----------------------------------------------------------
+
+def row_tables(perm, Q: int) -> tuple:
+    """P2's tables from P1's flat permutation of E * Q rows, as
+    micro_pallas.run_row_moves makes them: pi [E], the source edge row of
+    each edge row (its first slot's), and perms [E, Q], each slot's source
+    slot. int32 tensors."""
+    p = torch.as_tensor(np.asarray(perm)).long().reshape(-1, Q)
+    return (p[:, 0] // Q).int(), (p % Q).int()
+
+
+def onehot_matrix(perm, device=None) -> torch.Tensor:
+    """P3's routing operator: A [R, R] f32 with A[i, perm[i]] = 1, so that
+    A @ x gathers row perm[i] of x into row i."""
+    idx = torch.as_tensor(np.asarray(perm)).long().to(device)
+    R = idx.numel()
+    A = torch.zeros((R, R), dtype=torch.float32, device=device)
+    A[torch.arange(R, device=device), idx] = 1.0
+    return A
+
+
+def onehot_to_index(wd) -> torch.Tensor:
+    """P6's one-hot down-routing operator Wd [E, N] (Wd[e, vn[e]] = 1) ->
+    vn [E] int32. Raises unless every row holds exactly one 1."""
+    wd = np.asarray(wd)
+    if wd.ndim != 2 or not (np.isin(wd, (0, 1)).all() and (wd.sum(axis=1) == 1).all()):
+        raise ValueError("Wd must be [E, N] with exactly one 1 per row")
+    return torch.from_numpy(wd.argmax(axis=1).astype(np.int32))
+
+
+def elist_to_index(e_list) -> torch.Tensor:
+    """P7's per-slot operators e_list [DC, N, M] (e_list[j, vn[j M + m], m]
+    = 1) -> vn [DC * M] int32, edge e = j M + m. Raises unless every
+    (j, m) column holds exactly one 1."""
+    el = np.asarray(e_list)
+    if el.ndim != 3 or not (np.isin(el, (0, 1)).all() and (el.sum(axis=1) == 1).all()):
+        raise ValueError("e_list must be [DC, N, M] with exactly one 1 per (j, m)")
+    return torch.from_numpy(el.argmax(axis=1).reshape(-1).astype(np.int32))
+
+
+def route_tables(vn, N: int) -> torch.Tensor:
+    """The up-routing table of P6/P7: nbr [N, D] int32, row n the edges e
+    with vn[e] = n in ascending order, padded with -1; D is the largest
+    degree (at least 1). The sum in that order is the one-hot GEMM's."""
+    v = np.asarray(vn).astype(np.int64)
+    if v.size and not (0 <= v.min() and v.max() < N):
+        raise ValueError(f"vn must lie in [0, {N})")
+    deg = np.bincount(v, minlength=N)
+    D = max(int(deg.max()) if v.size else 0, 1)
+    nbr = np.full((N, D), -1, np.int32)
+    fill = np.zeros(N, np.int64)
+    for e, n in enumerate(v):
+        nbr[n, fill[n]] = e
+        fill[n] += 1
+    return torch.from_numpy(nbr)
+
+
+# --- input checks -----------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, ndim: int, dtype=torch.float32) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {ndim}-d {dtype} tensor, "
+                         f"got {t.dtype} {list(t.shape)}")
+
+
+def _same_device(name: str, x: torch.Tensor, *tables: torch.Tensor) -> None:
+    if any(t.device != x.device for t in tables):
+        raise ValueError(f"{name}: every input must be on {x.device}")
+
+
+def _check_iters(name: str, iters: int) -> int:
+    if int(iters) < 0:
+        raise ValueError(f"{name}: iters={iters} must be >= 0")
+    return int(iters)
+
+
+def _kernel_q(name: str, q: int) -> None:
+    if q not in KERNEL_QS:
+        raise ValueError(f"{name}: q={q} not in {KERNEL_QS}")
+
+
+def _check_shared(name: str, nbytes: int) -> None:
+    if nbytes > MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: one frame needs {nbytes} bytes of shared memory, "
+                         f"more than {MAX_SHARED_BYTES}")
+
+
+def _serial_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over `dim` left to right (the kernels' order), keeping the dim."""
+    s = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        s = s + x.select(dim, i)
+    return s.unsqueeze(dim)
+
+
+# --- P1: flat constant gather ----------------------------------------------
+
+def flat_gather_plain(x: torch.Tensor, perm: torch.Tensor, iters: int) -> torch.Tensor:
+    """iters x: x <- x.reshape(E Q, BT)[perm] + 1, on x [E, Q, BT]."""
+    E, Q, BT = x.shape
+    idx = perm.long()
+    for _ in range(iters):
+        x = x.reshape(E * Q, BT)[idx].reshape(E, Q, BT) + 1.0
+    return x
+
+
+def flat_gather(x: torch.Tensor, perm: torch.Tensor, iters: int) -> torch.Tensor:
+    """P1 on x [E, Q, BT] f32 and perm [E Q] int32 (a permutation)."""
+    name = "micro_flat_gather"
+    _check(name, x, 3)
+    _check(name, perm, 1, torch.int32)
+    _same_device(name, x, perm)
+    E, Q, BT = x.shape
+    if perm.numel() != E * Q:
+        raise ValueError(f"{name}: perm has {perm.numel()} entries, x has {E * Q} rows")
+    iters = _check_iters(name, iters)
+    if x.device.type == "cpu":
+        return flat_gather_plain(x, perm, iters)
+    _check_shared(name, 12 * E * Q)
+    out = torch.empty_like(x)
+    if x.numel():
+        _build.launch(flat_gather, name, x.device, x.data_ptr(), out.data_ptr(),
+                      perm.data_ptr(), E * Q, BT, iters)
+    return out
+
+
+flat_gather.launches = 0
+
+
+# --- P2: per-edge row moves -------------------------------------------------
+
+def row_moves_plain(x: torch.Tensor, pi: torch.Tensor, perms: torch.Tensor,
+                    iters: int) -> torch.Tensor:
+    """iters x: x[e, s, :] <- x[pi[e], perms[e, s], :] + 1."""
+    rows, slots = pi.long()[:, None], perms.long()
+    for _ in range(iters):
+        x = x[rows, slots] + 1.0
+    return x
+
+
+def row_moves(x: torch.Tensor, pi: torch.Tensor, perms: torch.Tensor,
+              iters: int) -> torch.Tensor:
+    """P2 on x [E, Q, BT] f32 with pi [E] and perms [E, Q] int32."""
+    name = "micro_row_moves"
+    _check(name, x, 3)
+    _check(name, pi, 1, torch.int32)
+    _check(name, perms, 2, torch.int32)
+    _same_device(name, x, pi, perms)
+    E, Q, BT = x.shape
+    if pi.shape != (E,) or perms.shape != (E, Q):
+        raise ValueError(f"{name}: pi {list(pi.shape)} and perms {list(perms.shape)} "
+                         f"do not fit x {list(x.shape)}")
+    iters = _check_iters(name, iters)
+    if x.device.type == "cpu":
+        return row_moves_plain(x, pi, perms, iters)
+    _check_shared(name, 12 * E * Q + 4 * E)
+    out = torch.empty_like(x)
+    if x.numel():
+        _build.launch(row_moves, name, x.device, x.data_ptr(), out.data_ptr(),
+                      pi.data_ptr(), perms.data_ptr(), E, Q, BT, iters)
+    return out
+
+
+row_moves.launches = 0
+
+
+# --- P3: one-hot GEMM routing -----------------------------------------------
+
+def onehot_gemm_plain(A: torch.Tensor, x: torch.Tensor, iters: int) -> torch.Tensor:
+    """iters x: x <- A @ x.reshape(E Q, BT) + 1 (f32; on a card with TF32
+    off the one-hot product is exact)."""
+    E, Q, BT = x.shape
+    for _ in range(iters):
+        x = (A @ x.reshape(E * Q, BT)).reshape(E, Q, BT) + 1.0
+    return x
+
+
+def onehot_gemm(A: torch.Tensor, x: torch.Tensor, iters: int) -> torch.Tensor:
+    """P3 on A [E Q, E Q] and x [E, Q, BT] f32: one launch of the SIMT GEMM
+    with its +1 epilogue per iteration, between two buffers."""
+    name = "micro_onehot_gemm"
+    _check(name, A, 2)
+    _check(name, x, 3)
+    _same_device(name, x, A)
+    E, Q, BT = x.shape
+    if A.shape != (E * Q, E * Q):
+        raise ValueError(f"{name}: A {list(A.shape)} does not fit x {list(x.shape)}")
+    iters = _check_iters(name, iters)
+    if x.device.type == "cpu":
+        return onehot_gemm_plain(A, x, iters)
+    if iters == 0 or x.numel() == 0:
+        return x.clone()
+    bufs = [torch.empty_like(x) for _ in range(min(iters, 2))]
+    src = x
+    for i in range(iters):
+        dst = bufs[i % 2]
+        _build.launch(onehot_gemm, name, x.device, A.data_ptr(), src.data_ptr(),
+                      dst.data_ptr(), E * Q, BT, E * Q)
+        src = dst
+    return src
+
+
+onehot_gemm.launches = 0
+
+
+# --- P4: one probability-domain check-node iteration ------------------------
+
+def cn_iteration_plain(x: torch.Tensor, iters: int) -> torch.Tensor:
+    """iters x, on x [E, Q, BT] as M = E / 4 checks of degree 4: normalize
+    over q, WHT, leave-one-out product over the 4 edges by prefix and
+    suffix, WHT / Q, floor at 1e-12."""
+    E, Q, BT = x.shape
+    M = E // DC_CN
+    for _ in range(iters):
+        p = x / (_serial_sum(x, 1) + 1e-30)
+        f0, f1, f2, f3 = wht_axis(p, 1).reshape(M, DC_CN, Q, BT).unbind(1)
+        pre2 = f0 * f1
+        pre3 = pre2 * f2
+        suf1 = f3 * f2
+        suf0 = suf1 * f1
+        loo = torch.stack([suf0, f0 * suf1, pre2 * f3, pre3], dim=1).reshape(E, Q, BT)
+        x = torch.clamp_min(wht_axis(loo, 1) / Q, PROB_FLOOR)
+    return x
+
+
+def cn_iteration(x: torch.Tensor, iters: int) -> torch.Tensor:
+    """P4 on x [E, Q, BT] f32, E a multiple of 4, Q a power of two."""
+    name = "micro_cn_iteration"
+    _check(name, x, 3)
+    E, Q, BT = x.shape
+    if E % DC_CN or Q & (Q - 1) or Q < 2:
+        raise ValueError(f"{name}: needs E % 4 == 0 and Q a power of two, got {list(x.shape)}")
+    iters = _check_iters(name, iters)
+    if x.device.type == "cpu":
+        return cn_iteration_plain(x, iters)
+    _kernel_q(name, Q)
+    out = torch.empty_like(x)
+    if x.numel():
+        _build.launch(cn_iteration, name, x.device, x.data_ptr(), out.data_ptr(),
+                      E, Q, BT, iters)
+    return out
+
+
+cn_iteration.launches = 0
+
+
+# --- P5: rotation + softmax chain, two layouts ------------------------------
+
+def rot_softmax_plain(x: torch.Tensor, rb: torch.Tensor, iters: int) -> torch.Tensor:
+    """iters x: X <- softmax_q(rot(X)) - 0.5, q on axis 0; rot rolls X[1:]
+    (L = Q - 1 rows) by 2^t mod L where bit t of RB is set, as the blend
+    Z (1 - b) + rolled b. Layout-agnostic: RB broadcasts over the frames."""
+    L = x.shape[0] - 1
+    for _ in range(iters):
+        z = x[1:]
+        for t in range(rb.shape[0]):
+            s = (1 << t) % L
+            rolled = torch.cat([z[L - s:], z[:L - s]])
+            b = rb[t]
+            z = z * (1.0 - b) + rolled * b
+        ex = torch.exp(torch.cat([x[:1], z]))
+        x = ex / _serial_sum(ex, 0) - 0.5
+    return x
+
+
+def _elem_dims(name: str, x: torch.Tensor, rb: torch.Tensor, layout: str) -> tuple:
+    """(Q, DC, M, TB) of P5's X and RB in `layout`, or ValueError."""
+    Q = x.shape[0]
+    if layout == "new":
+        _, DC, M, TB = x.shape
+        want = (ROT_BITS, DC, M, 1)
+    elif layout == "old":
+        _, DC, TB, M = x.shape
+        want = (ROT_BITS, DC, 1, M)
+    else:
+        raise ValueError(f"{name}: layout {layout!r} is not 'new' or 'old'")
+    if tuple(rb.shape) != want or Q < 2:
+        raise ValueError(f"{name}: RB {list(rb.shape)} does not fit X {list(x.shape)} "
+                         f"in the {layout} layout (want {list(want)})")
+    return Q, DC, M, TB
+
+
+def rot_softmax(x: torch.Tensor, rb: torch.Tensor, iters: int,
+                layout: str = "new") -> torch.Tensor:
+    """P5 on X [Q, DC, M, TB] with RB [4, DC, M, 1] ("new") or X [Q, DC,
+    TB, M] with RB [4, DC, 1, M] ("old"), f32, RB in {0, 1}."""
+    name = "micro_rot_softmax"
+    _check(name, x, 4)
+    _check(name, rb, 4)
+    _same_device(name, x, rb)
+    Q, DC, M, TB = _elem_dims(name, x, rb, layout)
+    iters = _check_iters(name, iters)
+    if x.device.type == "cpu":
+        return rot_softmax_plain(x, rb, iters)
+    _kernel_q(name, Q)
+    sq, sj = x.stride(0), x.stride(1)
+    sm, sb = (x.stride(2), x.stride(3)) if layout == "new" else (x.stride(3), x.stride(2))
+    out = torch.empty_like(x)
+    if x.numel():
+        _build.launch(rot_softmax, name, x.device, x.data_ptr(), rb.data_ptr(),
+                      out.data_ptr(), Q, DC, M, TB, sq, sj, sm, sb, iters)
+    return out
+
+
+rot_softmax.launches = 0
+
+
+# --- P6, P7: down-route, up-route, blend; two layouts -----------------------
+
+def route_plain(post: torch.Tensor, vn: torch.Tensor, nbr: torch.Tensor, iters: int,
+                layout: str = "new") -> torch.Tensor:
+    """iters x: lc = 0.999 post[:, vn, :]; pn[n] = sum of lc[:, e] over
+    nbr[n] (ascending e; -1 pads add 0); post <- 0.5 pn + 0.5 post."""
+    x = post if layout == "new" else post.transpose(1, 2)     # [Q, N, TB]
+    Q, _, TB = x.shape
+    E = vn.numel()
+    down = vn.long()
+    up = torch.where(nbr >= 0, nbr, E).long()                  # pads -> a zero row
+    zero = x.new_zeros((Q, 1, TB))
+    for _ in range(iters):
+        lc = torch.cat([x[:, down, :] * 0.999, zero], dim=1)
+        pn = lc[:, up[:, 0], :]
+        for k in range(1, up.shape[1]):
+            pn = pn + lc[:, up[:, k], :]
+        x = pn * 0.5 + x * 0.5
+    return x if layout == "new" else x.transpose(1, 2).contiguous()
+
+
+def route(post: torch.Tensor, vn: torch.Tensor, nbr: torch.Tensor, iters: int,
+          layout: str = "new") -> torch.Tensor:
+    """P6 on post [Q, N, TB] ("new") or P7 on post [Q, TB, N] ("old"), f32,
+    with vn [E] and nbr [N, D] int32 from `route_tables`."""
+    name = "micro_route"
+    _check(name, post, 3)
+    _check(name, vn, 1, torch.int32)
+    _check(name, nbr, 2, torch.int32)
+    _same_device(name, post, vn, nbr)
+    if layout not in ("new", "old"):
+        raise ValueError(f"{name}: layout {layout!r} is not 'new' or 'old'")
+    Q = post.shape[0]
+    N, TB = post.shape[1:] if layout == "new" else post.shape[:0:-1]
+    if nbr.shape[0] != N or nbr.shape[1] < 1:
+        raise ValueError(f"{name}: nbr {list(nbr.shape)} does not fit post "
+                         f"{list(post.shape)} in the {layout} layout")
+    iters = _check_iters(name, iters)
+    if post.device.type == "cpu":
+        return route_plain(post, vn, nbr, iters, layout)
+    E, D = vn.numel(), nbr.shape[1]
+    _check_shared(name, 4 * (Q * N + Q * E + E + N * D))
+    sq = post.stride(0)
+    sn, sb = (post.stride(1), post.stride(2)) if layout == "new" else (post.stride(2),
+                                                                       post.stride(1))
+    out = torch.empty_like(post)
+    if post.numel():
+        _build.launch(route, name, post.device, post.data_ptr(), out.data_ptr(),
+                      vn.data_ptr(), nbr.data_ptr(), Q, N, TB, E, D, sq, sn, sb, iters)
+    return out
+
+
+route.launches = 0
+
+# every kernel wrapper of this module, for counters
+WRAPPERS = (flat_gather, row_moves, onehot_gemm, cn_iteration, rot_softmax, route)

@@ -14,11 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from nbldpc_tpu_torch.benchmarks import micro_kernels, micro_layout
 from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init
 from nbldpc_tpu_torch.convert import codespec_from_arrays
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems
 from nbldpc_tpu_torch.kernels import ems_resident as er
+from nbldpc_tpu_torch.kernels import micro
 from nbldpc_tpu_torch.kernels import qspa_resident as qr
 from nbldpc_tpu_torch.utils.config import CodeConfig
 
@@ -265,3 +267,67 @@ def test_cn_tems_wrapper_rejects_bad_input(cuda_device):
     before = cn_tems.cn_update.launches
     cn_tems.cn_update(good, 0.0, 15)
     assert cn_tems.cn_update.launches == before + 1
+
+
+# The probes P1-P7 at the JAX scripts' full shapes. Each kernel repeats its
+# plain version's operations in the same order, P4's IEEE divisions and
+# P5's expf included (0.0 measured on the H100): exact.
+
+
+def _micro_err(out, ref):
+    """Max abs error, 0.0 where both are equal (inf included)."""
+    differ = out != ref
+    return float((out - ref).abs()[differ].max()) if bool(differ.any()) else 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", micro_kernels.NAMES)
+def test_micro_kernels_match_plain(cuda_device, name):
+    torch.backends.cuda.matmul.allow_tf32 = False        # the plain P3 in full f32
+    x, perm = micro_kernels.make_inputs(0)
+    kernel, plain = micro_kernels.case(name, x.to(cuda_device), perm)
+    wrapper = micro_kernels.WRAPPERS[name]
+    before = wrapper.launches
+    out = kernel()
+    launched = micro_kernels.ITERS if name == "matmul_onehot_routing" else 1
+    assert wrapper.launches == before + launched
+    ref = plain()
+    assert bool(torch.isfinite(out).all())
+    assert _micro_err(out, ref) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", micro_layout.NAMES)
+def test_micro_layout_match_plain(cuda_device, name):
+    inputs = micro_layout.make_inputs(0)
+    kernel, plain, _ = micro_layout.case(name, inputs, cuda_device)
+    wrapper = micro_layout.WRAPPERS[name]
+    iters = 200                                          # the entry point's deeper depth
+    before = wrapper.launches
+    out = kernel(iters)
+    assert wrapper.launches == before + 1
+    ref = plain(iters)
+    if name.startswith("route"):
+        # past +-inf for the nodes of degree >= 3, never NaN: equal throughout
+        assert bool(torch.isinf(ref).any()) and not bool(torch.isnan(out).any())
+        assert torch.equal(out, ref)
+    else:
+        assert _micro_err(out, ref) == 0.0
+
+
+@pytest.mark.cuda
+def test_micro_wrappers_reject_bad_input(cuda_device):
+    x, perm = micro_kernels.make_inputs(0, E=8, Q=4, BT=4)
+    x = x.to(cuda_device)
+    with pytest.raises(ValueError, match="every input"):
+        micro.flat_gather(x, perm, 1)                    # table left on the CPU
+    with pytest.raises(ValueError):
+        micro.flat_gather(x.double(), perm.to(cuda_device), 1)
+    with pytest.raises(ValueError, match="q=64"):
+        micro.cn_iteration(torch.zeros((8, 64, 4), device=cuda_device), 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        big, bperm = micro_kernels.make_inputs(0, E=4096, Q=8, BT=2)
+        micro.flat_gather(big.to(cuda_device), bperm.to(cuda_device), 1)
+    before = micro.flat_gather.launches
+    out = micro.flat_gather(x, perm.to(cuda_device), 0)
+    assert micro.flat_gather.launches == before + 1 and torch.equal(out, x)
