@@ -17,8 +17,8 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 early termination); timed at GF(64) and at config 5's
                 bench shape
   6. cn_ems   - the EMS check-node kernels (classic and bubble) against
-                their plain version, exact to 0.0, classic also at config
-                5's step shape
+                their plain version, exact to 0.0, classic also on
+                tie-heavy inputs (4 levels) and at config 5's step shape
   7. ems_resident - the whole-decode EMS kernel against its plain version,
                 in the modes of phase 4 and at nm = 8; agreement 1.0
   8. cn_tems  - the T-EMS check-node kernel against its plain version at
@@ -45,7 +45,7 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 through K2; then GF(256) QSPA at 10 iterations, 2.5 dB,
                 16384 frames, held to its JAX FER record
  14. bench    - sim-step throughput, kernel paths and plain torch paths,
-                QSPA, EMS, T-EMS and config 5's QSPA
+                QSPA, EMS, T-EMS and config 5's QSPA and EMS halves
  15. micro    - the probes P1-P7: the two entry points
                 (nbldpc_tpu_torch.benchmarks.micro_kernels and .micro_layout)
                 as a user runs them, counters read around them; then each
@@ -104,16 +104,18 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 # Peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
-# operations outside the tensor cores, and HBM bytes.
+# operations outside the tensor cores, TF32 in them, and HBM bytes.
 PEAK_F32_OPS = 67e12
+PEAK_TF32_OPS = 495e12          # dense, tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 
-def bound(ops: float, nbytes: float) -> dict:
-    """The least time the card could take for work of `ops` f32 operations
-    that reads its inputs once and writes its outputs once (`nbytes`): the
-    larger of the two times, and which one sets it."""
-    t_ops = ops / PEAK_F32_OPS * 1e3
+def bound(ops: float, nbytes: float, peak_ops: float = PEAK_F32_OPS) -> dict:
+    """The least time the card could take for work of `ops` operations at
+    `peak_ops` per second (f32 by default) that reads its inputs once and
+    writes its outputs once (`nbytes`): the larger of the two times, and
+    which one sets it."""
+    t_ops = ops / peak_ops * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return ({"bound_ms": t_ops, "bound_by": "operations"} if t_ops >= t_bytes
             else {"bound_ms": t_bytes, "bound_by": "bytes"})
@@ -223,16 +225,17 @@ def _graph(code: str, device):
     return TannerGraph(CodeConfig(name=code).load(), device=device)
 
 
-def _u_for(g, B: int, device):
-    """Check-node inputs with the code's real pad structure, from a seed."""
+def _u_for(g, B: int, device, levels: int = 0):
+    """Check-node inputs with the code's real pad structure, from a seed:
+    normal draws, or with `levels` > 0 multiples of 1.5 from that many
+    values (ties in every extraction round)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(0)
-    Vv = torch.from_numpy(
-        (rng.standard_normal((g.n, g.dv_max, g.q, B)) * 3.0).astype(np.float32)
-    ).to(device)
-    return g.gather_cn_x_bl(Vv).contiguous()
+    shape = (g.n, g.dv_max, g.q, B)
+    v = rng.integers(0, levels, shape) * 1.5 if levels else rng.standard_normal(shape) * 3.0
+    return g.gather_cn_x_bl(torch.from_numpy(v.astype(np.float32)).to(device)).contiguous()
 
 
 def phase_cn_qspa(device):
@@ -412,14 +415,14 @@ def phase_resident_cl(device):
 
 
 def _hold_cn(phase: str, device, code: str, B: int, kern, plain, args, check_ops,
-             **label) -> dict:
+             levels: int = 0, **label) -> dict:
     """A check-node kernel against its plain version on the same U, timed
     plain, kernel, kernel, plain: max abs error must be 0.0 and every output
     finite. check_ops(q, dc, *args) counts the operations of one (check,
     frame) for the bound."""
     import torch
 
-    U = _u_for(_graph(code, device), B, device)
+    U = _u_for(_graph(code, device), B, device, levels)
     M, dc, q, _ = U.shape
     out = kern(U, *args)
     ref = plain(U, *args)
@@ -448,20 +451,21 @@ def phase_cn_ems(device):
 
     classic = (cn_ems.cn_update, cn_ems.cn_update_plain, ems_check_ops)
     bubble = (cn_ems.cn_update_bubble, cn_ems.cn_update_bubble_plain, bubble_check_ops)
-    # the last classic case is config 5's EMS half as `cli run` decodes it
-    # in phase main_cfg5: 8 points x 512 frames per step
-    cases = [("gf16_n204_k102", 8192, "classic", classic, 16, 0.3),
-             ("gf64_n576_k480", 1024, "classic", classic, 8, 0.1),
-             ("gf64_n576_k480", 1024, "bubble", bubble, 8, 0.0),
-             ("gf256_n255_k175", 512, "classic", classic, 16, 0.1),
-             ("gf256_n255_k175", 512, "bubble", bubble, 16, 0.0),
-             ("gf256_n255_k175", 4096, "classic", classic, 16, 0.1)]
+    # levels > 0: tie-heavy inputs; the last classic case is config 5's EMS
+    # half as `cli run` decodes it in phase main_cfg5: 8 points x 512 frames
+    cases = [("gf16_n204_k102", 8192, "classic", classic, 16, 0.3, 0),
+             ("gf64_n576_k480", 1024, "classic", classic, 8, 0.1, 0),
+             ("gf64_n576_k480", 1024, "bubble", bubble, 8, 0.0, 0),
+             ("gf256_n255_k175", 512, "classic", classic, 16, 0.1, 0),
+             ("gf256_n255_k175", 512, "bubble", bubble, 16, 0.0, 0),
+             ("gf256_n255_k175", 512, "classic", classic, 16, 0.1, 4),
+             ("gf256_n255_k175", 4096, "classic", classic, 16, 0.1, 0)]
     rows = {}
-    for code, B, merge, (kern, plain, ops), nm, offset in cases:
+    for code, B, merge, (kern, plain, ops), nm, offset, levels in cases:
         rows.setdefault(merge, []).append(_hold_cn(
             "cn_ems", device, code, B, kern, plain, (nm, offset),
-            lambda q, dc, nm, _offset, ops=ops: ops(q, dc, nm),
-            merge=merge, nm=nm, offset=offset))
+            lambda q, dc, nm, _offset, ops=ops: ops(q, dc, nm), levels,
+            merge=merge, nm=nm, offset=offset, tie_levels=levels))
     return rows
 
 
@@ -852,7 +856,10 @@ def micro_bounds(name: str, inputs: dict, iters: int) -> dict:
         if name == "micro_row_moves":
             return bound(iters * R * BT, xb + 4 * (R + E))
         if name == "micro_onehot_gemm":
-            return bound(iters * 2 * R * R * BT, xb + 4 * R * R)
+            # the arithmetic the kernel does, three TF32 tensor-core
+            # products; the one f32 product's bound beside it
+            return {**bound(iters * 3 * 2 * R * R * BT, xb + 4 * R * R, PEAK_TF32_OPS),
+                    "bound_f32_ms": bound(iters * 2 * R * R * BT, xb + 4 * R * R)["bound_ms"]}
         # normalize (Q adds, Q divides), two WHTs, 1.5 products, scale, floor
         per_elem = 5.5 + 2 * (Q.bit_length() - 1)
         return bound(iters * per_elem * R * BT, xb)
@@ -958,6 +965,10 @@ def phase_micro(device, card: str):
         rows[name] = _hold_micro(name, case, lambda _it, f=kernel: f(),
                                  lambda _it, f=plain: f(), {"x": x}, mk.ITERS, mk.ITERS,
                                  library)
+        if library is not None:
+            # the share of P3's ms that its input check (one wait) takes
+            emit({"phase": "micro", "kernel": name, "case": case,
+                  "check_ms": cuda_ms(lambda: micro.check_onehot(A, x), 20)})
     inp = ml.make_inputs(0)
     for case in ml.NAMES:
         name = f"micro_{ml.WRAPPERS[case].__name__}"

@@ -14,7 +14,10 @@ ROWS has its own code, batch, budget and noise:
          20 iterations), sigma from 3.5 dB;
   qspa_gf256_n255_k175 - QSPA at BASELINE config 5's decoder and step
          (configs/gf256_sweep_2host.json: 20 iterations, 8 Eb/N0 points x
-         512 frames = 4096 frames per step), sigma from 3.0 dB.
+         512 frames = 4096 frames per step), sigma from 3.0 dB;
+  ems_gf256_n255_k175 - config 5's EMS half (nm = 16, offset 0.1) at the
+         same step: the classic check-node kernel inside decode_bl (kernel
+         path only: the plain path takes ~16 s per step there).
 
     python -m nbldpc_tpu_torch bench
     python -m nbldpc_tpu_torch bench --profile qspa_gf256_n255_k175
@@ -64,6 +67,8 @@ ROWS = [
         1024, 20, 3.5, ebn0=True, config=(("tems_nr", 8), ("offset", 2.0))),
     Row("qspa_gf256_n255_k175", "gf256_n255_k175", "qspa",
         ("resident", "kernel", "torch"), 4096, 20, 3.0, ebn0=True),
+    Row("ems_gf256_n255_k175", "gf256_n255_k175", "ems", ("kernel",),
+        4096, 20, 3.0, ebn0=True, config=(("nm", 16), ("offset", 0.1))),
 ]
 ROWS_BY_NAME = {r.name: r for r in ROWS}
 

@@ -9,7 +9,8 @@ answered by a hand-written CUDA kernel (nbldpc_tpu_torch/kernels/micro.py):
   per_edge_row_moves        P2: the same as per-edge row moves, a partner
                             row and a slot permutation per edge;
   matmul_onehot_routing     P3: the routing as a one-hot GEMM, x <- A x + 1
-                            (a SIMT f32 GEMM, one launch per iteration);
+                            (a TF32 tensor-core GEMM, exact for a one-hot
+                            A, one launch per iteration);
   cn_iteration_prob_domain  P4: one probability-domain QSPA check-node
                             iteration (normalize, WHT, leave-one-out
                             product, WHT).

@@ -25,16 +25,33 @@
 // What bounds it on the H100: on-chip work. Each element is read once and
 // written once (8 bytes); the merges are q (classic dense), nm (classic
 // scan) or |staircase| (bubble) shared-memory reads per output symbol, and
-// every extraction is nm group-wide argmax reductions, each with two block
-// barriers for q > 32.
+// every extraction is nm argmax reductions over the q symbols.
 //
-// Design: threads across symbols. A group of q threads owns one (check,
-// frame) pair, thread a owning symbol a; a block of max(128, q) threads
-// holds max(128, q) / q frames of one check. Operands, partials and lists
-// live in the group's shared memory (nothing per thread grows with q, so
-// nothing spills at q = 256). Reductions are warp shuffles inside a warp
-// and a shared-memory exchange across the group's warps for q > 32. Groups
-// past the last frame compute on frame B-1 and store nothing.
+// Classic design (cn_ems_classic_kernel): one warp per (check, frame) for
+// q >= 32, lane l holding symbols l, l + 32, ..., l + q - 32 in registers;
+// for q < 32 a warp holds 32 / q frames, one symbol per lane. Every
+// reduction stays inside the warp: an extraction round is one warp max
+// (__reduce_max_sync) of the lanes' best order-preserving 32-bit keys, one
+// warp min of the symbol indices reaching it, and a rescan of its S keys
+// by the one lane that owns the pick, so no round has a block barrier.
+// Three blocks fit an SM at q = 256 (at most 85 registers). A block of NW
+// warps (8 unless
+// shared memory forces fewer) takes consecutive frames of one check and
+// stages each [q, frames] slab through shared memory, so global loads and
+// stores run along the frame axis (each 32-byte sector used whole; the
+// next operand's loads are in flight while one is extracted); block
+// barriers come only at the 2 dc slab exchanges. A frame keeps only what
+// the recursion reads: the dense form of operand 0 (then F) and of the
+// running B partial (the merge's acc), and the op form of operands 1..dc-1
+// and partials B_1..B_{dc-3} (the nm (value, index) pairs for q > 64, else
+// the q-entry list). Frames past B compute on zeros and store nothing.
+//
+// Bubble design (cn_ems_bubble_kernel): threads across symbols. A group of
+// q threads owns one (check, frame) pair, thread a owning symbol a; a block
+// of max(128, q) threads holds max(128, q) / q frames of one check; lists
+// live in the group's shared memory; reductions are warp shuffles and a
+// shared-memory exchange across the group's warps for q > 32. Groups past
+// the last frame compute on frame B-1 and store nothing.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -139,111 +156,277 @@ __device__ __forceinline__ void emit(float o, float offset, float* dst, bool val
 
 // ---- classic -----------------------------------------------------------------
 
-// One operand or partial: dense form D[q], list form L[q] (NEG outside the
-// top-nm) and the extraction's (value, index) list V[nm], I[nm].
-struct Rec {
-  float* D;
-  float* L;
-  float* V;
-  int* I;
+// A warp's lanes across the q symbols: S symbols per lane (lane l holds
+// l, l + 32, ...) for q >= 32; for q < 32, G = 32 / q frames per warp, one
+// symbol per lane. The group of a frame is its q lanes (the whole warp for
+// q >= 32).
+template <int Q>
+struct Lanes {
+  static constexpr int S = Q < 32 ? 1 : Q / 32;
+  static constexpr int G = Q < 32 ? 32 / Q : 1;
 };
 
-template <int Q>
-__device__ __forceinline__ Rec rec_at(float* area, int k, int nm) {
-  float* r = area + (size_t)k * (2 * Q + 2 * nm);
-  return {r, r + Q, r + 2 * Q, reinterpret_cast<int*>(r + 2 * Q + nm)};
+// Order-preserving 32-bit key of a float (-0 keyed as +0, as max and >=
+// treat them), and back.
+__device__ __forceinline__ unsigned okey(float f) {
+  unsigned u = __float_as_uint(f);
+  u = u == 0x80000000u ? 0u : u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-// Writes x (this thread's symbol) into r: identity without truncation,
-// else the stable top-nm extraction.
-template <int Q>
-__device__ __forceinline__ void put(float x, int a, int nm, bool trunc, Rec r, Red red) {
-  if (!trunc) {
-    r.D[a] = x;
-    r.L[a] = x;
-    return;
-  }
-  float run = x, comp = 0.f;
-  bool kept = false;
-  for (int t = 0; t < nm; ++t) {
-    float v = run;
-    int i = a;
-    group_argmax<Q>(v, i, red);
-    if (i == a) {
-      run = kNeg;
-      kept = true;
-    }
-    if (a == 0) {
-      r.V[t] = v;
-      r.I[t] = i;
-    }
-    comp = v;
-  }
-  r.D[a] = kept ? x : comp;
-  r.L[a] = kept ? x : kNeg;
+__device__ __forceinline__ float ofloat(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
+// max / min of v over the frame's group of lanes
 template <int Q>
-__device__ __forceinline__ float merge(int a, int nm, bool scan, Rec acc, Rec op) {
-  float o;
-  if (scan) {
-    o = op.V[0] + acc.D[a ^ op.I[0]];
-    for (int t = 1; t < nm; ++t) o = fmaxf(o, op.V[t] + acc.D[a ^ op.I[t]]);
+__device__ __forceinline__ unsigned lanes_max(unsigned v) {
+  if constexpr (Q >= 32) {
+    return __reduce_max_sync(kFull, v);
   } else {
-    o = op.L[0] + acc.D[a];
-#pragma unroll 8
-    for (int b = 1; b < Q; ++b) o = fmaxf(o, op.L[b] + acc.D[a ^ b]);
+#pragma unroll
+    for (int h = 1; h < Q; h <<= 1) v = max(v, __shfl_xor_sync(kFull, v, h, Q));
+    return v;
   }
-  return o;
 }
 
 template <int Q>
-__global__ void __launch_bounds__(Shape<Q>::kThreads)
+__device__ __forceinline__ unsigned lanes_min(unsigned v) {
+  if constexpr (Q >= 32) {
+    return __reduce_min_sync(kFull, v);
+  } else {
+#pragma unroll
+    for (int h = 1; h < Q; h <<= 1) v = min(v, __shfl_xor_sync(kFull, v, h, Q));
+    return v;
+  }
+}
+
+// max over the group of this lane's S values
+template <int Q>
+__device__ __forceinline__ float lanes_fmax(const float (&x)[Lanes<Q>::S]) {
+  unsigned k = okey(x[0]);
+#pragma unroll
+  for (int s = 1; s < Lanes<Q>::S; ++s) k = max(k, okey(x[s]));
+  return ofloat(lanes_max<Q>(k));
+}
+
+// The record of one operand or partial x (this lane's S symbols, symbol
+// sym + 32 s): without truncation the identity, else the stable top-nm
+// (nm rounds of: max, lowest symbol reaching it, set it to NEG). d gets the
+// dense form (kept entries, the rest at the last extracted value); `dense`,
+// if given, gets d too; `op`, if given, gets the op form: the nm (value,
+// index) pairs when `scan`, else the list form (the rest at NEG).
+template <int Q>
+__device__ __forceinline__ void record(const float (&x)[Lanes<Q>::S], float (&d)[Lanes<Q>::S],
+                                       int sym, int nm, bool trunc, bool scan,
+                                       float* dense, float* op) {
+  constexpr int S = Lanes<Q>::S;
+  unsigned kept = (1u << S) - 1;
+  float comp = 0.f;
+  if (trunc) {
+    unsigned key[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) key[s] = okey(x[s]);
+    kept = 0;
+    const unsigned neg = okey(kNeg);
+    // the lane's best key and the lowest of its slots reaching it; only the
+    // lane that owns a round's pick changes, so only it rescans
+    unsigned best;
+    int bs;
+    auto rescan = [&] {
+      best = key[0];
+      bs = 0;
+#pragma unroll
+      for (int s = 1; s < S; ++s) {
+        if (key[s] > best) {
+          best = key[s];
+          bs = s;
+        }
+      }
+    };
+    rescan();
+    for (int t = 0; t < nm; ++t) {
+      const unsigned mx = lanes_max<Q>(best);
+      const unsigned cand = best == mx ? sym + 32 * bs : 0xffffffffu;
+      const unsigned idx = lanes_min<Q>(cand);
+      if (cand == idx) {                     // this lane owns the pick
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          if (s == bs) key[s] = neg;
+        kept |= 1u << bs;
+        rescan();
+      }
+      comp = ofloat(mx);
+      if (scan && op && sym == 0)
+        reinterpret_cast<float2*>(op)[t] = make_float2(comp, __uint_as_float(idx));
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const bool k = (kept >> s) & 1u;
+    d[s] = k ? x[s] : comp;
+    if (dense) dense[sym + 32 * s] = d[s];
+    if (op && !scan) op[sym + 32 * s] = k ? x[s] : kNeg;
+  }
+}
+
+// o[a] = max over the op's entries of op value + acc.dense[a ^ op index]:
+// the nm (value, index) pairs when `scan`, else all q list entries.
+template <int Q>
+__device__ __forceinline__ void merge(const float* acc, const float* op, int sym, int nm,
+                                      bool scan, float (&o)[Lanes<Q>::S]) {
+  constexpr int S = Lanes<Q>::S;
+  if (scan) {
+    const float2* pairs = reinterpret_cast<const float2*>(op);
+    for (int t = 0; t < nm; ++t) {
+      const float2 e = pairs[t];
+      const int c = sym ^ (int)__float_as_uint(e.y);
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float v = e.x + acc[c ^ (s << 5)];
+        o[s] = t == 0 ? v : fmaxf(o[s], v);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int b = 0; b < Q; ++b) {
+      const float l = op[b];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float v = l + acc[(sym + 32 * s) ^ b];
+        o[s] = b == 0 ? v : fmaxf(o[s], v);
+      }
+    }
+  }
+}
+
+// The block's [Q, fb] slab of frames b0.. b0 + fb - 1 of one (check, slot)
+// row block [Q, B], fb = 2^lg_fb frames, moved along b: with 32 fb / G
+// threads each thread moves exactly S entries, e = thread + s * threads.
+// slab_fetch reads it into registers (zeros past B), slab_put writes them
+// to the slab (row stride fb + 1) between two barriers, slab_store writes
+// the slab out between two barriers.
+template <int Q>
+__device__ __forceinline__ void slab_fetch(float (&v)[Lanes<Q>::S], const float* src, int B,
+                                           int b0, int lg_fb) {
+#pragma unroll
+  for (int s = 0; s < Lanes<Q>::S; ++s) {
+    const int e = threadIdx.x + s * blockDim.x;
+    const int a = e >> lg_fb, b = b0 + (e & ((1 << lg_fb) - 1));
+    v[s] = b < B ? src[(size_t)a * B + b] : 0.f;
+  }
+}
+
+template <int Q>
+__device__ __forceinline__ void slab_put(float* slab, const float (&v)[Lanes<Q>::S],
+                                         int lg_fb) {
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < Lanes<Q>::S; ++s) {
+    const int e = threadIdx.x + s * blockDim.x;
+    slab[(e >> lg_fb) * ((1 << lg_fb) + 1) + (e & ((1 << lg_fb) - 1))] = v[s];
+  }
+  __syncthreads();
+}
+
+template <int Q>
+__device__ __forceinline__ void slab_store(const float* slab, float* dst, int B, int b0,
+                                           int lg_fb) {
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < Lanes<Q>::S; ++s) {
+    const int e = threadIdx.x + s * blockDim.x;
+    const int a = e >> lg_fb, f = e & ((1 << lg_fb) - 1);
+    if (b0 + f < B) dst[(size_t)a * B + b0 + f] = slab[a * ((1 << lg_fb) + 1) + f];
+  }
+  __syncthreads();
+}
+
+// Floats of shared memory the classic kernel needs for frames of fb per block.
+template <int Q>
+size_t classic_floats(int fb, int dc, int nm) {
+  const bool scan = nm < Q && Q > kDenseMergeMaxQ;
+  const int slots = (dc - 1) + (dc > 3 ? dc - 3 : 0);
+  return (size_t)Q * (fb + 1) + (size_t)fb * (2 * Q + slots * (scan ? 2 * nm : Q));
+}
+
+template <int Q>
+__global__ void __launch_bounds__(256, 3)
 cn_ems_classic_kernel(const float* __restrict__ U, float* __restrict__ out,
-                      int dc, int B, int nm, float offset) {
+                      int dc, int B, int nm, float offset, int lg_fb) {
   extern __shared__ float smem[];
-  constexpr int G = Shape<Q>::kGroups;
-  const int g = threadIdx.x / Q;
-  const int a = threadIdx.x % Q;
-  const int m = blockIdx.y;
-  const int b_raw = blockIdx.x * G + g;
-  const bool valid = b_raw < B;
-  const int b = valid ? b_raw : B - 1;
+  constexpr int S = Lanes<Q>::S, G = Lanes<Q>::G;
+  const int lane = threadIdx.x & 31;
+  const int sym = lane % Q;                                 // lane l holds sym + 32 s
+  const int w = (threadIdx.x >> 5) * G + lane / Q;          // its frame in the block
+  const int fb = 1 << lg_fb, ld = fb + 1;
+  const int b0 = blockIdx.x * fb;
   const bool trunc = nm < Q;
   const bool scan = trunc && Q > kDenseMergeMaxQ;
-  const Red red{smem, reinterpret_cast<int*>(smem + kRed / 2)};
-  // records 0..dc-1: U_j (record 0 then carries F); dc..2dc-1: B_j
-  float* area = smem + kRed + (size_t)g * 2 * dc * (2 * Q + 2 * nm);
-  auto bj = [&](int j) {
-    return rec_at<Q>(area, j == dc - 2 ? dc - 1 : dc + j, nm);
+  const int rec = scan ? 2 * nm : Q;
+  const int slots = (dc - 1) + (dc > 3 ? dc - 3 : 0);
+  float* slab = smem;
+  // per frame: dense operand 0 (then F), dense B partial, then the op
+  // records: slots 0..dc-2 operands 1..dc-1, slots dc-1.. partials B_1..
+  float* fdense = smem + (size_t)Q * ld + (size_t)w * (2 * Q + slots * rec);
+  float* bdense = fdense + Q;
+  auto slot = [&](int k) { return bdense + Q + (size_t)k * rec; };
+  auto bop = [&](int j) { return slot(j == dc - 2 ? dc - 2 : dc - 2 + j); };
+  const size_t js = (size_t)Q * B;
+  const float* Um = U + (size_t)blockIdx.y * dc * js;
+  float* Om = out + (size_t)blockIdx.y * dc * js;
+
+  // postprocess o and store it as output slot j
+  auto emit_out = [&](int j, const float (&o)[S]) {
+    const float mx = lanes_fmax<Q>(o);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float r = (o[s] - mx) + offset;
+      slab[(sym + 32 * s) * ld + w] = fmaxf(fminf(r, 0.f), kNeg);
+    }
+    slab_store<Q>(slab, Om + j * js, B, b0, lg_fb);
   };
 
-  const size_t js = (size_t)Q * B;
-  const size_t off = (size_t)m * dc * js + (size_t)a * B + b;
+  float d[S], o[S], next[S];
+  slab_fetch<Q>(next, Um, B, b0, lg_fb);
   for (int j = 0; j < dc; ++j) {
-    float x = U[off + j * js];
-    x = x - group_max<Q>(x, red);
-    put<Q>(x, a, nm, trunc, rec_at<Q>(area, j, nm), red);
+    slab_put<Q>(slab, next, lg_fb);
+    float x[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) x[s] = slab[(sym + 32 * s) * ld + w];
+    if (j + 1 < dc) slab_fetch<Q>(next, Um + (j + 1) * js, B, b0, lg_fb);   // in flight
+    const float mx = lanes_fmax<Q>(x);
+#pragma unroll
+    for (int s = 0; s < S; ++s) x[s] = x[s] - mx;
+    record<Q>(x, d, sym, nm, trunc, scan,
+              j == 0 ? fdense : (j == dc - 1 ? bdense : nullptr),
+              j >= 1 ? slot(j - 1) : nullptr);
   }
-  group_sync<Q>();
-  // B_j = merge of U_{j+1..dc-1}; B_{dc-2} is U_{dc-1} itself
+  __syncwarp();
+  // B_j = merge of U_{j+1..dc-1}; B_{dc-2} is U_{dc-1}, whose dense form d holds
   for (int j = dc - 3; j >= 0; --j) {
-    const float mrg = merge<Q>(a, nm, scan, bj(j + 1), rec_at<Q>(area, j + 1, nm));
-    put<Q>(mrg, a, nm, trunc, rec_at<Q>(area, dc + j, nm), red);
-    group_sync<Q>();
+    merge<Q>(bdense, slot(j), sym, nm, scan, o);
+    __syncwarp();                            // the acc is read before it is replaced
+    record<Q>(o, d, sym, nm, trunc, scan, bdense, j >= 1 ? bop(j) : nullptr);
+    __syncwarp();
   }
-  emit<Q>(bj(0).D[a], offset, out + off, valid, red);
-  // F_j = merge of U_{0..j-1}, kept in record 0 (F_1 is U_0 itself)
-  const Rec f = rec_at<Q>(area, 0, nm);
+  emit_out(0, d);
+  // F_j = merge of U_{0..j-1}, kept in fdense (F_1 is U_0 itself)
+#pragma unroll
+  for (int s = 0; s < S; ++s) d[s] = fdense[sym + 32 * s];
   for (int j = 1; j < dc; ++j) {
     if (j >= 2) {
-      const float mrg = merge<Q>(a, nm, scan, f, rec_at<Q>(area, j - 1, nm));
-      group_sync<Q>();                       // F is read before it is replaced
-      put<Q>(mrg, a, nm, trunc, f, red);
-      group_sync<Q>();
+      merge<Q>(fdense, slot(j - 2), sym, nm, scan, o);
+      __syncwarp();
+      record<Q>(o, d, sym, nm, trunc, scan, fdense, nullptr);
+      __syncwarp();
     }
-    const float o = (j < dc - 1) ? merge<Q>(a, nm, scan, f, bj(j)) : f.D[a];
-    emit<Q>(o, offset, out + off + j * js, valid, red);
+    if (j < dc - 1) {
+      merge<Q>(fdense, bop(j), sym, nm, scan, o);
+      emit_out(j, o);
+    } else {
+      emit_out(j, d);
+    }
   }
 }
 
@@ -426,12 +609,17 @@ cudaError_t launch(bool bubble, const float* U, float* out, int M, int dc, int B
   if (M > 65535 || dc < 2 || nm < 1 || nm > Q) return cudaErrorInvalidValue;
   cudaError_t err;
   if (!bubble) {
-    const size_t bytes =
-        (kRed + (size_t)G * 2 * dc * (2 * Q + 2 * nm)) * sizeof(float);
+    // 8 warps a block unless shared memory forces fewer
+    int warps = 8;
+    while (warps > 1 &&
+           classic_floats<Q>(warps * Lanes<Q>::G, dc, nm) * sizeof(float) > kMaxSmem)
+      warps /= 2;
+    const int fb = warps * Lanes<Q>::G;
+    const size_t bytes = classic_floats<Q>(fb, dc, nm) * sizeof(float);
     err = prepare(cn_ems_classic_kernel<Q>, bytes);
     if (err != cudaSuccess) return err;
-    cn_ems_classic_kernel<Q><<<grid, Shape<Q>::kThreads, bytes, stream>>>(
-        U, out, dc, B, nm, offset);
+    cn_ems_classic_kernel<Q><<<dim3((B + fb - 1) / fb, M), 32 * warps, bytes, stream>>>(
+        U, out, dc, B, nm, offset, __builtin_ctz(fb));
   } else {
     int npairs = 0;
     for (int t = 0; t < nm; ++t) npairs += stair_row(t, nm);

@@ -20,7 +20,9 @@ and P7 post [Q, N, TB] ("new") or [Q, TB, N] ("old"); one kernel serves
 both layouts through strides. Index tables are int32 and come from the
 makers below (`row_tables`, `onehot_matrix`, `route_tables`), which keep
 every index in range; the wrappers do not read the tables back, since that
-would wait on the card inside every timed call.
+would wait on the card inside every timed call. P3 is the exception: its
+kernel is exact only for a one-hot A and an x its split can hold, so
+`onehot_gemm` checks both (`check_onehot`) and waits once per call.
 
 Every kernel repeats its plain version's arithmetic in the same order
 (sums over q serial in q, the route sums in ascending edge order, IEEE
@@ -224,9 +226,28 @@ def onehot_gemm_plain(A: torch.Tensor, x: torch.Tensor, iters: int) -> torch.Ten
     return x
 
 
+# the least nonzero |x| whose three TF32 parts (hi, mid, lo) are all normal
+ONEHOT_X_MIN = 2.0 ** -103
+
+
+def check_onehot(A: torch.Tensor, x: torch.Tensor, name: str = "micro_onehot_gemm") -> None:
+    """Raises unless A is one-hot (each row all 0 but at most one 1) and
+    every x is finite and 0 or at least ONEHOT_X_MIN in magnitude: what the
+    kernel's exact split of x needs (csrc/micro_onehot_gemm.cu)."""
+    ones = torch.count_nonzero(A, dim=1)
+    mag = x.abs()
+    ok = ((ones <= 1).all() & (A.sum(dim=1) == ones).all()
+          & (torch.isfinite(x) & ((mag == 0) | (mag >= ONEHOT_X_MIN))).all())
+    if not bool(ok):
+        raise ValueError(f"{name}: A must be one-hot (0/1, at most one 1 per row) and "
+                         f"x finite with each entry 0 or of magnitude >= 2^-103")
+
+
 def onehot_gemm(A: torch.Tensor, x: torch.Tensor, iters: int) -> torch.Tensor:
-    """P3 on A [E Q, E Q] and x [E, Q, BT] f32: one launch of the SIMT GEMM
-    with its +1 epilogue per iteration, between two buffers."""
+    """P3 on A [E Q, E Q] and x [E, Q, BT] f32: one call of the GEMM (three
+    exact TF32 tensor-core products, split K, +1 epilogue) per iteration,
+    between two buffers. Raises unless A is one-hot and x fits the split
+    (`check_onehot`), on either device."""
     name = "micro_onehot_gemm"
     _check(name, A, 2)
     _check(name, x, 3)
@@ -235,6 +256,7 @@ def onehot_gemm(A: torch.Tensor, x: torch.Tensor, iters: int) -> torch.Tensor:
     if A.shape != (E * Q, E * Q):
         raise ValueError(f"{name}: A {list(A.shape)} does not fit x {list(x.shape)}")
     iters = _check_iters(name, iters)
+    check_onehot(A, x, name)
     if x.device.type == "cpu":
         return onehot_gemm_plain(A, x, iters)
     if iters == 0 or x.numel() == 0:

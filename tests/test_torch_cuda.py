@@ -169,21 +169,27 @@ def test_wrappers_reject_bad_input(cuda_device):
         cn_qspa.cn_update(torch.zeros((2, 4, 16, 8), device=cuda_device).transpose(0, 1))
 
 
-def _random_u(g, B, device, seed=1):
+def _random_u(g, B, device, seed=1, levels=0):
+    """Check-node inputs with the code's pad structure: normal draws, or with
+    `levels` > 0 drawn from that many values, so every extraction meets ties."""
     rng = np.random.default_rng(seed)
-    Vv = torch.from_numpy((rng.standard_normal((g.n, g.dv_max, g.q, B)) * 3.0)
-                          .astype(np.float32)).to(device)
-    return g.gather_cn_x_bl(Vv).contiguous()
+    shape = (g.n, g.dv_max, g.q, B)
+    v = (rng.integers(0, levels, shape) * 1.5 if levels
+         else rng.standard_normal(shape) * 3.0)
+    return g.gather_cn_x_bl(torch.from_numpy(v.astype(np.float32)).to(device)).contiguous()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("merge", ["classic", "bubble"])
-@pytest.mark.parametrize("code,nm", [("gf4_n96_k48", 2), ("gf16_n204_k102", 8),
-                                     ("gf16_n204_k102", 16), ("gf64_n576_k480", 8),
-                                     ("gf256_n255_k175", 16)])
-def test_cn_ems_kernels_match_plain(cuda_device, code, nm, merge):
+@pytest.mark.parametrize("code,nm,B,levels", [
+    ("gf4_n96_k48", 2, 37, 0), ("gf16_n204_k102", 8, 37, 0), ("gf16_n204_k102", 16, 37, 0),
+    ("gf64_n576_k480", 8, 37, 0), ("gf256_n255_k175", 16, 37, 0),
+    ("gf256_n255_k175", 16, 4096, 0),                 # config 5's step
+    ("gf4_n96_k48", 2, 37, 3), ("gf16_n204_k102", 8, 37, 4), ("gf64_n576_k480", 8, 37, 4),
+    ("gf256_n255_k175", 16, 37, 4)])                  # ties in every round
+def test_cn_ems_kernels_match_plain(cuda_device, code, nm, B, levels, merge):
     g = _graph(code, cuda_device)
-    U = _random_u(g, 37, cuda_device)             # not a multiple of any tile
+    U = _random_u(g, B, cuda_device, levels=levels)   # 37: not a multiple of any tile
     kern, plain = ((cn_ems.cn_update, cn_ems.cn_update_plain) if merge == "classic"
                    else (cn_ems.cn_update_bubble, cn_ems.cn_update_bubble_plain))
     before = kern.launches
@@ -294,6 +300,41 @@ def test_micro_kernels_match_plain(cuda_device, name):
     ref = plain()
     assert bool(torch.isfinite(out).all())
     assert _micro_err(out, ref) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,Q,BT", [(75, 4, 24),     # M = K = 300: ragged tiles, 10 K splits
+                                    (7, 3, 5),       # K, N not multiples of 4: 4-byte copies
+                                    (408, 16, 136)])  # two column tiles, the second ragged
+def test_onehot_gemm_ragged_matches_plain_and_cublas(cuda_device, E, Q, BT):
+    torch.backends.cuda.matmul.allow_tf32 = False        # the plain P3 in full f32
+    x, perm = micro_kernels.make_inputs(3, E=E, Q=Q, BT=BT)
+    x = x.to(cuda_device)
+    A = micro.onehot_matrix(perm, cuda_device)
+    before = micro.onehot_gemm.launches
+    out = micro.onehot_gemm(A, x, 3)
+    assert micro.onehot_gemm.launches == before + 3
+    y, ones = x.reshape(E * Q, BT), torch.ones((E * Q, BT), device=cuda_device)
+    for _ in range(3):
+        y = torch.addmm(ones, A, y)
+    assert _micro_err(out, micro.onehot_gemm_plain(A, x, 3)) == 0.0
+    assert _micro_err(out, y.reshape(x.shape)) == 0.0
+
+
+@pytest.mark.cuda
+def test_onehot_gemm_rejects_what_the_split_cannot_hold(cuda_device):
+    x, perm = micro_kernels.make_inputs(3, E=75, Q=4, BT=24)
+    x = x.to(cuda_device)
+    A = micro.onehot_matrix(perm, cuda_device)
+    two_ones = A.clone()
+    two_ones[0] = 1.0
+    inf_x = x.clone()
+    inf_x[1, 2, 3] = float("inf")
+    before = micro.onehot_gemm.launches
+    for bad_a, bad_x in ((two_ones, x), (A * 0.5, x), (A, inf_x), (A, x * 1e-40)):
+        with pytest.raises(ValueError, match="one-hot"):
+            micro.onehot_gemm(bad_a, bad_x, 1)
+    assert micro.onehot_gemm.launches == before
 
 
 @pytest.mark.cuda

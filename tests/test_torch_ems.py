@@ -50,6 +50,18 @@ def test_cn_classic_matches_jax(small_codes, highq_codes, q, nm):
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("q,nm", [(16, 8), (64, 8), (256, 16)])
+def test_cn_classic_ties_match_jax(small_codes, highq_codes, q, nm):
+    """Inputs from four levels, so every extraction round meets ties, which
+    go to the lowest symbol in both packages."""
+    jg = jgraph.TannerGraph(_spec(small_codes, highq_codes, q))
+    _, U = random_u(jg, B=6, seed=q)
+    U = (np.random.default_rng(q).integers(0, 4, U.shape) * 1.5).astype(np.float32)
+    want = np.asarray(jems.ems_cn_update_bl(jnp.asarray(U), jg, nm=nm, offset=0.1))
+    got = pems.ems_cn_update_bl(torch.from_numpy(U), None, nm=nm, offset=0.1).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
 @pytest.mark.parametrize("q,nm", [(64, 8), (256, 16)])
 def test_cn_bubble_matches_jax(highq_codes, q, nm):
     jg = jgraph.TannerGraph(highq_codes[q])

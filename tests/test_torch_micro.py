@@ -164,6 +164,40 @@ def test_onehot_gemm_matches_jax_run_matmul(jmp, monkeypatch):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _spoil_a(A, value, row=3):
+    A = A.clone()
+    A[row, (int(A[row].argmax()) + 1) % A.shape[1]] = value
+    return A
+
+
+@pytest.mark.parametrize("spoil", [
+    lambda A, x: (_spoil_a(A, 1.0), x),                  # two 1s in a row
+    lambda A, x: (A * 2.0, x),                           # entries of 2
+    lambda A, x: (A * 0.5, x),                           # entries of 0.5
+    lambda A, x: (_spoil_a(A, float("nan")), x),
+    lambda A, x: (A, x.index_fill(0, torch.tensor([1]), float("inf"))),
+    lambda A, x: (A, x.index_fill(0, torch.tensor([1]), float("nan"))),
+    lambda A, x: (A, x.index_fill(0, torch.tensor([1]), 1e-40)),       # subnormal
+    lambda A, x: (A, x.index_fill(0, torch.tensor([1]), -(2.0 ** -110))),
+], ids=["two_ones", "twos", "halves", "nan_in_a", "inf_x", "nan_x", "subnormal_x",
+        "tiny_x"])
+def test_onehot_gemm_rejects_what_the_split_cannot_hold(spoil):
+    x, perm = micro_kernels.make_inputs(0, E=8, Q=4, BT=4)
+    A, bad_x = spoil(micro.onehot_matrix(perm), x)
+    with pytest.raises(ValueError, match="one-hot"):
+        micro.onehot_gemm(A, bad_x, 1)
+
+
+def test_onehot_gemm_takes_zero_rows_and_the_least_x():
+    x, perm = micro_kernels.make_inputs(0, E=8, Q=4, BT=4)
+    A = micro.onehot_matrix(perm)
+    A[5] = 0.0                                           # a row of zeros routes 0
+    x = x.index_fill(0, torch.tensor([2]), micro.ONEHOT_X_MIN)
+    x[0, 0, 0] = 0.0
+    out = micro.onehot_gemm(A, x, 2)
+    assert torch.equal(out, micro.onehot_gemm_plain(A, x, 2))
+
+
 @pytest.mark.parametrize("E,Q,BT,iters", [(8, 4, 8, 3), (16, 16, 4, 3), (8, 8, 6, 1)])
 def test_cn_iteration_matches_jax_run_cn(jmp, monkeypatch, E, Q, BT, iters):
     _set(monkeypatch, jmp, E=E, Q=Q, BT=BT, ITERS=iters)
