@@ -10,12 +10,16 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 5's bench step
   4. resident - the whole-decode kernel (K0) against its plain version,
                 also at the main path's shape and mode
-  5. resident_cl - the large-field whole-decode kernel (K0-cl) against the
-                same plain version at GF(64) and GF(256) in the modes of
-                phase 4, each batch holding converged and failed frames,
-                and at BASELINE config 5's step (8 points x 512 frames,
-                early termination); timed at GF(64) and at config 5's
-                bench shape
+  5. resident_cl - the large-field whole-decode kernel (K0-cl: its cluster
+                kernel) against the same plain version at GF(64) and
+                GF(256) in the modes of phase 4, each batch holding
+                converged and failed frames, and at BASELINE config 5's
+                step (8 points x 512 frames, early termination); timed at
+                GF(64) and at config 5's bench shape, beside the scratch
+                kernel (the design before the cluster kernel) on the same
+                LLRs; then K0-cl's scratch kernel, which takes the codes
+                whose state no cluster holds, on such a code (GF(256), N =
+                1200) in the modes of phase 4
   6. cn_ems   - the EMS check-node kernels (classic and bubble) against
                 their plain version, exact to 0.0, classic also on
                 tie-heavy inputs (4 levels) and at config 5's step shape
@@ -28,9 +32,10 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 the check-node kernel (K1) on the same LLRs, GF(64) and
                 GF(256): symbol agreement > 0.99, done agreement > 0.95
  10. main     - `nbldpc_tpu_torch.cli.main(["run", ...])` at the flagship
-                config plus a GF(64) QSPA run (K0-cl), with every launch
-                counter read around it; FER held to the JAX package's
-                recorded statistics
+                config plus a GF(64) QSPA run (K0-cl's cluster kernel) and
+                a GF(256) run on the N = 1200 code (its scratch kernel),
+                with every launch counter read around it; FER held to the
+                JAX package's recorded statistics
  11. main_ems - `cli.main(["run", ...])` on the three EMS paths: GF(16) EMS
                 (resident kernel), GF(256) classic and bubble EMS (check-node
                 kernels), each held to its JAX FER record
@@ -299,15 +304,17 @@ def _llrs(g, frames_per_snr: int, snrs, device):
     return llr_init(y, sig, g.q).contiguous()
 
 
-def _hold_resident(phase: str, code: str, g, modes: dict, timed, mixed=()) -> dict:
-    """A resident QSPA kernel (K0 or K0-cl, by q) against the plain version
-    on identical LLRs, mode by mode: (llr, max_iters, early_term,
-    stats_each_iter). A frame agrees when hard, done and iters all equal;
-    one iteration (mode c_one_iter) needs agreement >= 0.999, every other
-    mode >= 0.995 with frame-error counts within |z| < 3. In the modes in
-    `mixed` the plain decode must leave some frames in error and decode
-    the others right. The modes in `timed` are timed plain, kernel,
-    kernel, plain; the last of them gives ms, plain_ms and the bound."""
+def _hold_resident(phase: str, code: str, g, modes: dict, timed, mixed=(),
+                   scratch=False) -> dict:
+    """A resident QSPA kernel (K0 or K0-cl, by q and state size) against the
+    plain version on identical LLRs, mode by mode: (llr, max_iters,
+    early_term, stats_each_iter). A frame agrees when hard, done and iters
+    all equal; one iteration (mode c_one_iter) needs agreement >= 0.999,
+    every other mode >= 0.995 with frame-error counts within |z| < 3. In
+    the modes in `mixed` the plain decode must leave some frames in error
+    and decode the others right. The modes in `timed` are timed plain,
+    kernel, kernel, plain (with `scratch`, K0-cl's scratch kernel twice in
+    the middle); the last of them gives ms, plain_ms and the bound."""
     import torch
 
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
@@ -345,12 +352,17 @@ def _hold_resident(phase: str, code: str, g, modes: dict, timed, mixed=()) -> di
         if name in timed:
             p1 = cuda_ms(lambda: qr.decode_plain(dec, llr), 1)
             k1 = cuda_ms(lambda: qr.resident_decode(dec, llr), 5)
+            if scratch:
+                s1 = cuda_ms(lambda: qr.resident_decode_cl_scratch(dec, llr), 5)
+                s2 = cuda_ms(lambda: qr.resident_decode_cl_scratch(dec, llr), 5)
+                rec.update(scratch_ms=(s1 + s2) / 2, scratch_ms_runs=[s1, s2])
             k2 = cuda_ms(lambda: qr.resident_decode(dec, llr), 5)
             p2 = cuda_ms(lambda: qr.decode_plain(dec, llr), 1)
             rec.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                        ms_runs=[k1, k2], plain_ms_runs=[p1, p2],
                        **resident_qspa_bound(g, B, int(ik.sum())))
-            result.update({k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+            result.update({k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "scratch_ms") if k in rec})
         emit(rec)
     result["max_abs_err"] = worst
     return result
@@ -374,22 +386,58 @@ def phase_resident(device):
 # resident_cl (the modes of phase 4 at 20 iterations) and of phase
 # highq_qspa; at these points some frames of each batch fail to converge
 HIGHQ = (("gf64_n576_k480", 1024, [3.0, 3.5]), ("gf256_n255_k175", 512, [2.0, 2.5]))
+# A GF(256) code whose state (4.9 MB a frame) no cluster holds: K0-cl's
+# scratch kernel decodes it. (n, m, seed) of a random dv = 2 code, and
+# the frames and Eb/N0 of its checks in phases resident_cl and main
+OVERSIZE = (1200, 400, 3)
+OVERSIZE_FRAMES, OVERSIZE_EBN0 = 512, 2.5
+
+
+def oversize_spec():
+    """The OVERSIZE code over GF(256): every variable in 2 distinct checks,
+    checks of degree 2 n / m, random nonzero weights, from its seed."""
+    import numpy as np
+
+    from nbldpc_tpu_torch.convert import codespec_from_arrays
+
+    n, m, seed = OVERSIZE
+    rng = np.random.default_rng(seed)
+    dc = 2 * n // m
+    while True:
+        sockets = rng.permutation(np.repeat(np.arange(n), 2)).reshape(m, dc)
+        if all(len(set(r)) == dc for r in sockets):
+            break
+    return codespec_from_arrays(256, n, m, [np.sort(r) for r in sockets],
+                                [rng.integers(1, 256, size=dc) for _ in range(m)])
 
 
 def phase_resident_cl(device):
-    """K0-cl against the plain version at GF(64) and GF(256) in the modes
-    of phase 4, each batch with converged and failed frames; at GF(256)
-    also at BASELINE config 5's step as `cli run` decodes it (512 frames at
-    each of its 8 points, 20 iterations, early termination) and at its
-    bench shape (4096 frames at 3.0 dB, 20 iterations at the fixed
-    budget). Timed at GF(64) in throughput mode and at the bench shape,
-    whose numbers go to the kernels summary."""
+    """K0-cl's cluster kernel against the plain version at GF(64) and
+    GF(256) in the modes of phase 4, each batch with converged and failed
+    frames; at GF(256) also at BASELINE config 5's step as `cli run`
+    decodes it (512 frames at each of its 8 points, 20 iterations, early
+    termination) and at its bench shape (4096 frames at 3.0 dB, 20
+    iterations at the fixed budget). Each code's plan and
+    cudaOccupancyMaxActiveClusters first. Timed at GF(64) in throughput
+    mode and at the bench shape, whose numbers go to the kernels summary,
+    with the scratch kernel beside. Then the scratch kernel on the
+    OVERSIZE code in the three modes, timed in throughput mode. Returns
+    the two kernels' summaries."""
     from nbldpc_tpu_torch import bench
+    from nbldpc_tpu_torch.graph import TannerGraph
+    from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
     cfg = json.loads((ROOT / CFG5).read_text())
     worst, result = 0, {"agreement_min": 1.0}
     for code, frames, snrs in HIGHQ:
         g = _graph(code, device)
+        dec = qr.ResidentQSPA(g, 1)
+        plan = dec.cluster_plan
+        emit({"phase": "resident_cl", "code": code, "cluster_size": plan.size,
+              "warps": plan.warps, "checks_per_rank": plan.checks,
+              "checks_per_round": plan.round_checks, "rows_per_rank": plan.rows,
+              "smem_bytes": plan.smem_bytes,
+              "max_active_clusters": qr.cluster_occupancy(dec, device)})
         llr = _llrs(g, frames, snrs, device)
         modes = {"a_early_term": (llr, 20, True, True),
                  "b_throughput": (llr, 20, False, False),
@@ -406,12 +454,19 @@ def phase_resident_cl(device):
                 d["max_iters"], d["early_term"], True)
             mixed += ("e_cfg5_step",)
             timed = ("d_bench_shape",)
-        r = _hold_resident("resident_cl", code, g, modes, timed, mixed)
+        r = _hold_resident("resident_cl", code, g, modes, timed, mixed, scratch=True)
         worst = max(worst, r.pop("max_abs_err"))
         result["agreement_min"] = min(result["agreement_min"], r.pop("agreement_min"))
         result.update(r)
     result["max_abs_err"] = worst
-    return result
+    g = TannerGraph(oversize_spec(), device)
+    if qr.ResidentQSPA(g, 1).cluster_plan is not None:
+        fail("resident_cl: the oversize code fits a cluster")
+    llr = _llrs(g, OVERSIZE_FRAMES, [OVERSIZE_EBN0], device)
+    modes = {"a_early_term": (llr, 20, True, True), "b_throughput": (llr, 20, False, False),
+             "c_one_iter": (llr, 1, False, True)}
+    return result, _hold_resident("resident_cl", "oversize_gf256_n1200", g, modes,
+                                  ("b_throughput",))
 
 
 def _hold_cn(phase: str, device, code: str, B: int, kern, plain, args, check_ops,
@@ -540,6 +595,7 @@ def _counted():
 
     return [("qspa_resident", qr.resident_decode, "launches"),
             ("qspa_resident_cl", qr.resident_decode_cl, "launches"),
+            ("qspa_resident_cl_scratch", qr.resident_decode_cl_scratch, "launches"),
             ("qspa_resident_plain", qr.decode_plain, "calls"),
             ("cn_qspa", cn_qspa.cn_update, "launches"),
             ("cn_qspa_plain", cn_qspa.cn_update_plain, "calls"),
@@ -616,12 +672,16 @@ def phase_highq_qspa(device):
 
 def phase_main(main_b64: int):
     """The user's entry point, flagship config (K0); then a GF(64) QSPA run
-    (K0-cl)."""
+    (K0-cl's cluster kernel) and a run on the OVERSIZE code (its scratch
+    kernel), counters zeroed before each of the two and read after."""
     from nbldpc_tpu_torch import cli
+    from nbldpc_tpu_torch.code import save_alist
 
     out_dir = ROOT / "build" / "nbldpc_tpu_torch"
     out_dir.mkdir(parents=True, exist_ok=True)
     rep16, rep64 = out_dir / "smoke_gf16.json", out_dir / "smoke_gf64.json"
+    big, repbig = out_dir / "oversize_gf256_n1200.alist", out_dir / "smoke_oversize.json"
+    save_alist(oversize_spec(), big)
     _reset_counters()
     t0 = time.perf_counter()
     rc16 = cli.main(["run", "--code", "gf16_n204_k102_c8", "--decoder", "qspa",
@@ -636,9 +696,18 @@ def phase_main(main_b64: int):
                      "--set", f"sim.frames_per_step={main_b64}",
                      "--set", f"sim.max_frames={main_b64}",
                      "--report", str(rep64)])
-    counts = _counters()
+    counts64 = _counters()
+    _reset_counters()
+    rcbig = cli.main(["run", "--code", str(big), "--decoder", "qspa",
+                      "--snr", str(OVERSIZE_EBN0), "--iters", "10",
+                      "--set", f"sim.frames_per_step={OVERSIZE_FRAMES}",
+                      "--set", f"sim.max_frames={OVERSIZE_FRAMES}",
+                      "--report", str(repbig)])
+    countsbig = _counters()
+    counts = _sum_counts(counts64, countsbig)
     r16 = json.loads(rep16.read_text())
     r64 = json.loads(rep64.read_text())
+    rbig = json.loads(repbig.read_text())
     ref = next(e for e in json.loads(
         (ROOT / "benchmarks/results/fer_curves_r5.json").read_text())
         if e["config"] == "gf16_qspa_c8_50it")
@@ -649,11 +718,13 @@ def phase_main(main_b64: int):
     emit({"phase": "main", "launches": counts, "seconds_gf16": t16,
           "fer_gf16": r16["fer"], "frames_gf16": fr, "frame_errors_gf16": fe,
           "reference_1.5dB": [k_ref, n_ref], "z_vs_reference": z,
-          "fer_gf64": r64["fer"], "frames_gf64": r64["frames"]})
-    if rc16 != 0 or rc64 != 0:
-        fail(f"cli.main returned {rc16}, {rc64}")
-    if counts["qspa_resident"] < 1 or counts["qspa_resident_cl"] < 1:
-        fail(f"a kernel of the main path never launched: {counts}")
+          "fer_gf64": r64["fer"], "frames_gf64": r64["frames"],
+          "fer_oversize": rbig["fer"], "frames_oversize": rbig["frames"]})
+    if rc16 != 0 or rc64 != 0 or rcbig != 0:
+        fail(f"cli.main returned {rc16}, {rc64}, {rcbig}")
+    if (counts["qspa_resident"] < 1 or counts64["qspa_resident_cl"] < 1
+            or countsbig["qspa_resident_cl_scratch"] < 1 or countsbig["qspa_resident_cl"]):
+        fail(f"a kernel of the main path never launched: {counts64}, {countsbig}")
     if _ran_plain(counts):
         fail(f"a plain version ran on the main path: {counts}")
     if not r16["fer"][1] < r16["fer"][0]:
@@ -662,6 +733,8 @@ def phase_main(main_b64: int):
         fail(f"FER at 1.5 dB inconsistent with the reference: z = {z}")
     if not all(0.0 <= f <= 1.0 for f in r64["fer"]) or r64["frames"][0] != main_b64:
         fail(f"GF(64) run: bad report {r64}")
+    if not all(0.0 <= f <= 1.0 for f in rbig["fer"]) or rbig["frames"][0] != OVERSIZE_FRAMES:
+        fail(f"oversize run: bad report {rbig}")
     return counts
 
 
@@ -1007,7 +1080,7 @@ def main() -> int:
     phase_build()
     cn_rows = phase_cn_qspa(device)
     res = phase_resident(device)
-    res_cl = phase_resident_cl(device)
+    res_cl, res_scratch = phase_resident_cl(device)
     ems_rows = phase_cn_ems(device)
     ems_res = phase_ems_resident(device)
     tems_rows = phase_cn_tems(device)
@@ -1037,9 +1110,13 @@ def main() -> int:
         entry("cn_qspa", "cn_qspa.cu", "nbldpc_tpu/kernels/cn_qspa.py:52",
               max(r["max_abs_err_above_-15"] for r in cn_rows.values()),
               cn_rows["highq_gf256_n255_k175"]),
-        entry("qspa_resident_cl", "qspa_resident_cl.cu",
+        entry("qspa_resident_cl", "qspa_cluster.cu",
               "nbldpc_tpu/kernels/qspa_resident.py:192", res_cl["max_abs_err"], res_cl,
-              agreement_min=res_cl["agreement_min"]),
+              agreement_min=res_cl["agreement_min"], scratch_ms=res_cl["scratch_ms"]),
+        # K0-cl for codes no cluster holds, at the OVERSIZE code
+        entry("qspa_resident_cl_scratch", "qspa_resident_cl.cu",
+              "nbldpc_tpu/kernels/qspa_resident.py:192", res_scratch["max_abs_err"],
+              res_scratch, agreement_min=res_scratch["agreement_min"]),
         entry("ems_resident", "ems_resident.cu",
               "nbldpc_tpu/kernels/ems_resident.py:145", ems_res["max_abs_err"], ems_res),
         # classic: config 5's EMS step shape; bubble: GF(256), 512 frames

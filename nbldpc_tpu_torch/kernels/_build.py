@@ -51,6 +51,14 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I,  # B N M dc dv q
                                 _P, _P, _P, _P, _P, _P,  # tables
                                 _I, _I, _I, _P],         # iters, modes, stream
+    "qspa_cluster_decode": [_P, _P, _P, _P,             # llr, hard, done, iters
+                            _I, _I, _I, _I, _I, _I,     # B N M dc dv q
+                            _I, _I, _I, _I, _I, _I,     # plan: C rows checks round warps smem
+                            _P, _P, _P,                 # edge_info row_src row_var
+                            _P, _P, _P,                 # n2e gf_log gf_exp
+                            _I, _I, _I, _P],            # iters, modes, stream
+    # q dc dv C rows checks round warps smem, out: clusters that run at once
+    "qspa_cluster_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "ems_resident_decode": [_P, _P, _P, _P,             # llr, hard, done, iters
                             _I, _I, _I, _I, _I, _I,     # B N M dc dv q
                             _I, _F,                     # nm, offset

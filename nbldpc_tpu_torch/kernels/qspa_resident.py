@@ -14,14 +14,19 @@ so each is held against its own counterpart.
 
 `resident_decode` runs `decode_plain` for a CPU tensor; for a CUDA tensor
 it launches csrc/qspa_resident.cu (K0, a frame's state in one block's
-shared memory) for q <= 32 and csrc/qspa_resident_cl.cu (K0-cl, the state
-in a global scratch) for 32 < q <= 256. All take llr [B, N, q] and return
-(hard [B, N] int32, done [B] bool, iters [B] int32).
+shared memory) for q <= 32 and K0-cl for 32 < q <= 256: csrc/qspa_cluster.cu
+(a frame's state in the shared memory of a thread-block cluster, as
+`plan_cluster` lays it out) when the code's state fits a cluster of 8,
+else csrc/qspa_resident_cl.cu (the state in a global scratch). All take
+llr [B, N, q] and return (hard [B, N] int32, done [B] bool, iters [B]
+int32).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -36,6 +41,116 @@ MAX_SMEM_BYTES = 232448
 # the largest field K0 takes; above it K0-cl, up to MAX_Q
 K0_MAX_Q = 32
 MAX_Q = 256
+# K0-cl's cluster kernel: blocks per cluster, warps per block by q (csrc/
+# qspa_cluster.cu, max_warps), the largest check degree (a syndrome lane
+# per edge)
+CLUSTER_SIZES = (1, 2, 4, 8)
+CLUSTER_WARPS = {64: 24, 128: 24, 256: 16}
+CLUSTER_MAX_DC = 32
+
+
+def cluster_smem_bytes(q: int, dc: int, dv: int, rows: int, checks: int,
+                       round_checks: int) -> int:
+    """Shared memory of one block of the cluster kernel: prior and posterior
+    rows, the checks' message rows, a round's edge rows of q + 4 floats and
+    their sums, hard decisions, two flags and the rank's tables (csrc/
+    qspa_cluster.cu, dyn_bytes), plus its static n2e [q], log [q] and exp
+    [2q] int tables."""
+    return 4 * (2 * rows * q + checks * dc * q + round_checks * dc * (q + 5) + rows + 2
+                + checks * dc + rows * dv + rows) + 16 * q
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ClusterPlan:
+    """How the cluster kernel spreads one frame over `size` blocks (ranks):
+    rank r owns the checks [r * checks, (r + 1) * checks) with their message
+    rows, and the variables v with vn_rank[v] == r, at posterior row
+    vn_row[v]; each block runs `warps` warps in `smem_bytes` of shared
+    memory, its check-node phase `round_checks` checks at a time."""
+    size: int
+    warps: int
+    checks: int             # checks per rank
+    rows: int               # posterior rows per rank (the fullest rank's)
+    round_checks: int
+    vn_rank: np.ndarray     # [N]
+    vn_row: np.ndarray      # [N]
+    smem_bytes: int
+
+
+def _place_variables(vn_edge: np.ndarray, E: int, dc: int, size: int, checks: int):
+    """Each variable on the rank of one of its checks, the least loaded of
+    them (first in slot order on a tie) while it has fewer than
+    ceil(N / size) variables, else on the least loaded rank."""
+    n = vn_edge.shape[0]
+    cap = math.ceil(n / size)
+    count = np.zeros(size, dtype=np.int64)
+    rank = np.empty(n, dtype=np.int32)
+    row = np.empty(n, dtype=np.int32)
+    for v in range(n):
+        cands = [int(e) // dc // checks for e in vn_edge[v] if e < E]
+        open_ = [r for r in cands if count[r] < cap]
+        r = min(open_, key=lambda r: count[r]) if open_ else int(np.argmin(count))
+        rank[v], row[v] = r, count[r]
+        count[r] += 1
+    return rank, row, int(count.max())
+
+
+def plan_cluster(graph: TannerGraph) -> ClusterPlan | None:
+    """The cluster kernel's partition of a frame for 32 < q <= 256: the
+    smallest cluster size whose share of the state (prior, posterior and
+    messages) and working buffers fit a block's shared memory, its check
+    rounds as few as fit. None when no size fits (or dc exceeds the
+    kernel's limit): K0-cl then runs the scratch kernel."""
+    g = graph
+    q, m, dc = g.q, g.m, g.dc_max
+    if not K0_MAX_Q < q <= MAX_Q or dc > CLUSTER_MAX_DC:
+        return None
+    E = m * dc
+    for size in CLUSTER_SIZES:
+        checks = math.ceil(m / size)
+        rank, row, rows = _place_variables(g.np["vn_edge"], E, dc, size, checks)
+        for rounds in range(1, checks + 1):
+            round_checks = math.ceil(checks / rounds)
+            smem = cluster_smem_bytes(q, dc, g.dv_max, rows, checks, round_checks)
+            if smem <= MAX_SMEM_BYTES:
+                return ClusterPlan(size, CLUSTER_WARPS[q], checks, rows, round_checks,
+                                   rank, row, smem)
+    return None
+
+
+def cluster_tables(graph: TannerGraph, plan: ClusterPlan) -> dict:
+    """The int32 tables of the cluster kernel, by rank (each rank copies its
+    slice into shared memory): edge_info [size, checks * dc] = shift << 20 |
+    rank << 16 | posterior row of the variable of each of the rank's edge
+    slots, -1 on pads (`cn_shift`: h^-1 x = exp[log x + shift]); row_src
+    [size, rows, dv] = rank << 16 | message row of
+    each slot of the variable at each posterior row, -1 on pads and unused
+    rows; row_var [size, rows] the variable at each row, -1 if unused."""
+    g = graph
+    dc, E = g.dc_max, g.m * g.dc_max
+    size, checks, rows = plan.size, plan.checks, plan.rows
+    vn_rank, vn_row = plan.vn_rank.astype(np.int64), plan.vn_row.astype(np.int64)
+    vn_loc = (vn_rank << 16) | vn_row
+    at = vn_rank * rows + vn_row
+    row_var = np.full(size * rows, -1, dtype=np.int64)
+    row_var[at] = np.arange(g.n)
+    # rank r's slots are those of checks [r checks, (r + 1) checks); past M, pads
+    e = np.minimum(np.arange(size * checks * dc), E - 1)
+    real = (np.arange(size * checks * dc) < E) & g.np["cn_mask"].reshape(-1)[e]
+    info = (cn_shift(g)[e] << 20) | vn_loc[g.np["cn_vn"].reshape(-1)[e]]
+    ve = g.np["vn_edge"].astype(np.int64)
+    r = ve // dc // checks
+    row_src = np.full((size * rows, g.dv_max), -1, dtype=np.int64)
+    row_src[at] = np.where(ve < E, (r << 16) | (ve - r * checks * dc), -1)
+    return {"edge_info": np.where(real, info, -1), "row_src": row_src.reshape(-1),
+            "row_var": row_var}
+
+
+def cn_shift(graph: TannerGraph) -> np.ndarray:
+    """[M * dc] (q - 1 - log h) mod (q - 1) of each edge slot's weight h
+    (1 on pads)."""
+    q = graph.q
+    return ((q - 1 - graph.gf.log[graph.np["cn_w"].astype(np.int64)]) % (q - 1)).reshape(-1)
 
 
 class ResidentQSPA:
@@ -83,6 +198,12 @@ class ResidentQSPA:
         self._vn_edge = torch.from_numpy(
             np.minimum(host["vn_edge"], E - 1).astype(np.int64)).to(dev)
         self._real = torch.from_numpy(host["cn_mask"].reshape(E)).to(dev)
+
+        # K0-cl's cluster kernel: its partition (None: the scratch kernel)
+        self.cluster_plan = plan_cluster(g) if q > K0_MAX_Q else None
+        if self.cluster_plan is not None:
+            self.cluster = {k: t(v) for k, v in cluster_tables(g, self.cluster_plan).items()}
+            self.cluster.update(gf_log=t(gf.log), gf_exp=t(gf.exp))
 
     # ---- plain version ----------------------------------------------------
 
@@ -226,11 +347,63 @@ resident_decode.launches = 0
 
 
 def resident_decode_cl(dec: ResidentQSPA, llr: torch.Tensor):
-    """K0-cl on a CUDA tensor llr [B, N, q] f32, q in {64, 128, 256}: a
-    persistent grid walks the frames, each block through its own slice of a
-    scratch of grid x (N + M dc) x q floats (posterior and edge messages).
-    Raises ValueError on a tensor it does not take, a CPU tensor included;
-    the kernel's own check of q, dc and shared memory raises RuntimeError."""
+    """K0-cl on a CUDA tensor llr [B, N, q] f32, q in {64, 128, 256}: the
+    cluster kernel (csrc/qspa_cluster.cu, a persistent grid of clusters,
+    each frame's state in its blocks' shared memory, laid out by
+    `dec.cluster_plan`); a code whose state no cluster holds goes to
+    `resident_decode_cl_scratch`. Raises ValueError on a tensor it does not
+    take, a CPU tensor included; the kernel's own check of the plan raises
+    RuntimeError."""
+    plan = dec.cluster_plan
+    if plan is None:
+        return resident_decode_cl_scratch(dec, llr)
+    g = dec.graph
+    name = "qspa_cluster_decode"
+    if llr.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {llr.device}")
+    hard, done, iters = checked_outputs(dec, llr, name)
+    if llr.shape[0] == 0:
+        return hard, done, iters
+    from nbldpc_tpu_torch.kernels import _build
+
+    c = dec.cluster
+    _build.launch(resident_decode_cl, name, llr.device,
+                  llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
+                  llr.shape[0], g.n, g.m, g.dc_max, g.dv_max, g.q,
+                  plan.size, plan.rows, plan.checks, plan.round_checks, plan.warps,
+                  plan.smem_bytes, c["edge_info"].data_ptr(), c["row_src"].data_ptr(),
+                  c["row_var"].data_ptr(), dec.n2e.data_ptr(), c["gf_log"].data_ptr(),
+                  c["gf_exp"].data_ptr(),
+                  dec.max_iters, int(dec.early_term), int(dec.stats_each_iter))
+    return hard, done, iters
+
+
+resident_decode_cl.launches = 0
+
+
+def cluster_occupancy(dec: ResidentQSPA, device) -> int:
+    """cudaOccupancyMaxActiveClusters of the cluster kernel at dec's plan:
+    the clusters of the persistent grid."""
+    from nbldpc_tpu_torch.kernels import _build
+
+    g, plan = dec.graph, dec.cluster_plan
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(_build.library().qspa_cluster_occupancy(
+            g.q, g.dc_max, g.dv_max, plan.size, plan.rows, plan.checks,
+            plan.round_checks, plan.warps, plan.smem_bytes, ctypes.byref(out)),
+            "qspa_cluster_occupancy")
+    return out.value
+
+
+def resident_decode_cl_scratch(dec: ResidentQSPA, llr: torch.Tensor):
+    """K0-cl's scratch kernel (csrc/qspa_resident_cl.cu) on a CUDA tensor
+    llr [B, N, q] f32, q in {64, 128, 256}, for codes whose state no
+    cluster holds: a persistent grid walks the frames, each block through
+    its own slice of a scratch of grid x (N + M dc) x q floats (posterior
+    and edge messages). Raises ValueError on a tensor it does not take, a
+    CPU tensor included; the kernel's own check of q, dc and shared memory
+    raises RuntimeError."""
     g = dec.graph
     name = "qspa_resident_cl_decode"
     if llr.device.type != "cuda":
@@ -249,20 +422,17 @@ def resident_decode_cl(dec: ResidentQSPA, llr: torch.Tensor):
                      "qspa_resident_cl_grid")
         scratch = torch.empty(grid.value * (g.n + g.m * g.dc_max) * g.q,
                               dtype=torch.float32, device=llr.device)
-        rc = lib.qspa_resident_cl_decode(
-            llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
-            scratch.data_ptr(), grid.value, smem.value,
-            B, g.n, g.m, g.dc_max, g.dv_max, g.q,
-            dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(), dec.perm_down.data_ptr(),
-            dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(), dec.n2e.data_ptr(),
-            dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),
-            _build.stream_ptr(llr.device))
-    _build.check(rc, name)
-    resident_decode_cl.launches += 1
+    _build.launch(resident_decode_cl_scratch, name, llr.device,
+                  llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
+                  scratch.data_ptr(), grid.value, smem.value,
+                  B, g.n, g.m, g.dc_max, g.dv_max, g.q,
+                  dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(), dec.perm_down.data_ptr(),
+                  dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(), dec.n2e.data_ptr(),
+                  dec.max_iters, int(dec.early_term), int(dec.stats_each_iter))
     return hard, done, iters
 
 
-resident_decode_cl.launches = 0
+resident_decode_cl_scratch.launches = 0
 
 
 def get_resident_decoder(graph: TannerGraph, max_iters: int, early_term: bool,

@@ -1,0 +1,155 @@
+"""K0-cl's cluster partition (kernels/qspa_resident.py: plan_cluster,
+cluster_tables, cn_shift) and the tables the cluster kernel
+(csrc/qspa_cluster.cu) reads: each check and variable owned by one rank,
+each rank within a block's shared memory, the cluster sizes of the repo's
+codes, the scratch path for a code no cluster holds, and the log/exp form
+of h^-1 x equal to the graph's perm_down table."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from nbldpc_tpu_torch.graph import TannerGraph
+from nbldpc_tpu_torch.kernels import qspa_resident as qr
+from nbldpc_tpu_torch.utils.config import CodeConfig
+
+from tests.test_torch_cuda import _random_dv2_spec
+from tests.test_torch_qspa import port_graph
+
+CODES = Path(__file__).resolve().parents[1] / "codes"
+ALISTS = sorted(p.stem for p in CODES.glob("*.alist"))
+
+
+def _graph(name):
+    if name == "gf128_n96_m24":             # the GF(128) code of the card tests
+        return TannerGraph(_random_dv2_spec(128, 96, 24, seed=7), "cpu")
+    return TannerGraph(CodeConfig(path=str(CODES / f"{name}.alist")).load(), "cpu")
+
+
+PLANNED = ["gf64_n576_k480", "gf256_n255_k175", "gf128_n96_m24"]
+
+
+def perm_from_logs(gf_log, gf_exp, shift, q):
+    """h^-1 x for every edge slot and symbol, [E, q], as the cluster kernel
+    computes it: exp[log x + shift], 0 for x = 0."""
+    x = np.arange(q)
+    out = gf_exp[gf_log[x][None, :] + np.asarray(shift).reshape(-1, 1)]
+    return np.where(x[None, :] == 0, 0, out)
+
+
+@pytest.mark.parametrize("code", PLANNED)
+def test_plan_owns_each_check_and_variable_once(code):
+    g = _graph(code)
+    plan = qr.plan_cluster(g)
+    # rank r runs the checks [r checks, min(M, (r + 1) checks)), as the kernel
+    ranges = [range(r * plan.checks, min(g.m, (r + 1) * plan.checks))
+              for r in range(plan.size)]
+    assert sorted(m for rg in ranges for m in rg) == list(range(g.m))
+    row_var = qr.cluster_tables(g, plan)["row_var"].reshape(plan.size, plan.rows)
+    used = row_var[row_var >= 0]
+    assert np.array_equal(np.sort(used), np.arange(g.n))     # each variable once
+    assert np.array_equal(row_var[plan.vn_rank, plan.vn_row], np.arange(g.n))
+    # the fullest rank sets the rows, no rank holds more
+    assert np.bincount(plan.vn_rank, minlength=plan.size).max() == plan.rows
+
+
+@pytest.mark.parametrize("code", PLANNED)
+def test_plan_fits_shared_memory(code):
+    g = _graph(code)
+    plan = qr.plan_cluster(g)
+    assert plan.smem_bytes <= qr.MAX_SMEM_BYTES == 232448
+    for r in range(plan.size):
+        rows = int((plan.vn_rank == r).sum())
+        checks = max(0, min(plan.checks, g.m - r * plan.checks))
+        mine = qr.cluster_smem_bytes(g.q, g.dc_max, g.dv_max, rows, checks,
+                                     plan.round_checks)
+        assert mine <= plan.smem_bytes
+    # the next smaller cluster does not fit, even one check per round
+    if plan.size > 1:
+        half = plan.size // 2
+        checks = -(-g.m // half)
+        rows = -(-g.n // half)
+        assert (qr.cluster_smem_bytes(g.q, g.dc_max, g.dv_max, rows, checks, 1)
+                > qr.MAX_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("code,sizes", [("gf256_n255_k175", (8,)), ("gf64_n576_k480", (1, 2, 4)),
+                                        ("gf128_n96_m24", (1, 2))])
+def test_plan_cluster_size(code, sizes):
+    plan = qr.plan_cluster(_graph(code))
+    assert plan.size in sizes
+    assert plan.warps == qr.CLUSTER_WARPS[_graph(code).q]
+    assert 1 <= plan.round_checks <= plan.checks
+
+
+def test_oversize_code_takes_the_scratch_path():
+    # GF(256), N = 1200, dv = 2: 4.9 MB of state per frame
+    g = TannerGraph(_random_dv2_spec(256, 1200, 400, seed=3), "cpu")
+    assert qr.plan_cluster(g) is None
+    dec = qr.ResidentQSPA(g, 2)
+    assert dec.cluster_plan is None and not hasattr(dec, "cluster")
+    # K0 covers q <= 32: no plan there either
+    assert qr.ResidentQSPA(_graph("gf16_n204_k102"), 2).cluster_plan is None
+
+
+def _unpack(t):
+    """(rank, row) of each entry of an edge_info or row_src table."""
+    return (t >> 16) & 0xF, t & 0xFFFF
+
+
+@pytest.mark.parametrize("code", PLANNED)
+def test_cluster_tables_route_every_message(code):
+    g = _graph(code)
+    plan = qr.plan_cluster(g)
+    t = qr.cluster_tables(g, plan)
+    dc, dv, E = g.dc_max, g.dv_max, g.m * g.dc_max
+    row_var = t["row_var"].reshape(plan.size, plan.rows)
+    # each posterior row's message sources: its variable's edges, in slot order
+    src = t["row_src"].reshape(plan.size, plan.rows, dv)
+    vn_edge = g.np["vn_edge"]
+    for r in range(plan.size):
+        for i in range(plan.rows):
+            v = row_var[r, i]
+            want = vn_edge[v] if v >= 0 else np.full(dv, E)
+            assert np.array_equal(src[r, i] < 0, want >= E)       # pads, and only pads
+            sr, row = _unpack(src[r, i][want < E])
+            e = want[want < E].astype(np.int64)
+            # the rank that owns the edge's check, the edge's row among its messages
+            assert np.array_equal(sr, e // dc // plan.checks)
+            assert np.array_equal(sr * plan.checks * dc + row, e)
+    # each edge slot of each rank: its variable's posterior (rank, row)
+    info = t["edge_info"].reshape(plan.size, plan.checks * dc)
+    for r in range(plan.size):
+        for k in range(plan.checks * dc):
+            e = r * plan.checks * dc + k
+            if e >= E or not g.np["cn_mask"].reshape(-1)[e]:
+                assert info[r, k] == -1
+                continue
+            vr, row = _unpack(info[r, k])
+            assert row_var[vr, row] == g.np["cn_vn"].reshape(-1)[e]
+
+
+@pytest.mark.parametrize("code", ALISTS)
+def test_perm_from_logs_matches_perm_down_codes(code):
+    g = _graph(code)
+    got = perm_from_logs(g.gf.log, g.gf.exp, qr.cn_shift(g), g.q)
+    assert np.array_equal(got, g.np["perm_down"].reshape(-1, g.q))   # pads included
+
+
+@pytest.mark.parametrize("code", PLANNED)
+def test_perm_from_logs_matches_perm_down_planned(code):
+    g = _graph(code)
+    plan = qr.plan_cluster(g)
+    info = qr.cluster_tables(g, plan)["edge_info"]
+    E = g.m * g.dc_max
+    real = info[:E] >= 0                       # the kernel's shift of each real slot
+    got = perm_from_logs(g.gf.log, g.gf.exp, info[:E][real] >> 20, g.q)
+    assert np.array_equal(got, g.np["perm_down"].reshape(-1, g.q)[real])
+
+
+@pytest.mark.parametrize("name", ["gf4_tiny", "gf16_tiny", "gf4_n96", "gf16_irr", "gf4_dv3"])
+def test_perm_from_logs_matches_perm_down_small_codes(small_codes, name):
+    g = port_graph(small_codes[name])
+    got = perm_from_logs(g.gf.log, g.gf.exp, qr.cn_shift(g), g.q)
+    assert np.array_equal(got, g.np["perm_down"].reshape(-1, g.q))

@@ -100,14 +100,18 @@ def _random_dv2_spec(q, n, m, seed):
     return codespec_from_arrays(q, n, m, cols, vals)
 
 
-def _hold_resident_cl(g, llr, mode):
-    """K0-cl against the plain resident decode on the same LLRs: agreement
-    (hard, done and iters all equal) >= 0.999 after one iteration, else
-    >= 0.995 with frame-error counts within |z| < 3."""
+def _hold_resident_cl(g, llr, mode, path=qr.resident_decode_cl):
+    """K0-cl against the plain resident decode on the same LLRs, through
+    `path` (the cluster kernel, or resident_decode_cl_scratch for a code
+    whose state no cluster holds): agreement (hard, done and iters all
+    equal) >= 0.999 after one iteration, else >= 0.995 with frame-error
+    counts within |z| < 3."""
     dec = qr.ResidentQSPA(g, *mode)
-    before = qr.resident_decode_cl.launches
+    assert (dec.cluster_plan is None) == (path is qr.resident_decode_cl_scratch)
+    counters = (qr.resident_decode_cl, qr.resident_decode_cl_scratch)
+    before = [c.launches for c in counters]
     hk, dk, ik = qr.resident_decode(dec, llr)
-    assert qr.resident_decode_cl.launches == before + 1
+    assert [c.launches for c in counters] == [n + (c is path) for c, n in zip(counters, before)]
     hp, dp, ip = qr.decode_plain(dec, llr)
     same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
     agree = float(same.float().mean())
@@ -138,6 +142,24 @@ def test_resident_cl_kernel_matches_plain(cuda_device, code, ebn0, mode):
 def test_resident_cl_kernel_gf128(cuda_device, mode):
     g = TannerGraph(_random_dv2_spec(128, 96, 24, seed=7), device=cuda_device)
     _hold_resident_cl(g, _zero_cw_llrs(g, 300, 2.5, cuda_device), mode)
+
+
+@pytest.mark.cuda
+def test_resident_cl_kernel_cfg5_bench_shape(cuda_device):
+    # BASELINE config 5's bench step: 4096 frames at 3.0 dB, 20 iterations,
+    # fixed budget (throughput mode)
+    g = _graph("gf256_n255_k175", cuda_device)
+    _hold_resident_cl(g, _zero_cw_llrs(g, 4096, 3.0, cuda_device), (20, False, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [(1, False, True), (20, True, True)])
+def test_resident_cl_scratch_kernel_oversize_code(cuda_device, mode):
+    # GF(256), N = 1200, dv = 2: 4.9 MB of state per frame, more than a
+    # cluster of 8 holds, so K0-cl runs its scratch kernel
+    g = TannerGraph(_random_dv2_spec(256, 1200, 400, seed=3), device=cuda_device)
+    _hold_resident_cl(g, _zero_cw_llrs(g, 300, 2.5, cuda_device), mode,
+                      qr.resident_decode_cl_scratch)
 
 
 @pytest.mark.cuda
