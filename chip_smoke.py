@@ -9,7 +9,9 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 flagship shape, the shapes of phase highq_qspa and config
                 5's bench step
   4. resident - the whole-decode kernel (K0) against its plain version,
-                also at the main path's shape and mode
+                also at the sweep shape of phase main (2 x 8192 frames,
+                early termination) and at its bench row's step (8192
+                frames x 50 iterations, throughput), timed there
   5. resident_cl - the large-field whole-decode kernel (K0-cl: its cluster
                 kernel) against the same plain version at GF(64) and
                 GF(256) in the modes of phase 4, each batch holding
@@ -24,10 +26,12 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 their plain version, exact to 0.0, classic also on
                 tie-heavy inputs (4 levels) and at config 5's step shape
   7. ems_resident - the whole-decode EMS kernel against its plain version,
-                in the modes of phase 4 and at nm = 8; agreement 1.0
+                in the modes of phase 4 (its bench row's step included,
+                timed there) and at nm = 8; agreement 1.0
   8. cn_tems  - the T-EMS check-node kernel against its plain version at
                 GF(16), GF(64) (BASELINE config 4's shape, exact scan and
-                n_r = 8) and GF(256), exact to 0.0
+                n_r = 8, and n_r = 8 on tie-heavy inputs) and GF(256),
+                exact to 0.0
   9. highq_qspa - `qspa.decode` through K0-cl against `qspa.decode` through
                 the check-node kernel (K1) on the same LLRs, GF(64) and
                 GF(256): symbol agreement > 0.99, done agreement > 0.95
@@ -289,15 +293,16 @@ def phase_cn_qspa(device):
     return rows
 
 
-def _llrs(g, frames_per_snr: int, snrs, device):
-    """All-zero-codeword LLRs [S * frames, N, q] at the given Eb/N0 points."""
+def _llrs(g, frames_per_snr: int, snrs, device, ebn0: bool = True):
+    """All-zero-codeword LLRs [S * frames, N, q] at the given Eb/N0 points
+    (with ebn0=False: at the given sigmas)."""
     import torch
 
     from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init
     from nbldpc_tpu_torch.sim import step_generator
 
-    sig = torch.tensor([float(ebn0_to_sigma(s, g.spec.k / g.n)) for s in snrs],
-                       device=device).repeat_interleave(frames_per_snr)[:, None, None]
+    sig = [float(ebn0_to_sigma(s, g.spec.k / g.n)) if ebn0 else s for s in snrs]
+    sig = torch.tensor(sig, device=device).repeat_interleave(frames_per_snr)[:, None, None]
     gen = step_generator(1234, len(snrs), device)
     y = 1.0 + sig * torch.randn((sig.shape[0], g.n, g.gf.p), generator=gen,
                                 device=device)
@@ -368,18 +373,32 @@ def _hold_resident(phase: str, code: str, g, modes: dict, timed, mixed=(),
     return result
 
 
+def _bench_llrs(name: str, g, device):
+    """LLRs of one step of bench row `name` (its batch at its noise)."""
+    from nbldpc_tpu_torch import bench
+
+    row = bench.ROWS_BY_NAME[name]
+    return _llrs(g, row.batch, [row.noise], device, row.ebn0)
+
+
 def phase_resident(device):
     """K0 against its plain version on identical LLRs: the three modes at
-    2048 frames, then the main path's shape and mode (2 x 8192 frames at
-    1.5 and 2.0 dB, 50 iterations, early termination), where it is timed."""
+    2048 frames, phase main's sweep shape (2 x 8192 frames at 1.5 and 2.0
+    dB, 50 iterations, early termination) and the step of bench row
+    qspa_gf16_n204_k102_c8 (8192 frames, sigma 0.63, 50 iterations,
+    throughput), timed in throughput mode at both sizes and at the sweep
+    shape; the bench step's numbers go to the kernels summary."""
     code = "gf16_n204_k102_c8"
     g = _graph(code, device)
-    small, main = _llrs(g, 2048, [1.5], device), _llrs(g, 8192, [1.5, 2.0], device)
+    small, sweep = _llrs(g, 2048, [1.5], device), _llrs(g, 8192, [1.5, 2.0], device)
     modes = {"a_early_term": (small, 50, True, True),
              "b_throughput": (small, 50, False, False),
              "c_one_iter": (small, 1, False, True),
-             "d_main_path": (main, 50, True, True)}
-    return _hold_resident("resident", code, g, modes, ("b_throughput", "d_main_path"))
+             "d_sweep_shape": (sweep, 50, True, True),
+             "e_bench_shape": (_bench_llrs("qspa_gf16_n204_k102_c8", g, device),
+                               50, False, False)}
+    return _hold_resident("resident", code, g, modes,
+                          ("b_throughput", "d_sweep_shape", "e_bench_shape"))
 
 
 # The large-field checks: (code, frames per Eb/N0 point, points) of phase
@@ -526,20 +545,25 @@ def phase_cn_ems(device):
 
 def phase_ems_resident(device):
     """K3 against its plain version on identical LLRs (gf16_n204_k102,
-    offset 0.3): nm = 16 in the three modes at 2048 frames and at the main
-    path's shape (2 x 8192 frames, 1.5 and 2.0 dB, 50 iterations, early
-    termination), then nm = 8; agreement must be 1.0."""
+    offset 0.3): nm = 16 in the three modes at 2048 frames and at path A's
+    sweep shape (2 x 8192 frames, 1.5 and 2.0 dB, 50 iterations, early
+    termination), nm = 8, then the step of bench row ems_gf16_n204_k102
+    (8192 frames, sigma 0.63, 50 iterations, throughput); agreement must be
+    1.0. Timed in throughput mode, at the sweep shape and at the bench
+    step, whose numbers go to the kernels summary."""
     import torch
 
     from nbldpc_tpu_torch.kernels import ems_resident as er
 
     g = _graph("gf16_n204_k102", device)
-    small, main = _llrs(g, 2048, [1.5], device), _llrs(g, 8192, [1.5, 2.0], device)
+    small, sweep = _llrs(g, 2048, [1.5], device), _llrs(g, 8192, [1.5, 2.0], device)
     modes = {"a_early_term": (small, 50, True, True, 16),
              "b_throughput": (small, 50, False, False, 16),
              "c_one_iter": (small, 1, False, True, 16),
-             "d_main_path": (main, 50, True, True, 16),
-             "e_nm8": (small, 50, True, True, 8)}
+             "d_sweep_shape": (sweep, 50, True, True, 16),
+             "e_nm8": (small, 50, True, True, 8),
+             "f_bench_shape": (_bench_llrs("ems_gf16_n204_k102", g, device),
+                               50, False, False, 16)}
     worst = 0
     result = {}
     for name, (llr, iters, et, stats, nm) in modes.items():
@@ -557,7 +581,7 @@ def phase_ems_resident(device):
         rec = {"phase": "ems_resident", "mode": name, "nm": nm, "frames": B,
                "agreement": agree, "frame_errors_kernel": fe_k,
                "frame_errors_plain": fe_p}
-        if name in ("b_throughput", "d_main_path"):
+        if name in ("b_throughput", "d_sweep_shape", "f_bench_shape"):
             p1 = cuda_ms(lambda: er.decode_plain(dec, llr), 1)
             k1 = cuda_ms(lambda: er.resident_decode(dec, llr), 5)
             k2 = cuda_ms(lambda: er.resident_decode(dec, llr), 5)
@@ -575,16 +599,18 @@ def phase_ems_resident(device):
 
 def phase_cn_tems(device):
     """K5 against its plain version (offset 2.0, config 4's) at GF(16),
-    config 4's shape with the exact scan and n_r = 8, and GF(256)."""
+    config 4's shape with the exact scan and n_r = 8, GF(256), then config
+    4's shape at n_r = 8 on tie-heavy inputs (4 levels)."""
     from nbldpc_tpu_torch.kernels import cn_tems
 
-    cases = [("gf16_n204_k102", 8192, 0), ("gf64_n576_k480", 1024, 0),
-             ("gf64_n576_k480", 1024, 8), ("gf256_n255_k175", 512, 8)]
+    cases = [("gf16_n204_k102", 8192, 0, 0), ("gf64_n576_k480", 1024, 0, 0),
+             ("gf64_n576_k480", 1024, 8, 0), ("gf256_n255_k175", 512, 8, 0),
+             ("gf64_n576_k480", 1024, 8, 4)]
     return [_hold_cn("cn_tems", device, code, B, cn_tems.cn_update,
                      cn_tems.cn_update_plain, (2.0, n_r),
-                     lambda q, dc, _offset, n_r: tems_check_ops(q, dc, n_r),
-                     n_r=n_r, offset=2.0)
-            for code, B, n_r in cases]
+                     lambda q, dc, _offset, n_r: tems_check_ops(q, dc, n_r), levels,
+                     n_r=n_r, offset=2.0, tie_levels=levels)
+            for code, B, n_r, levels in cases]
 
 
 def _counted():
@@ -1103,6 +1129,7 @@ def main() -> int:
                 "library_ms": None, **extra}
 
     kernels = [
+        # K0 and K3 at their bench rows' steps (8192 frames x 50 iterations)
         entry("qspa_resident", "qspa_resident.cu",
               "nbldpc_tpu/kernels/qspa_resident.py:677", res["max_abs_err"], res,
               agreement_min=res["agreement_min"]),

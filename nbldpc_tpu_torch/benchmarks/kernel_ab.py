@@ -1,0 +1,215 @@
+"""Time the resident EMS decode (K3), the T-EMS check node (K5) and the
+resident QSPA decode (K0) of one tree at the shapes their paths run, with
+a digest of every output, so that two trees compare on one card.
+
+    python nbldpc_tpu_torch/benchmarks/kernel_ab.py [--root DIR] [--steps]
+                                    [--builds k3_frames1,k5_warps16,...]
+
+--root is the repository root whose nbldpc_tpu_torch is timed (default:
+the one holding this file), e.g. a `git archive` of another commit: the
+script calls only wrappers that every tree since the T-EMS port has.
+--steps adds the sim steps of the bench rows ems_gf16_n204_k102 and
+tems_gf64_n576_k480. --builds (this tree only) builds csrc/ems_resident.cu
+or csrc/cn_tems.cu once per named edit of BUILDS, the design choices and
+the parts of K3, and times each build beside the library's kernel.
+
+Prints the card's name and power limit, then one JSON line per case:
+device ms (CUDA events, mean over `reps` calls after one warm-up) and a
+digest of the outputs (equal digests: equal outputs, -0 counted as +0).
+Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(HERE))
+# chip_smoke's helpers import the package only when called, so they use
+# the tree that --root puts first on the path
+from chip_smoke import _graph, _llrs, _u_for, cuda_ms  # noqa: E402
+
+
+def _digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t + 0.0 if t.is_floating_point() else t    # -0 -> +0
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# (case, frames per point, noise, noise is Eb/N0, iterations,
+# early_term, stats_each_iter, nm): the bench step of ems_gf16_n204_k102,
+# chip_smoke.py's sweep shape, its throughput mode and its nm = 8 mode
+K3_CASES = [("k3_bench", 8192, [0.63], False, 50, False, False, 16),
+            ("k3_sweep", 8192, [1.5, 2.0], True, 50, True, True, 16),
+            ("k3_2048", 2048, [1.5], True, 50, False, False, 16),
+            ("k3_nm8", 2048, [1.5], True, 50, True, True, 8)]
+# (case, code, frames, n_r, tie levels): chip_smoke.py's phase cn_tems
+K5_CASES = [("k5_gf16_exact", "gf16_n204_k102", 8192, 0, 0),
+            ("k5_gf64_exact", "gf64_n576_k480", 1024, 0, 0),
+            ("k5_gf64_nr8", "gf64_n576_k480", 1024, 8, 0),
+            ("k5_gf64_nr8_ties", "gf64_n576_k480", 1024, 8, 4),
+            ("k5_gf256_nr8", "gf256_n255_k175", 512, 8, 0)]
+
+
+def run_kernels(device, reps: int):
+    from nbldpc_tpu_torch.kernels import cn_tems
+    from nbldpc_tpu_torch.kernels import ems_resident as er
+    from nbldpc_tpu_torch.kernels import qspa_resident as qr
+
+    g = _graph("gf16_n204_k102", device)
+    for case, frames, noise, ebn0, iters, et, stats, nm in K3_CASES:
+        llr = _llrs(g, frames, noise, device, ebn0)
+        dec = er.ResidentEMS(g, iters, nm, 0.3, et, stats)
+        out = er.resident_decode(dec, llr)
+        yield {"case": case, "frames": llr.shape[0], "iters": iters, "nm": nm,
+               "frame_iterations": int(out[2].sum()), "digest": _digest(*out),
+               "ms": cuda_ms(lambda: er.resident_decode(dec, llr), reps)}
+    g0 = _graph("gf16_n204_k102_c8", device)
+    llr = _llrs(g0, 8192, [0.63], device, ebn0=False)
+    dec = qr.ResidentQSPA(g0, 50, False, False)
+    out = qr.resident_decode(dec, llr)
+    yield {"case": "k0_bench", "frames": 8192, "iters": 50, "digest": _digest(*out),
+           "ms": cuda_ms(lambda: qr.resident_decode(dec, llr), reps)}
+    for case, code, B, n_r, levels in K5_CASES:
+        U = _u_for(_graph(code, device), B, device, levels)
+        out = cn_tems.cn_update(U, 2.0, n_r)
+        yield {"case": case, "shape": list(U.shape), "n_r": n_r, "tie_levels": levels,
+               "digest": _digest(out),
+               "ms": cuda_ms(lambda: cn_tems.cn_update(U, 2.0, n_r), 10 * reps)}
+
+
+def run_steps():
+    from nbldpc_tpu_torch import bench
+
+    for name in ("ems_gf16_n204_k102", "tems_gf64_n576_k480"):
+        row = bench.ROWS_BY_NAME[name]
+        rec = bench.measure(row, row.impls[0], reps=10)
+        yield {"case": f"step_{name}", "ms": rec["ms_per_step"],
+               "frame_errors_last_step": rec["frame_errors_last_step"]}
+
+
+# Trial builds: name -> (source in csrc/, [(text, its replacement), ...]).
+# k3_framesN sets kMaxFrames, the most frames a K3 block holds, to N;
+# k3_no_vn and k3_no_merge drop the variable-node phase or the merges' max
+# (wrong outputs: their times say what that part costs); k5_warps16 keeps
+# 16 warps a K5 block however few blocks fit an SM; k5_shuffles reduces
+# over a full warp by shuffles instead of __reduce_*_sync.
+BUILDS = {
+    **{f"k3_frames{n}": ("ems_resident.cu", [("constexpr int kMaxFrames = 3;",
+                                              f"constexpr int kMaxFrames = {n};")])
+       for n in (1, 2, 3)},
+    "k3_no_vn": ("ems_resident.cu", [("for (int i = tid; i < N * C; i += nt)",
+                                      "for (int i = tid; i < 0; i += nt)")]),
+    "k3_no_merge": ("ems_resident.cu", [("o[a] = b == 0 ? c : fmaxf(o[a], c);",
+                                         "o[a] = b == 0 ? c : o[a];")]),
+    "k5_warps16": ("cn_tems.cu", [("smem_bytes<Q>(dc, warps) > kMaxSmem / 3",
+                                   "smem_bytes<Q>(dc, warps) > kMaxSmem")]),
+    "k5_shuffles": ("cn_tems.cu", [(f"if constexpr (W == 32) {{\n    return __reduce_{op}_sync",
+                                    f"if constexpr (W == 64) {{\n    return __reduce_{op}_sync")
+                                   for op in ("max", "min")]),
+}
+
+
+def builds_trial(device, names, reps: int):
+    """This tree's K3 or K5 built with each edit of BUILDS: K3 builds timed
+    at the bench step, K5 builds at every K5 case; `same` tells whether the
+    outputs equal the library kernel's."""
+    import torch
+
+    from nbldpc_tpu_torch.kernels import _build, cn_tems
+    from nbldpc_tpu_torch.kernels import ems_resident as er
+
+    out_dir = _build.BUILD_DIR / "trial_builds"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        source, edits = BUILDS[name]
+        src = (_build.CSRC / source).read_text()
+        for old, new in edits:
+            if old not in src:
+                raise ValueError(f"build {name}: {old!r} is not in {source}")
+            src = src.replace(old, new)
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(src)
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")),
+             str(cu)], stderr=subprocess.PIPE, text=True)
+    for name, p in procs.items():
+        if p.wait() != 0:
+            raise RuntimeError(f"nvcc failed for build {name}:\n{p.stderr.read()}")
+
+    def entry(name, fn):
+        f = getattr(ctypes.CDLL(str(out_dir / f"{name}.so")), fn)
+        f.argtypes, f.restype = _build.SIGNATURES[fn], ctypes.c_int
+        return f
+
+    def checked(rc, name):
+        if rc:
+            raise RuntimeError(f"build {name}: CUDA error {rc}")
+
+    stream = _build.stream_ptr(device)
+    g = _graph("gf16_n204_k102", device)
+    _, frames, noise, ebn0, iters, et, stats, nm = K3_CASES[0]
+    llr = _llrs(g, frames, noise, device, ebn0)
+    dec = er.ResidentEMS(g, iters, nm, 0.3, et, stats)
+    ref = _digest(*er.resident_decode(dec, llr))
+    outs = (torch.empty((frames, g.n), dtype=torch.int32, device=device),
+            torch.empty(frames, dtype=torch.bool, device=device),
+            torch.empty(frames, dtype=torch.int32, device=device))
+    for name in (n for n in names if n.startswith("k3")):
+        fn = entry(name, "ems_resident_decode")
+        ms = cuda_ms(lambda: checked(fn(
+            llr.data_ptr(), *(o.data_ptr() for o in outs), frames, g.n, g.m, g.dc_max,
+            g.dv_max, g.q, nm, 0.3, dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(),
+            dec.perm_down.data_ptr(), dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(), iters,
+            int(et), int(stats), stream), name), reps)
+        yield {"case": "k3_bench", "build": name, "ms": ms, "same": _digest(*outs) == ref}
+    for case, code, B, n_r, levels in K5_CASES:
+        U = _u_for(_graph(code, device), B, device, levels)
+        ref = _digest(cn_tems.cn_update(U, 2.0, n_r))
+        out = torch.empty_like(U)
+        for name in (n for n in names if n.startswith("k5")):
+            fn = entry(name, "cn_tems_update")
+            ms = cuda_ms(lambda: checked(fn(U.data_ptr(), out.data_ptr(), *U.shape, n_r, 2.0,
+                                        stream), name), 10 * reps)
+            yield {"case": case, "build": name, "ms": ms, "same": _digest(out) == ref}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(HERE))
+    ap.add_argument("--steps", action="store_true")
+    ap.add_argument("--builds", default="")
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab: needs a CUDA card")
+    from nbldpc_tpu_torch import bench
+
+    device = torch.device("cuda", 0)
+    print(bench.card_info(), flush=True)
+    runs = [run_kernels(device, args.reps)]
+    if args.steps:
+        runs.append(run_steps())
+    if args.builds:
+        runs.append(builds_trial(device, args.builds.split(","), args.reps))
+    for run in runs:
+        for rec in run:
+            print(json.dumps({"root": str(root), **rec}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

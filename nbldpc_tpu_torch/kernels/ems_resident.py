@@ -28,9 +28,39 @@ from nbldpc_tpu_torch.decoders import ems
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
-# threads of one block (one frame); checks run on groups of q lanes
-THREADS = 256
 MAX_DC = 32
+# most frames one block of csrc/ems_resident.cu holds (kMaxFrames there)
+MAX_FRAMES = 3
+
+
+def _bank_stride(n: int) -> int:
+    """n rounded up to 4 (mod 32): consecutive checks' rows 4 banks apart."""
+    return n + (4 - n) % 32
+
+
+def _round_up(x: int, k: int) -> int:
+    return -(-x // k) * k
+
+
+def ems_smem_layout(n: int, m: int, dc: int, dv: int, q: int) -> tuple:
+    """(frames per block, shared bytes per block) of csrc/ems_resident.cu's
+    launch, which computes the same in `layout` and `block_bytes`: the
+    routing tables as bytes and 16-bit words, then per frame prior and
+    posterior [N, q], each check's dc lc rows and its dc - 2 backward
+    partials, each padded to 4 (mod 32) floats, each check's 2 dc - 2 kept
+    masks and the hard decisions as bytes; as many frames as fit in
+    MAX_SMEM_BYTES, up to MAX_FRAMES (one frame when none fits: the wrapper
+    then refuses the code)."""
+    E, p = m * dc, q.bit_length() - 1
+    cs = _bank_stride(dc * q)
+    bs = _bank_stride((dc - 2) * q)
+    frame = (2 * _round_up(n * q, 4) + m * (cs + bs) + _round_up(m * (2 * dc - 2), 4)
+             + _round_up(-(-n // 4), 4))
+    tables = _round_up(E * q + 2 * E + 2 * n * dv + E * p, 16)
+    frames = MAX_FRAMES
+    while frames > 1 and tables + 4 * frames * frame > qr.MAX_SMEM_BYTES:
+        frames -= 1
+    return frames, tables + 4 * frames * frame
 
 
 class ResidentEMS(qr.ResidentQSPA):
@@ -50,11 +80,8 @@ class ResidentEMS(qr.ResidentQSPA):
             raise ValueError(f"nm={nm} must be >= 1")
         self.offset = float(offset)
         g = graph
-        # state (prior, posterior, edge messages), hard decisions, and per
-        # q-lane group the dense backward partials B_0..B_{dc-3} of its check
-        groups = THREADS // g.q
-        self.smem_bytes = ((2 * g.n + g.m * g.dc_max) * g.q + g.n
-                           + groups * max(g.dc_max - 2, 0) * g.q) * 4
+        self.frames_per_block, self.smem_bytes = ems_smem_layout(
+            g.n, g.m, g.dc_max, g.dv_max, g.q)
 
     def _iteration(self, prior, post, lc):
         """One EMS iteration on [rows, q, B] tensors; returns (post, lc)."""
@@ -82,25 +109,29 @@ decode_plain.calls = 0
 def resident_decode(dec: ResidentEMS, llr: torch.Tensor):
     """Resident EMS decode of llr [B, N, q] f32: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor."""
-    g = dec.graph
     if llr.device.type == "cpu":
         return decode_plain(dec, llr)
+    return _launch(dec, llr)
+
+
+def _launch(dec: ResidentEMS, llr: torch.Tensor):
+    """Check llr and launch the kernel; raises ValueError on anything it does
+    not take: a code whose block needs more than MAX_SMEM_BYTES of shared
+    memory (before any device check), a CPU tensor, a bad shape or dtype."""
+    g = dec.graph
     hard, done, iters = qr.checked_outputs(dec, llr, "resident_decode", dec.smem_bytes)
+    if llr.device.type != "cuda":
+        raise ValueError(f"resident_decode: unsupported device {llr.device}")
     if llr.shape[0] == 0:
         return hard, done, iters
     from nbldpc_tpu_torch.kernels import _build
 
-    lib = _build.library()
-    with torch.cuda.device(llr.device):
-        rc = lib.ems_resident_decode(
-            llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
-            llr.shape[0], g.n, g.m, g.dc_max, g.dv_max, g.q, dec.nm, dec.offset,
-            dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(), dec.perm_down.data_ptr(),
-            dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(),
-            dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),
-            _build.stream_ptr(llr.device))
-    _build.check(rc, "ems_resident_decode")
-    resident_decode.launches += 1
+    _build.launch(resident_decode, "ems_resident_decode", llr.device,
+                  llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
+                  llr.shape[0], g.n, g.m, g.dc_max, g.dv_max, g.q, dec.nm, dec.offset,
+                  dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(), dec.perm_down.data_ptr(),
+                  dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(),
+                  dec.max_iters, int(dec.early_term), int(dec.stats_each_iter))
     return hard, done, iters
 
 

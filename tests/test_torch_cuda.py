@@ -244,6 +244,24 @@ def test_resident_ems_kernel_matches_plain(cuda_device, code, nm, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", [(1, False, True), (20, True, True), (20, False, False)])
+@pytest.mark.parametrize("nm", [8, 16])
+def test_resident_ems_kernel_on_ties(cuda_device, nm, mode):
+    # LLRs quantized to 7 levels: ties in every normalization, extraction,
+    # merge and decision
+    g = _graph("gf16_n204_k102", cuda_device)
+    llr = _zero_cw_llrs(g, 300, 1.5, cuda_device)
+    llr = ((llr / 2.0).round().clamp(-3.0, 3.0) * 2.0).contiguous()
+    dec = er.ResidentEMS(g, mode[0], nm, 0.3, mode[1], mode[2])
+    before = er.resident_decode.launches
+    hk, dk, ik = er.resident_decode(dec, llr)
+    assert er.resident_decode.launches == before + 1
+    hp, dp, ip = er.decode_plain(dec, llr)
+    same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
+    assert float(same.float().mean()) == 1.0
+
+
+@pytest.mark.cuda
 def test_ems_wrappers_reject_bad_input(cuda_device):
     g = _graph("gf16_n204_k102", cuda_device)
     dec = er.ResidentEMS(g, 2, 8, 0.3)
@@ -275,6 +293,22 @@ def test_cn_tems_kernel_matches_plain(cuda_device, code, n_r):
     ref = cn_tems.cn_update_plain(U, 2.0, n_r)
     assert bool(torch.isfinite(out).all())
     # one add per candidate, the rest max and select: exact
+    assert float((out - ref).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [37, 1024])
+@pytest.mark.parametrize("n_r", [0, 8])
+@pytest.mark.parametrize("code", ["gf16_n204_k102", "gf64_n576_k480", "gf256_n255_k175"])
+def test_cn_tems_kernel_on_ties(cuda_device, code, n_r, B):
+    # 4 levels: ties in every argmax, top-3 column and n_r round
+    g = _graph(code, cuda_device)
+    U = _random_u(g, B, cuda_device, levels=4)
+    before = cn_tems.cn_update.launches
+    out = cn_tems.cn_update(U, 2.0, n_r)
+    assert cn_tems.cn_update.launches == before + 1
+    ref = cn_tems.cn_update_plain(U, 2.0, n_r)
+    assert bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) == 0.0
 
 

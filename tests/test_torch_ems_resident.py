@@ -14,10 +14,12 @@ import nbldpc_tpu.graph as jgraph
 from nbldpc_tpu.kernels.ems_resident import ResidentEMS as JaxResidentEMS
 
 from nbldpc_tpu_torch.code import load_alist
+from nbldpc_tpu_torch.convert import codespec_from_arrays
 from nbldpc_tpu_torch.decoders import ems as pems
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import cn_ems
 from nbldpc_tpu_torch.kernels import ems_resident as er
+from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
 from tests.test_torch_qspa import noisy_llrs, port_graph
 from tests.test_torch_resident import MODES
@@ -75,3 +77,49 @@ def test_resident_ems_dispatch_caches_decoder(small_codes):
                                   / "codes" / "gf64_n576_k480.alist"), "cpu")
     with pytest.raises(ValueError, match="q <= 32"):
         er.ResidentEMS(gf64, 4)
+
+
+def test_resident_ems_smem_layout_and_refusal():
+    """The mirror of csrc/ems_resident.cu's shared-memory layout. GF(16)
+    (204,102), dc = 4, dv = 2: tables 408 x 16 perm bytes + 2 x 408 + 2 x
+    408 + 408 x 4 syn bytes = 9,792 B; a frame 2 x 3,264 floats of prior
+    and posterior, 102 checks x (68 lc + 36 scratch) floats, 612 mask words
+    and 52 words of hard bytes = 71,200 B; three frames a block. A code
+    whose one-frame block exceeds 232,448 B raises ValueError before any
+    launch."""
+    codes = Path(__file__).resolve().parents[1] / "codes"
+    g = TannerGraph(load_alist(codes / "gf16_n204_k102.alist"), "cpu")
+    dec = er.ResidentEMS(g, 4)
+    assert (dec.frames_per_block, dec.smem_bytes) == (3, 9792 + 3 * 71200)
+    assert dec.smem_bytes <= qr.MAX_SMEM_BYTES
+    # GF(32), N = 600, dv = 2, dc = 4: ~390 KB a frame
+    rng = np.random.default_rng(3)
+    n, m = 600, 300
+    sockets = rng.permutation(np.repeat(np.arange(n), 2)).reshape(m, 4)
+    while any(len(set(r)) < 4 for r in sockets):
+        sockets = rng.permutation(np.repeat(np.arange(n), 2)).reshape(m, 4)
+    spec = codespec_from_arrays(32, n, m, [np.sort(r) for r in sockets],
+                                [rng.integers(1, 32, size=4) for _ in range(m)])
+    big = er.ResidentEMS(TannerGraph(spec, "cpu"), 4)
+    assert big.frames_per_block == 1 and big.smem_bytes > qr.MAX_SMEM_BYTES
+    launches = er.resident_decode.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        er._launch(big, torch.zeros((2, n, 32)))
+    assert er.resident_decode.launches == launches
+
+
+def test_kernel_ab_trial_builds_apply():
+    """Every trial build of benchmarks/kernel_ab.py names text that is in
+    its kernel source, so `--builds` edits the kernels as they stand."""
+    import importlib.util
+
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "kernel_ab", root / "nbldpc_tpu_torch" / "benchmarks" / "kernel_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    csrc = root / "nbldpc_tpu_torch" / "csrc"
+    for name, (source, edits) in ab.BUILDS.items():
+        text = (csrc / source).read_text()
+        for old, _ in edits:
+            assert text.count(old) == 1, (name, old)

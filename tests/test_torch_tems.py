@@ -70,6 +70,23 @@ def test_k5_wrapper_matches_jax_kernel_interpret(small_codes, highq_codes, code,
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("code,n_r", [("gf16_tiny", 0), ("gf16_tiny", 8), ("q64", 8)])
+def test_plain_matches_jax_kernel_interpret_on_ties(small_codes, highq_codes, code, n_r):
+    """Tie-heavy U (multiples of 1.5 from 4 levels, so every argmax, top-3
+    column and n_r round meets ties): the port's plain check node equals the
+    JAX K5 in interpret mode bit for bit, so the card's exactness against
+    the plain version is exactness against JAX on ties."""
+    jg = jgraph.TannerGraph(_spec(small_codes, highq_codes, code))
+    rng = np.random.default_rng(11)
+    Vv = (rng.integers(0, 4, (jg.n, jg.dv_max, jg.q, 8)) * 1.5).astype(np.float32)
+    U = np.array(jg.gather_cn_x_bl(jnp.asarray(Vv)))
+    want = np.asarray(tems_cn_update_bl_pallas(jnp.asarray(U), jg, offset=2.0, n_r=n_r,
+                                               interpret=True))
+    got = cn_tems.cn_update_plain(torch.from_numpy(U), 2.0, n_r).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want)
+
+
 MODES = {"early_term": dict(early_term=True),
          "throughput": dict(early_term=False, stats_each_iter=False)}
 
