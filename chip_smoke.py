@@ -11,7 +11,12 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
   4. resident - the whole-decode kernel (K0) against its plain version,
                 also at the sweep shape of phase main (2 x 8192 frames,
                 early termination) and at its bench row's step (8192
-                frames x 50 iterations, throughput), timed there
+                frames x 50 iterations, throughput), timed there; then at
+                GF(4) (BASELINE config 1's step and 8192 frames in
+                throughput mode) and on a random GF(32) code, timed; then
+                with several frames a block on more frames than the grid
+                holds (a dv = 3 GF(4) code and the GF(32) code, early
+                termination), so that slots refill while others decode
   5. resident_cl - the large-field whole-decode kernel (K0-cl: its cluster
                 kernel) against the same plain version at GF(64) and
                 GF(256) in the modes of phase 4, each batch holding
@@ -40,22 +45,28 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 a GF(256) run on the N = 1200 code (its scratch kernel),
                 with every launch counter read around it; FER held to the
                 JAX package's recorded statistics
- 11. main_ems - `cli.main(["run", ...])` on the three EMS paths: GF(16) EMS
+ 11. main_qspa - `cli.main(["run", "--config", ...])` on BASELINE configs 1
+                (configs/gf4_qspa_pr1.json, GF(4), 20 iterations, early
+                termination, 2.5 dB) and 2 (configs/gf16_qspa_batch4k.json,
+                GF(16) (204,102), 50 iterations at the fixed budget, at
+                1.5 dB only), 16384 frames each, both through K0, each held
+                to its JAX FER record
+ 12. main_ems - `cli.main(["run", ...])` on the three EMS paths: GF(16) EMS
                 (resident kernel), GF(256) classic and bubble EMS (check-node
                 kernels), each held to its JAX FER record
- 12. main_tems - `cli.main(["run", ...])` on BASELINE config 4
+ 13. main_tems - `cli.main(["run", ...])` on BASELINE config 4
                 (configs/gf64_tems_earlyterm.json, 1024 frames per step):
                 path D at its n_r = 8, path E with the exact scan, each
                 held to its JAX FER record
- 13. main_cfg5 - `cli.main(["run", ...])` on BASELINE config 5
+ 14. main_cfg5 - `cli.main(["run", ...])` on BASELINE config 5
                 (configs/gf256_sweep_2host.json, all 8 points, 20
                 iterations, 512 frames per point and step; max_frames cut
                 to 2048 per point): QSPA through K0-cl and the EMS half
                 through K2; then GF(256) QSPA at 10 iterations, 2.5 dB,
                 16384 frames, held to its JAX FER record
- 14. bench    - sim-step throughput, kernel paths and plain torch paths,
+ 15. bench    - sim-step throughput, kernel paths and plain torch paths,
                 QSPA, EMS, T-EMS and config 5's QSPA and EMS halves
- 15. micro    - the probes P1-P7: the two entry points
+ 16. micro    - the probes P1-P7: the two entry points
                 (nbldpc_tpu_torch.benchmarks.micro_kernels and .micro_layout)
                 as a user runs them, counters read around them; then each
                 probe kernel against its plain version at the JAX scripts'
@@ -381,13 +392,37 @@ def _bench_llrs(name: str, g, device):
     return _llrs(g, row.batch, [row.noise], device, row.ebn0)
 
 
+# K0 on a random GF(32) code: (q, n, m, seed), and its frames and Eb/N0;
+# a random dv = 3 GF(4) code (q, n, m, seed, dv), and the Eb/N0 of K0's
+# checks with several frames a block
+K0_GF32 = (32, 192, 96, 11)
+K0_GF32_FRAMES, K0_GF32_EBN0 = 2048, 2.0
+K0_DV3 = (4, 96, 48, 5, 3)
+K0_REFILL_EBN0 = 1.5
+
+
 def phase_resident(device):
     """K0 against its plain version on identical LLRs: the three modes at
     2048 frames, phase main's sweep shape (2 x 8192 frames at 1.5 and 2.0
     dB, 50 iterations, early termination) and the step of bench row
     qspa_gf16_n204_k102_c8 (8192 frames, sigma 0.63, 50 iterations,
     throughput), timed in throughput mode at both sizes and at the sweep
-    shape; the bench step's numbers go to the kernels summary."""
+    shape; the bench step's numbers go to the kernels summary. Then, each
+    timed: GF(4) (96,48) at BASELINE config 1's step (512 frames at 2.5 dB,
+    20 iterations, early termination) and at 8192 frames in throughput
+    mode, and the K0_GF32 code (throughput, 50 iterations). Then K0 with
+    several frames a block (checks a thread each) in early termination on
+    more frames than its grid holds, frames a block x 32 (the most blocks
+    an SM runs) x SMs + 37, on K0_DV3 and K0_GF32 (20 iterations): a
+    block's slots finish at different iterations and take new frames while
+    its other slots decode. Last, K0's log against logf on every positive
+    normal float, bit for bit."""
+    import torch
+
+    from nbldpc_tpu_torch.code import random_regular_spec
+    from nbldpc_tpu_torch.graph import TannerGraph
+    from nbldpc_tpu_torch.kernels import qspa_resident as qr
+
     code = "gf16_n204_k102_c8"
     g = _graph(code, device)
     small, sweep = _llrs(g, 2048, [1.5], device), _llrs(g, 8192, [1.5, 2.0], device)
@@ -397,8 +432,36 @@ def phase_resident(device):
              "d_sweep_shape": (sweep, 50, True, True),
              "e_bench_shape": (_bench_llrs("qspa_gf16_n204_k102_c8", g, device),
                                50, False, False)}
-    return _hold_resident("resident", code, g, modes,
-                          ("b_throughput", "d_sweep_shape", "e_bench_shape"))
+    res = _hold_resident("resident", code, g, modes,
+                         ("b_throughput", "d_sweep_shape", "e_bench_shape"))
+    g4 = _graph("gf4_n96_k48", device)
+    res4 = _hold_resident("resident", "gf4_n96_k48", g4, {
+        "f_gf4_cfg1_step": (_llrs(g4, 512, [2.5], device), 20, True, True),
+        "g_gf4_throughput": (_llrs(g4, 8192, [2.5], device), 20, False, False)},
+        ("f_gf4_cfg1_step", "g_gf4_throughput"))
+    g32 = TannerGraph(random_regular_spec(*K0_GF32), device=device)
+    res32 = _hold_resident("resident", "gf32_random", g32, {
+        "h_gf32_throughput": (_llrs(g32, K0_GF32_FRAMES, [K0_GF32_EBN0], device),
+                              50, False, False)}, ("h_gf32_throughput",))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    refill = []
+    for code, gr, mode in (("gf4_dv3_random", TannerGraph(random_regular_spec(*K0_DV3), device),
+                            "i_refill_gf4_dv3"),
+                           ("gf32_random", g32, "j_refill_gf32")):
+        frames = qr.ResidentQSPA(gr, 20).frames_per_block
+        if frames < 2:
+            fail(f"resident: {code} takes {frames} frame a block")
+        llr = _llrs(gr, frames * 32 * sms + 37, [K0_REFILL_EBN0], device)
+        refill.append(_hold_resident("resident", code, gr, {mode: (llr, 20, True, True)}, (),
+                                     (mode,)))
+    parts = (res, res4, res32, *refill)
+    res["agreement_min"] = min(r["agreement_min"] for r in parts)
+    res["max_abs_err"] = max(r["max_abs_err"] for r in parts)
+    bad = qr.log_mismatches(device)
+    emit({"phase": "resident", "log_mismatches_over_positive_normal_floats": bad})
+    if bad:
+        fail(f"resident: K0's log differs from logf on {bad} positive normal floats")
+    return res
 
 
 # The large-field checks: (code, frames per Eb/N0 point, points) of phase
@@ -413,21 +476,10 @@ OVERSIZE_FRAMES, OVERSIZE_EBN0 = 512, 2.5
 
 
 def oversize_spec():
-    """The OVERSIZE code over GF(256): every variable in 2 distinct checks,
-    checks of degree 2 n / m, random nonzero weights, from its seed."""
-    import numpy as np
+    """The OVERSIZE code over GF(256)."""
+    from nbldpc_tpu_torch.code import random_regular_spec
 
-    from nbldpc_tpu_torch.convert import codespec_from_arrays
-
-    n, m, seed = OVERSIZE
-    rng = np.random.default_rng(seed)
-    dc = 2 * n // m
-    while True:
-        sockets = rng.permutation(np.repeat(np.arange(n), 2)).reshape(m, dc)
-        if all(len(set(r)) == dc for r in sockets):
-            break
-    return codespec_from_arrays(256, n, m, [np.sort(r) for r in sockets],
-                                [rng.integers(1, 256, size=dc) for _ in range(m)])
+    return random_regular_spec(256, *OVERSIZE)
 
 
 def phase_resident_cl(device):
@@ -767,6 +819,18 @@ def phase_main(main_b64: int):
 # Paths through the user's entry point: (name, cli arguments, the kernel it
 # must launch, JAX FER record in fer_curves_r5.json, Eb/N0 of the
 # comparison, frames per SNR point).
+# BASELINE configs 1 and 2 as their files stand, but for the frames (16384,
+# and no stop at a count of frame errors) and, for config 2, its points
+# (1.5 dB of 1.0 ... 3.0); both decode through K0
+BASELINE_QSPA_PATHS = [
+    ("F_cfg1_gf4_qspa",
+     ["--config", "configs/gf4_qspa_pr1.json", "--set", "sim.max_frames=16384"],
+     "qspa_resident", "gf4_qspa_20it", 2.5, 16384),
+    ("G_cfg2_gf16_qspa",
+     ["--config", "configs/gf16_qspa_batch4k.json", "--set", "channel.ebn0_db=[1.5]",
+      "--set", "sim.max_frames=16384"],
+     "qspa_resident", "gf16_qspa_50it", 1.5, 16384),
+]
 EMS_PATHS = [
     ("A_gf16_ems_resident",
      ["--config", "configs/gf16_ems_nm16.json", "--snr", "1.5", "2.0", "--iters", "20",
@@ -922,7 +986,7 @@ def phase_bench(card: str):
     return rows
 
 
-# The probe kernels of phase 15: (name, source, the TPU kernels they replace)
+# The probe kernels of phase 16: (name, source, the TPU kernels they replace)
 MICRO_KERNELS = [
     ("micro_flat_gather", "micro_gather.cu", "benchmarks/micro_pallas.py:54"),
     ("micro_row_moves", "micro_gather.cu", "benchmarks/micro_pallas.py:73"),
@@ -932,7 +996,7 @@ MICRO_KERNELS = [
     ("micro_route", "micro_layout.cu",
      "benchmarks/micro_layout.py:79, benchmarks/micro_layout.py:145"),
 ]
-# micro_layout's default depth (phase 15 also holds the kernels at 4x it)
+# micro_layout's default depth (phase 16 also holds the kernels at 4x it)
 MICRO_LAYOUT_ITERS = 50
 
 
@@ -1111,6 +1175,7 @@ def main() -> int:
     ems_res = phase_ems_resident(device)
     tems_rows = phase_cn_tems(device)
     counts = _sum_counts(phase_highq_qspa(device), phase_main(main_b64),
+                         phase_paths("main_qspa", BASELINE_QSPA_PATHS),
                          phase_paths("main_ems", EMS_PATHS),
                          phase_paths("main_tems", TEMS_PATHS), phase_cfg5())
     phase_bench(card)

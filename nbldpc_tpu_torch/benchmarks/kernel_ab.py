@@ -3,15 +3,19 @@ resident QSPA decode (K0) of one tree at the shapes their paths run, with
 a digest of every output, so that two trees compare on one card.
 
     python nbldpc_tpu_torch/benchmarks/kernel_ab.py [--root DIR] [--steps]
-                                    [--builds k3_frames1,k5_warps16,...]
+                                    [--builds k0_frames1,k3_frames1,...]
 
 --root is the repository root whose nbldpc_tpu_torch is timed (default:
 the one holding this file), e.g. a `git archive` of another commit: the
-script calls only wrappers that every tree since the T-EMS port has.
---steps adds the sim steps of the bench rows ems_gf16_n204_k102 and
-tems_gf64_n576_k480. --builds (this tree only) builds csrc/ems_resident.cu
-or csrc/cn_tems.cu once per named edit of BUILDS, the design choices and
-the parts of K3, and times each build beside the library's kernel.
+script calls only wrappers that every tree since the T-EMS port has, and
+the case k0_gf32 builds its code by that tree's
+code.random_regular_spec (a tree without it stops there).
+--steps adds the sim steps of the bench rows qspa_gf16_n204_k102_c8,
+qspa_gf16_n204_k102, ems_gf16_n204_k102 and tems_gf64_n576_k480.
+--builds builds the --root tree's csrc/qspa_resident.cu,
+csrc/ems_resident.cu or csrc/cn_tems.cu once per named edit of BUILDS (the
+design choices and the parts of K0, K3 and K5) and times each build beside
+the library's kernel.
 
 Prints the card's name and power limit, then one JSON line per case:
 device ms (CUDA events, mean over `reps` calls after one warm-up) and a
@@ -33,7 +37,7 @@ HERE = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(HERE))
 # chip_smoke's helpers import the package only when called, so they use
 # the tree that --root puts first on the path
-from chip_smoke import _graph, _llrs, _u_for, cuda_ms  # noqa: E402
+from chip_smoke import K0_GF32, _graph, _llrs, _u_for, cuda_ms  # noqa: E402
 
 
 def _digest(*tensors) -> str:
@@ -51,12 +55,42 @@ K3_CASES = [("k3_bench", 8192, [0.63], False, 50, False, False, 16),
             ("k3_sweep", 8192, [1.5, 2.0], True, 50, True, True, 16),
             ("k3_2048", 2048, [1.5], True, 50, False, False, 16),
             ("k3_nm8", 2048, [1.5], True, 50, True, True, 8)]
+# (case, code, frames per point, noise, noise is Eb/N0, iterations,
+# early_term, stats_each_iter): the bench step of qspa_gf16_n204_k102_c8,
+# chip_smoke.py's sweep shape and its 2048-frame throughput mode, BASELINE
+# config 1's step (GF(4), 512 frames, 20 iterations, early termination) and
+# the same at 8192 frames in throughput mode, and chip_smoke.py's random
+# GF(32) code (K0_GF32)
+K0_CASES = [("k0_bench", "gf16_n204_k102_c8", 8192, [0.63], False, 50, False, False),
+            ("k0_sweep", "gf16_n204_k102_c8", 8192, [1.5, 2.0], True, 50, True, True),
+            ("k0_2048", "gf16_n204_k102_c8", 2048, [1.5], True, 50, False, False),
+            ("k0_gf4_cfg1", "gf4_n96_k48", 512, [2.5], True, 20, True, True),
+            ("k0_gf4_8192", "gf4_n96_k48", 8192, [2.5], True, 20, False, False),
+            ("k0_gf32", "gf32_random", 2048, [2.0], True, 50, False, False)]
 # (case, code, frames, n_r, tie levels): chip_smoke.py's phase cn_tems
 K5_CASES = [("k5_gf16_exact", "gf16_n204_k102", 8192, 0, 0),
             ("k5_gf64_exact", "gf64_n576_k480", 1024, 0, 0),
             ("k5_gf64_nr8", "gf64_n576_k480", 1024, 8, 0),
             ("k5_gf64_nr8_ties", "gf64_n576_k480", 1024, 8, 4),
             ("k5_gf256_nr8", "gf256_n255_k175", 512, 8, 0)]
+
+
+def _k0_graph(code: str, device):
+    if code != "gf32_random":
+        return _graph(code, device)
+    from nbldpc_tpu_torch.code import random_regular_spec
+    from nbldpc_tpu_torch.graph import TannerGraph
+
+    return TannerGraph(random_regular_spec(*K0_GF32), device=device)
+
+
+def _k0_case(case, device):
+    """(decoder, llr) of one K0_CASES entry."""
+    from nbldpc_tpu_torch.kernels import qspa_resident as qr
+
+    _, code, frames, noise, ebn0, iters, et, stats = case
+    g = _k0_graph(code, device)
+    return qr.ResidentQSPA(g, iters, et, stats), _llrs(g, frames, noise, device, ebn0)
 
 
 def run_kernels(device, reps: int):
@@ -72,12 +106,12 @@ def run_kernels(device, reps: int):
         yield {"case": case, "frames": llr.shape[0], "iters": iters, "nm": nm,
                "frame_iterations": int(out[2].sum()), "digest": _digest(*out),
                "ms": cuda_ms(lambda: er.resident_decode(dec, llr), reps)}
-    g0 = _graph("gf16_n204_k102_c8", device)
-    llr = _llrs(g0, 8192, [0.63], device, ebn0=False)
-    dec = qr.ResidentQSPA(g0, 50, False, False)
-    out = qr.resident_decode(dec, llr)
-    yield {"case": "k0_bench", "frames": 8192, "iters": 50, "digest": _digest(*out),
-           "ms": cuda_ms(lambda: qr.resident_decode(dec, llr), reps)}
+    for case in K0_CASES:
+        dec, llr = _k0_case(case, device)
+        out = qr.resident_decode(dec, llr)
+        yield {"case": case[0], "code": case[1], "frames": llr.shape[0], "iters": case[5],
+               "frame_iterations": int(out[2].sum()), "digest": _digest(*out),
+               "ms": cuda_ms(lambda: qr.resident_decode(dec, llr), reps)}
     for case, code, B, n_r, levels in K5_CASES:
         U = _u_for(_graph(code, device), B, device, levels)
         out = cn_tems.cn_update(U, 2.0, n_r)
@@ -89,7 +123,8 @@ def run_kernels(device, reps: int):
 def run_steps():
     from nbldpc_tpu_torch import bench
 
-    for name in ("ems_gf16_n204_k102", "tems_gf64_n576_k480"):
+    for name in ("qspa_gf16_n204_k102_c8", "qspa_gf16_n204_k102", "ems_gf16_n204_k102",
+                 "tems_gf64_n576_k480"):
         row = bench.ROWS_BY_NAME[name]
         rec = bench.measure(row, row.impls[0], reps=10)
         yield {"case": f"step_{name}", "ms": rec["ms_per_step"],
@@ -103,6 +138,33 @@ def run_steps():
 # 16 warps a K5 block however few blocks fit an SM; k5_shuffles reduces
 # over a full warp by shuffles instead of __reduce_*_sync.
 BUILDS = {
+    # K0: its check phase a thread per check with the spectra through
+    # shared memory (k0_check) instead of a pair of threads per check of
+    # degree 4 at q <= 16; one
+    # frame a block in the one-thread mode too (k0_frames1); pairs up to 4
+    # frames a block, 832 threads (k0_pair4);
+    # CUDA's logf instead of the branch-free log; the variable phase, the
+    # whole check phase, the exp-order sum (x[0] + 1 instead), the softmax
+    # division (a product instead) or the log dropped
+    "k0_check": ("qspa_resident.cu", [("q <= 16 && dc == 4 ? kPair : kCheck",
+                                       "false ? kPair : kCheck")]),
+    "k0_frames1": ("qspa_resident.cu", [("constexpr int kMaxFrames = 4;",
+                                         "constexpr int kMaxFrames = 1;")]),
+    "k0_pair4": ("qspa_resident.cu", [("return mode == kPair ? 1 : kMaxFrames;",
+                                       "return kMaxFrames;"),
+                                      ("mode == kPair ? 672", "mode == kPair ? 832")]),
+    "k0_no_vn": ("qspa_resident.cu", [("vn_chunk<Q, S>(fbase, L.frame, L.off_lc, L.off_post, vno, i, dv, live);",
+                                       ";")]),
+    "k0_no_cn": ("qspa_resident.cu", [
+        ("check_update<Q>(fr + L.off_post,", "if (false) check_update<Q>(fr + L.off_post,"),
+        ("check_update_pair<Q>(fr + L.off_post,", "if (false) check_update_pair<Q>(fr + L.off_post,")]),
+    "k0_no_sum": ("qspa_resident.cu", [("const float sum = exp_order_sum<Q>(x, x[0]);",
+                                        "const float sum = x[0] + 1.0f;")]),
+    "k0_no_div": ("qspa_resident.cu", [("x[a] = x[a] / sum;", "x[a] = x[a] * sum;")]),
+    "k0_no_log": ("qspa_resident.cu", [("log_normal(fmaxf(g[a] * (1.0f / Q), kProbFloor))",
+                                        "fmaxf(g[a] * (1.0f / Q), kProbFloor)")]),
+    "k0_logf": ("qspa_resident.cu", [("log_normal(fmaxf(g[a] * (1.0f / Q), kProbFloor))",
+                                      "logf(fmaxf(g[a] * (1.0f / Q), kProbFloor))")]),
     **{f"k3_frames{n}": ("ems_resident.cu", [("constexpr int kMaxFrames = 3;",
                                               f"constexpr int kMaxFrames = {n};")])
        for n in (1, 2, 3)},
@@ -118,14 +180,17 @@ BUILDS = {
 }
 
 
+
 def builds_trial(device, names, reps: int):
-    """This tree's K3 or K5 built with each edit of BUILDS: K3 builds timed
-    at the bench step, K5 builds at every K5 case; `same` tells whether the
-    outputs equal the library kernel's."""
+    """The --root tree's K0, K3 or K5 built with each edit of BUILDS: K0
+    builds timed at every K0 case, K3 builds at its bench step, K5 builds
+    at every K5 case; `same` tells whether the outputs equal the library
+    kernel's."""
     import torch
 
     from nbldpc_tpu_torch.kernels import _build, cn_tems
     from nbldpc_tpu_torch.kernels import ems_resident as er
+    from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
     out_dir = _build.BUILD_DIR / "trial_builds"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -153,18 +218,38 @@ def builds_trial(device, names, reps: int):
 
     def checked(rc, name):
         if rc:
-            raise RuntimeError(f"build {name}: CUDA error {rc}")
+            msg = _build.library().nbldpc_error_string(rc).decode()
+            raise RuntimeError(f"build {name}: CUDA error {rc}: {msg}")
 
     stream = _build.stream_ptr(device)
-    g = _graph("gf16_n204_k102", device)
-    _, frames, noise, ebn0, iters, et, stats, nm = K3_CASES[0]
-    llr = _llrs(g, frames, noise, device, ebn0)
-    dec = er.ResidentEMS(g, iters, nm, 0.3, et, stats)
-    ref = _digest(*er.resident_decode(dec, llr))
-    outs = (torch.empty((frames, g.n), dtype=torch.int32, device=device),
-            torch.empty(frames, dtype=torch.bool, device=device),
-            torch.empty(frames, dtype=torch.int32, device=device))
-    for name in (n for n in names if n.startswith("k3")):
+    k0 = [n for n in names if n.startswith("k0")]
+    for case in K0_CASES if k0 else ():
+        dec, llr = _k0_case(case, device)
+        g, B = dec.graph, llr.shape[0]
+        ref = _digest(*qr.resident_decode(dec, llr))
+        outs = (torch.empty((B, g.n), dtype=torch.int32, device=device),
+                torch.empty(B, dtype=torch.bool, device=device),
+                torch.empty(B, dtype=torch.int32, device=device))
+        next_frame = torch.empty(1, dtype=torch.int32, device=device)
+        tables = [dec.cn_vn, dec.cn_real, dec.perm_down, dec.vn_edge, dec.syn_k]
+        for name in k0:
+            fn = entry(name, "qspa_resident_decode")
+            ms = cuda_ms(lambda: checked(fn(
+                llr.data_ptr(), *(o.data_ptr() for o in (*outs, next_frame)), B, g.n, g.m,
+                g.dc_max, g.dv_max, g.q, *(x.data_ptr() for x in tables), dec.max_iters,
+                int(dec.early_term), int(dec.stats_each_iter), stream), name), reps)
+            yield {"case": case[0], "build": name, "ms": ms, "same": _digest(*outs) == ref}
+    k3 = [n for n in names if n.startswith("k3")]
+    if k3:
+        g = _graph("gf16_n204_k102", device)
+        _, frames, noise, ebn0, iters, et, stats, nm = K3_CASES[0]
+        llr = _llrs(g, frames, noise, device, ebn0)
+        dec = er.ResidentEMS(g, iters, nm, 0.3, et, stats)
+        ref = _digest(*er.resident_decode(dec, llr))
+        outs = (torch.empty((frames, g.n), dtype=torch.int32, device=device),
+                torch.empty(frames, dtype=torch.bool, device=device),
+                torch.empty(frames, dtype=torch.int32, device=device))
+    for name in k3:
         fn = entry(name, "ems_resident_decode")
         ms = cuda_ms(lambda: checked(fn(
             llr.data_ptr(), *(o.data_ptr() for o in outs), frames, g.n, g.m, g.dc_max,
@@ -172,16 +257,16 @@ def builds_trial(device, names, reps: int):
             dec.perm_down.data_ptr(), dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(), iters,
             int(et), int(stats), stream), name), reps)
         yield {"case": "k3_bench", "build": name, "ms": ms, "same": _digest(*outs) == ref}
-    for case, code, B, n_r, levels in K5_CASES:
+    k5 = [n for n in names if n.startswith("k5")]
+    for case, code, B, n_r, levels in K5_CASES if k5 else ():
         U = _u_for(_graph(code, device), B, device, levels)
         ref = _digest(cn_tems.cn_update(U, 2.0, n_r))
         out = torch.empty_like(U)
-        for name in (n for n in names if n.startswith("k5")):
+        for name in k5:
             fn = entry(name, "cn_tems_update")
             ms = cuda_ms(lambda: checked(fn(U.data_ptr(), out.data_ptr(), *U.shape, n_r, 2.0,
                                         stream), name), 10 * reps)
             yield {"case": case, "build": name, "ms": ms, "same": _digest(out) == ref}
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])

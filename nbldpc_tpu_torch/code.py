@@ -119,3 +119,20 @@ def load_alist(path) -> CodeSpec:
     spec = CodeSpec(q=q, n=n, m=m, row_cols=tuple(row_cols), row_vals=tuple(row_vals))
     spec.validate()
     return spec
+
+
+def random_regular_spec(q: int, n: int, m: int, seed: int, dv: int = 2) -> CodeSpec:
+    """A random code over GF(q) from its seed: every variable in dv distinct
+    checks, every check of degree dv n / m, random nonzero weights."""
+    rng = np.random.default_rng(seed)
+    dc = dv * n // m
+    while True:
+        sockets = rng.permutation(np.repeat(np.arange(n), dv)).reshape(m, dc)
+        if all(len(set(r)) == dc for r in sockets):
+            break
+    spec = CodeSpec(q=q, n=n, m=m,
+                    row_cols=tuple(np.sort(r).astype(np.int32) for r in sockets),
+                    row_vals=tuple(rng.integers(1, q, size=dc).astype(np.int32)
+                                   for _ in range(m)))
+    spec.validate()
+    return spec

@@ -40,10 +40,14 @@ SIGNATURES = {
     "cn_ems_update_bubble": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     # U, out, M, dc, q, B, n_r, offset, stream
     "cn_tems_update": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "qspa_resident_decode": [_P, _P, _P, _P,            # llr, hard, done, iters
+    "qspa_resident_decode": [_P, _P, _P, _P, _P,        # llr, hard, done, iters, scratch
                              _I, _I, _I, _I, _I, _I,    # B N M dc dv q
-                             _P, _P, _P, _P, _P, _P,    # tables
+                             _P, _P, _P, _P, _P,        # tables
                              _I, _I, _I, _P],           # iters, modes, stream
+    # q, out: K0's compiled exp-order basis of GF(q) [q]
+    "qspa_resident_field": [_I, _P],
+    # out (device), stream: positive normal floats where K0's log differs from logf
+    "qspa_resident_log_mismatches": [_P, _P],
     # B N M dc q, out: blocks of the persistent grid, shared bytes per block
     "qspa_resident_cl_grid": [_I, _I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "qspa_resident_cl_decode": [_P, _P, _P, _P, _P,      # llr, outs, scratch

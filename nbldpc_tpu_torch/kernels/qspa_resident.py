@@ -13,8 +13,9 @@ It differs from the log-domain decode_bl path in rare floating-point ties,
 so each is held against its own counterpart.
 
 `resident_decode` runs `decode_plain` for a CPU tensor; for a CUDA tensor
-it launches csrc/qspa_resident.cu (K0, a frame's state in one block's
-shared memory) for q <= 32 and K0-cl for 32 < q <= 256: csrc/qspa_cluster.cu
+it launches csrc/qspa_resident.cu (K0, a few frames' state in one block's
+shared memory, laid out by `k0_smem_layout`) for q <= 32 and K0-cl for
+32 < q <= 256: csrc/qspa_cluster.cu
 (a frame's state in the shared memory of a thread-block cluster, as
 `plan_cluster` lays it out) when the code's state fits a cluster of 8,
 else csrc/qspa_resident_cl.cu (the state in a global scratch). All take
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -41,12 +43,69 @@ MAX_SMEM_BYTES = 232448
 # the largest field K0 takes; above it K0-cl, up to MAX_Q
 K0_MAX_Q = 32
 MAX_Q = 256
+# most frames one block of K0 holds (kMaxFrames in csrc/qspa_resident.cu)
+K0_MAX_FRAMES = 4
 # K0-cl's cluster kernel: blocks per cluster, warps per block by q (csrc/
 # qspa_cluster.cu, max_warps), the largest check degree (a syndrome lane
 # per edge)
 CLUSTER_SIZES = (1, 2, 4, 8)
 CLUSTER_WARPS = {64: 24, 128: 24, 256: 16}
 CLUSTER_MAX_DC = 32
+
+
+def _round_up(x: int, k: int) -> int:
+    return -(-x // k) * k
+
+
+def k0_smem_layout(n: int, m: int, dc: int, dv: int, q: int) -> tuple:
+    """(frames per block, shared bytes per block) of K0's launch for a large
+    batch, which csrc/qspa_resident.cu computes the same in `layout` and
+    `block_bytes`: the routing tables as bytes and 16-bit words (each
+    check's perm_down rows padded to an odd number of its load units of
+    min(q, 16) bytes, at least 4; edge variables [E]; the variables' lc
+    offsets [N dv]; syn_k [E p]), then per frame prior and posterior [N,
+    q], each check's dc lc rows padded so that consecutive checks start 4
+    (mod 8) floats apart (2 (mod 4) at q = 2), and the hard decisions as
+    bytes. Checks of degree 4 at q <= 16 (two threads a check) take one
+    frame a block; other codes as many frames as fit in MAX_SMEM_BYTES, up
+    to K0_MAX_FRAMES (one frame when none fits: the wrapper then refuses
+    the code), and a batch of B < 2 x K0_MAX_FRAMES x SMs frames gets
+    max(1, B // (2 SMs)) frames a block."""
+    E, p, vec = m * dc, q.bit_length() - 1, min(q, 4)
+    unit = min(max(q, 4), 16)
+    ps = _round_up(dc * q, unit)
+    ps += 0 if (ps // unit) % 2 else unit
+    cs = dc * q + (vec - dc * q % (2 * vec)) % (2 * vec)
+    frame = 2 * _round_up(n * q, 4) + m * cs + _round_up(-(-n // 4), 4)
+    tables = _round_up(m * ps + 2 * E + 2 * n * dv + E * p, 16)
+    frames = 1 if q <= 16 and dc == 4 else K0_MAX_FRAMES
+    while frames > 1 and tables + 4 * frames * frame > MAX_SMEM_BYTES:
+        frames -= 1
+    return frames, tables + 4 * frames * frame
+
+
+@functools.lru_cache(maxsize=None)
+def compiled_field(q: int) -> tuple:
+    """The exp-order basis of GF(q) (0, 1, a, a^2, ...) that K0 was compiled
+    with (csrc/qspa_resident.cu, qspa_resident_field)."""
+    from nbldpc_tpu_torch.kernels import _build
+
+    out = (ctypes.c_int * q)()
+    _build.check(_build.library().qspa_resident_field(q, out), "qspa_resident_field")
+    return tuple(out)
+
+
+def log_mismatches(device) -> int:
+    """How many of the 2,130,706,432 positive normal finite floats x give a
+    K0 log (csrc/qspa_resident.cu, log_normal) other than CUDA's logf(x),
+    bit for bit: 0 when K0's extrinsic log is exact."""
+    from nbldpc_tpu_torch.kernels import _build
+
+    out = torch.empty(1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        _build.check(_build.library().qspa_resident_log_mismatches(
+            out.data_ptr(), _build.stream_ptr(device)), "qspa_resident_log_mismatches")
+    return int(out.item())
 
 
 def cluster_smem_bytes(q: int, dc: int, dv: int, rows: int, checks: int,
@@ -168,9 +227,9 @@ class ResidentQSPA:
         g, dev = graph, graph.device
         q, m, dc = g.q, g.m, g.dc_max
         E = m * dc
-        # K0's block: a frame's prior, posterior, messages and hard (K0-cl's
-        # layout is the kernel's own, checked by qspa_resident_cl_grid)
-        self.smem_bytes = (2 * g.n + E) * q * 4 + 4 * g.n
+        # K0's block (K0-cl's layout is the kernel's own)
+        self.frames_per_block, self.smem_bytes = (
+            k0_smem_layout(g.n, m, dc, g.dv_max, q) if q <= K0_MAX_Q else (0, 0))
 
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
@@ -319,27 +378,38 @@ def checked_outputs(dec, llr: torch.Tensor, name: str, smem_bytes: int = 0):
 def resident_decode(dec: ResidentQSPA, llr: torch.Tensor):
     """Resident decode of llr [B, N, q] f32: the plain version for a CPU
     tensor; for a CUDA tensor K0 (q <= 32) or K0-cl (32 < q <= 256)."""
-    g = dec.graph
     if llr.device.type == "cpu":
         return decode_plain(dec, llr)
-    if g.q > K0_MAX_Q:
+    if dec.graph.q > K0_MAX_Q:
         return resident_decode_cl(dec, llr)
+    return _launch(dec, llr)
+
+
+def _launch(dec: ResidentQSPA, llr: torch.Tensor):
+    """Check llr and launch K0, counting the launch on resident_decode;
+    raises ValueError on anything it does not take: a code whose block
+    needs more than MAX_SMEM_BYTES of shared memory (before any device
+    check), a tensor off the card, a bad shape or dtype, or a field whose
+    exp table differs from the one K0 was compiled with."""
+    g = dec.graph
     hard, done, iters = checked_outputs(dec, llr, "resident_decode", dec.smem_bytes)
+    if llr.device.type != "cuda":
+        raise ValueError(f"resident_decode: unsupported device {llr.device}")
     if llr.shape[0] == 0:
         return hard, done, iters
+    if compiled_field(g.q) != tuple(dec.n2e_list):
+        raise ValueError(f"resident_decode: K0's GF({g.q}) exp table "
+                         f"{compiled_field(g.q)} is not the graph's {dec.n2e_list}")
     from nbldpc_tpu_torch.kernels import _build
 
-    lib = _build.library()
-    with torch.cuda.device(llr.device):
-        rc = lib.qspa_resident_decode(
-            llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
-            llr.shape[0], g.n, g.m, g.dc_max, g.dv_max, g.q,
-            dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(), dec.perm_down.data_ptr(),
-            dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(), dec.n2e.data_ptr(),
-            dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),
-            _build.stream_ptr(llr.device))
-    _build.check(rc, "qspa_resident_decode")
-    resident_decode.launches += 1
+    # the persistent grid's frame counter (zeroed by the launch)
+    scratch = torch.empty(1, dtype=torch.int32, device=llr.device)
+    _build.launch(resident_decode, "qspa_resident_decode", llr.device,
+                  llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
+                  scratch.data_ptr(), llr.shape[0], g.n, g.m, g.dc_max, g.dv_max, g.q,
+                  dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(), dec.perm_down.data_ptr(),
+                  dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(),
+                  dec.max_iters, int(dec.early_term), int(dec.stats_each_iter))
     return hard, done, iters
 
 

@@ -10,11 +10,11 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from nbldpc_tpu_torch.code import random_regular_spec
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import qspa_resident as qr
 from nbldpc_tpu_torch.utils.config import CodeConfig
 
-from tests.test_torch_cuda import _random_dv2_spec
 from tests.test_torch_qspa import port_graph
 
 CODES = Path(__file__).resolve().parents[1] / "codes"
@@ -23,7 +23,7 @@ ALISTS = sorted(p.stem for p in CODES.glob("*.alist"))
 
 def _graph(name):
     if name == "gf128_n96_m24":             # the GF(128) code of the card tests
-        return TannerGraph(_random_dv2_spec(128, 96, 24, seed=7), "cpu")
+        return TannerGraph(random_regular_spec(128, 96, 24, seed=7), "cpu")
     return TannerGraph(CodeConfig(path=str(CODES / f"{name}.alist")).load(), "cpu")
 
 
@@ -85,7 +85,7 @@ def test_plan_cluster_size(code, sizes):
 
 def test_oversize_code_takes_the_scratch_path():
     # GF(256), N = 1200, dv = 2: 4.9 MB of state per frame
-    g = TannerGraph(_random_dv2_spec(256, 1200, 400, seed=3), "cpu")
+    g = TannerGraph(random_regular_spec(256, 1200, 400, seed=3), "cpu")
     assert qr.plan_cluster(g) is None
     dec = qr.ResidentQSPA(g, 2)
     assert dec.cluster_plan is None and not hasattr(dec, "cluster")

@@ -16,6 +16,7 @@ import torch
 
 from nbldpc_tpu_torch.benchmarks import micro_kernels, micro_layout
 from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init
+from nbldpc_tpu_torch.code import random_regular_spec
 from nbldpc_tpu_torch.convert import codespec_from_arrays
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems
@@ -63,19 +64,7 @@ def test_cn_kernel_matches_plain(cuda_device, code):
 @pytest.mark.parametrize("code", ["gf4_n96_k48", "gf16_n204_k102_c8"])
 def test_resident_kernel_matches_plain(cuda_device, code, mode):
     g = _graph(code, cuda_device)
-    B = 300                                    # not a multiple of any tile
-    sigma = float(ebn0_to_sigma(1.5, g.spec.k / g.n))
-    gen = torch.Generator(device=cuda_device).manual_seed(5)
-    y = 1.0 + sigma * torch.randn((B, g.n, g.gf.p), generator=gen, device=cuda_device)
-    llr = llr_init(y, sigma, g.q).contiguous()
-    dec = qr.ResidentQSPA(g, *mode)
-    before = qr.resident_decode.launches
-    hk, dk, ik = qr.resident_decode(dec, llr)
-    assert qr.resident_decode.launches == before + 1
-    hp, dp, ip = qr.decode_plain(dec, llr)
-    same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
-    # exact but for ulp-level ties of exp/log that a later iteration may amplify
-    assert float(same.float().mean()) >= (0.999 if mode[0] == 1 else 0.99)
+    _hold_resident(g, _zero_cw_llrs(g, 300, 1.5, cuda_device), mode)   # 300: no tile multiple
 
 
 def _zero_cw_llrs(g, B, ebn0, device, seed=5):
@@ -86,32 +75,27 @@ def _zero_cw_llrs(g, B, ebn0, device, seed=5):
     return llr_init(y, sigma, g.q).contiguous()
 
 
-def _random_dv2_spec(q, n, m, seed):
-    """A random code over GF(q) with every variable in 2 distinct checks and
-    every check of degree 2 n / m, random nonzero weights."""
-    rng = np.random.default_rng(seed)
-    dc = 2 * n // m
-    while True:
-        sockets = rng.permutation(np.repeat(np.arange(n), 2)).reshape(m, dc)
-        if all(len(set(r)) == dc for r in sockets):
-            break
-    cols = [np.sort(r) for r in sockets]
-    vals = [rng.integers(1, q, size=dc) for _ in range(m)]
-    return codespec_from_arrays(q, n, m, cols, vals)
+# the launch counters of K0, K0-cl's cluster kernel and its scratch kernel
+RESIDENT_COUNTERS = (qr.resident_decode, qr.resident_decode_cl, qr.resident_decode_cl_scratch)
 
 
-def _hold_resident_cl(g, llr, mode, path=qr.resident_decode_cl):
-    """K0-cl against the plain resident decode on the same LLRs, through
-    `path` (the cluster kernel, or resident_decode_cl_scratch for a code
-    whose state no cluster holds): agreement (hard, done and iters all
-    equal) >= 0.999 after one iteration, else >= 0.995 with frame-error
-    counts within |z| < 3."""
+def _hold_resident(g, llr, mode, kernel=None):
+    """One call of qr.resident_decode against the plain resident decode on
+    the same LLRs. The call launches `kernel` once (by its counter: K0 for
+    q <= 32, else by default K0-cl's cluster kernel, or its scratch kernel
+    for a code whose state no cluster holds) and no other. Agreement (hard,
+    done and iters all equal) >= 0.999 after one iteration, else >= 0.995
+    with frame-error counts within |z| < 3: exact but for ulp-level ties of
+    exp/log that a later iteration may amplify."""
     dec = qr.ResidentQSPA(g, *mode)
-    assert (dec.cluster_plan is None) == (path is qr.resident_decode_cl_scratch)
-    counters = (qr.resident_decode_cl, qr.resident_decode_cl_scratch)
-    before = [c.launches for c in counters]
+    if kernel is None:
+        kernel = qr.resident_decode if g.q <= qr.K0_MAX_Q else qr.resident_decode_cl
+    if g.q > qr.K0_MAX_Q:
+        assert (dec.cluster_plan is None) == (kernel is qr.resident_decode_cl_scratch)
+    before = [c.launches for c in RESIDENT_COUNTERS]
     hk, dk, ik = qr.resident_decode(dec, llr)
-    assert [c.launches for c in counters] == [n + (c is path) for c, n in zip(counters, before)]
+    assert [c.launches for c in RESIDENT_COUNTERS] == [
+        n + (c is kernel) for c, n in zip(RESIDENT_COUNTERS, before)]
     hp, dp, ip = qr.decode_plain(dec, llr)
     same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
     agree = float(same.float().mean())
@@ -126,6 +110,108 @@ def _hold_resident_cl(g, llr, mode, path=qr.resident_decode_cl):
     assert agree >= 0.995 and abs(z) < 3
 
 
+def _irregular_spec(q, seed, n=30, m=12):
+    """A code over GF(q) with checks of degree 3-5 (CN pad slots) and
+    variables of degree 1 to 4 (VN pad slots), random nonzero weights."""
+    rng = np.random.default_rng(seed)
+    cols = [np.sort(rng.choice(n, size=int(rng.integers(3, 6)), replace=False))
+            for _ in range(m)]
+    for v in sorted(set(range(n)) - set(np.concatenate(cols).tolist())):
+        i = int(rng.integers(0, m))
+        cols[i] = np.sort(np.append(cols[i], v))
+    return codespec_from_arrays(q, n, m, cols, [rng.integers(1, q, size=len(c)) for c in cols])
+
+
+# the codes of the K0 tests whose checks take a thread each (several
+# frames a block): irregular GF(16) with CN and VN pad slots, dv = 3 GF(4)
+# and dv = 2 GF(32)
+K0_CODES = {"irregular_gf16": lambda: _irregular_spec(16, 4),
+            "dv3_gf4": lambda: random_regular_spec(4, 96, 48, 5, dv=3),
+            "gf32": lambda: random_regular_spec(32, 192, 96, 11)}
+K0_MODES = [(1, False, True), (20, True, True), (20, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", K0_MODES)
+@pytest.mark.parametrize("q,n,m,seed,ebn0", [(2, 200, 100, 1, 2.0), (8, 120, 60, 2, 1.5),
+                                             (32, 192, 96, 11, 2.0)])
+def test_k0_random_codes_match_plain(cuda_device, q, n, m, seed, ebn0, mode):
+    """K0 at q = 2, 8 (two threads a check) and 32 (a thread a check) on
+    random dv = 2 codes, 299 frames: on an H100 a frame a block
+    (test_k0_refills_multi_frame_blocks runs more)."""
+    g = TannerGraph(random_regular_spec(q, n, m, seed), device=cuda_device)
+    _hold_resident(g, _zero_cw_llrs(g, 299, ebn0, cuda_device), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", K0_MODES)
+@pytest.mark.parametrize("code", ["irregular_gf16", "dv3_gf4"])
+def test_k0_pad_slots_and_dv3_match_plain(cuda_device, code, mode):
+    g = TannerGraph(K0_CODES[code](), device=cuda_device)
+    assert (g.has_cn_pads and g.has_vn_pads) if code == "irregular_gf16" else g.dv_max == 3
+    _hold_resident(g, _zero_cw_llrs(g, 299, 1.5, cuda_device), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [(20, True, True), (20, False, True), (20, False, False)])
+@pytest.mark.parametrize("code", list(K0_CODES))
+def test_k0_refills_multi_frame_blocks(cuda_device, code, mode):
+    """K0 with several frames a block, in the early-termination, stats and
+    throughput modes, on more frames than the grid holds: frames a block x
+    32 (the most blocks an SM runs) x SMs + 37. With early termination or
+    stats a block's slots finish at different iterations and take new
+    frames from the counter while its other slots decode; the last frames
+    leave slots empty."""
+    g = TannerGraph(K0_CODES[code](), device=cuda_device)
+    dec = qr.ResidentQSPA(g, *mode)
+    assert dec.frames_per_block > 1
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    B = dec.frames_per_block * 32 * sms + 37
+    _hold_resident(g, _zero_cw_llrs(g, B, 1.5, cuda_device), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", K0_MODES)
+@pytest.mark.parametrize("code", ["gf4_n96_k48", "gf16_n204_k102_c8"])
+def test_k0_on_tied_llrs(cuda_device, code, mode):
+    """LLRs from 4 levels: ties in every softmax, product and decision."""
+    g = _graph(code, cuda_device)
+    rng = np.random.default_rng(9)
+    llr = torch.from_numpy((rng.integers(0, 4, (517, g.n, g.q)) * -1.5)
+                           .astype(np.float32)).to(cuda_device)
+    llr[:, :, 0] = 0.0                       # the all-zero codeword leads
+    _hold_resident(g, llr.contiguous(), mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [2, 4, 8, 16, 32])
+def test_k0_compiled_field_matches_gf(cuda_device, q):
+    """The exp order K0 was compiled with is gf.py's: 0, then a^0 .. a^(q-2)."""
+    from nbldpc_tpu_torch.gf import GF
+
+    gf = GF(q)
+    assert qr.compiled_field(q) == (0, *(int(x) for x in gf.exp[: q - 1]))
+
+
+@pytest.mark.cuda
+def test_k0_log_matches_logf(cuda_device):
+    """K0's branch-free log equals logf on every positive normal float."""
+    assert qr.log_mismatches(cuda_device) == 0
+
+
+@pytest.mark.cuda
+def test_k0_refuses_oversize_block(cuda_device):
+    """A code whose one-frame block exceeds 232,448 B raises ValueError
+    before any launch."""
+    g = TannerGraph(random_regular_spec(32, 600, 300, 3), device=cuda_device)
+    dec = qr.ResidentQSPA(g, 4)
+    assert dec.frames_per_block == 1 and dec.smem_bytes > qr.MAX_SMEM_BYTES
+    before = qr.resident_decode.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        qr.resident_decode(dec, torch.zeros((2, g.n, g.q), device=cuda_device))
+    assert qr.resident_decode.launches == before
+
+
 RESIDENT_MODES = [(1, False, True), (20, True, True), (20, False, False)]
 
 
@@ -134,14 +220,14 @@ RESIDENT_MODES = [(1, False, True), (20, True, True), (20, False, False)]
 @pytest.mark.parametrize("code,ebn0", [("gf64_n576_k480", 3.0), ("gf256_n255_k175", 2.0)])
 def test_resident_cl_kernel_matches_plain(cuda_device, code, ebn0, mode):
     g = _graph(code, cuda_device)
-    _hold_resident_cl(g, _zero_cw_llrs(g, 300, ebn0, cuda_device), mode)
+    _hold_resident(g, _zero_cw_llrs(g, 300, ebn0, cuda_device), mode)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", RESIDENT_MODES)
 def test_resident_cl_kernel_gf128(cuda_device, mode):
-    g = TannerGraph(_random_dv2_spec(128, 96, 24, seed=7), device=cuda_device)
-    _hold_resident_cl(g, _zero_cw_llrs(g, 300, 2.5, cuda_device), mode)
+    g = TannerGraph(random_regular_spec(128, 96, 24, seed=7), device=cuda_device)
+    _hold_resident(g, _zero_cw_llrs(g, 300, 2.5, cuda_device), mode)
 
 
 @pytest.mark.cuda
@@ -149,7 +235,7 @@ def test_resident_cl_kernel_cfg5_bench_shape(cuda_device):
     # BASELINE config 5's bench step: 4096 frames at 3.0 dB, 20 iterations,
     # fixed budget (throughput mode)
     g = _graph("gf256_n255_k175", cuda_device)
-    _hold_resident_cl(g, _zero_cw_llrs(g, 4096, 3.0, cuda_device), (20, False, False))
+    _hold_resident(g, _zero_cw_llrs(g, 4096, 3.0, cuda_device), (20, False, False))
 
 
 @pytest.mark.cuda
@@ -157,9 +243,9 @@ def test_resident_cl_kernel_cfg5_bench_shape(cuda_device):
 def test_resident_cl_scratch_kernel_oversize_code(cuda_device, mode):
     # GF(256), N = 1200, dv = 2: 4.9 MB of state per frame, more than a
     # cluster of 8 holds, so K0-cl runs its scratch kernel
-    g = TannerGraph(_random_dv2_spec(256, 1200, 400, seed=3), device=cuda_device)
-    _hold_resident_cl(g, _zero_cw_llrs(g, 300, 2.5, cuda_device), mode,
-                      qr.resident_decode_cl_scratch)
+    g = TannerGraph(random_regular_spec(256, 1200, 400, seed=3), device=cuda_device)
+    _hold_resident(g, _zero_cw_llrs(g, 300, 2.5, cuda_device), mode,
+                   qr.resident_decode_cl_scratch)
 
 
 @pytest.mark.cuda

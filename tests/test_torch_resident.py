@@ -12,7 +12,7 @@ import torch
 import nbldpc_tpu.graph as jgraph
 from nbldpc_tpu.kernels.qspa_resident import ResidentQSPAFL
 
-from nbldpc_tpu_torch.code import load_alist
+from nbldpc_tpu_torch.code import load_alist, random_regular_spec
 from nbldpc_tpu_torch.decoders import qspa as tqspa
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import qspa_resident as qr
@@ -62,3 +62,39 @@ def test_resident_dispatch_caches_decoder(small_codes):
     assert tqspa.pick_impl("auto", gf64, llr64) == "torch"     # CPU tensor
     with pytest.raises(ValueError, match="device"):
         qr.resident_decode_cl(dec64, llr64)         # the kernel takes no CPU tensor
+
+
+# (code, frames per block, shared bytes per block) of K0's layout; checks
+# of degree 4 at q <= 16 take one frame a block. GF(16) (204,102), dc = 4,
+# dv = 2: tables 102 checks x 80 perm bytes (64 padded to 5 units of 16) +
+# 2 x 408 + 2 x 408 + 408 x 4 syn bytes = 11,424 B; a frame 2 x 3,264
+# floats of prior and posterior, 102 checks x 68 lc floats and 52 words of
+# hard bytes = 54,064 B. GF(4) (96,48): tables 48 x 20 (16 padded to 5
+# words) + 384 + 384 + 384 = 2,112 B; a frame 2 x 384 + 48 x 20 + 24
+# floats = 7,008 B.
+K0_LAYOUTS = [(f"gf16_n204_k102{v}", 1, 11424 + 54064) for v in ("", "_c8", "_qc")] + [
+    (f"gf4_n96_k48{v}", 1, 2112 + 7008) for v in ("", "_c8", "_qc")]
+
+
+@pytest.mark.parametrize("code,frames,nbytes", K0_LAYOUTS)
+def test_k0_smem_layout(code, frames, nbytes):
+    """The mirror of csrc/qspa_resident.cu's shared-memory layout at the
+    checked-in codes over fields K0 takes."""
+    g = TannerGraph(load_alist(Path(__file__).resolve().parents[1] / "codes"
+                               / f"{code}.alist"), "cpu")
+    dec = qr.ResidentQSPA(g, 4)
+    assert (dec.frames_per_block, dec.smem_bytes) == (frames, nbytes)
+    assert nbytes <= qr.MAX_SMEM_BYTES
+    assert qr.k0_smem_layout(g.n, g.m, g.dc_max, g.dv_max, g.q) == (frames, nbytes)
+
+
+def test_k0_refuses_oversize_block():
+    """GF(32), N = 600, dv = 2, dc = 4: a one-frame block of 366,608 B
+    (54,000 B of tables, 312,608 B of frame) raises ValueError before any
+    device check or launch."""
+    dec = qr.ResidentQSPA(TannerGraph(random_regular_spec(32, 600, 300, 3), "cpu"), 4)
+    assert (dec.frames_per_block, dec.smem_bytes) == (1, 366608)
+    launches = qr.resident_decode.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        qr._launch(dec, torch.zeros((2, 600, 32)))
+    assert qr.resident_decode.launches == launches
