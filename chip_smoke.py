@@ -28,8 +28,8 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 whose state no cluster holds, on such a code (GF(256), N =
                 1200) in the modes of phase 4
   6. cn_ems   - the EMS check-node kernels (classic and bubble) against
-                their plain version, exact to 0.0, classic also on
-                tie-heavy inputs (4 levels) and at config 5's step shape
+                their plain version, exact to 0.0, both also on tie-heavy
+                inputs (4 levels) and at config 5's step shape
   7. ems_resident - the whole-decode EMS kernel against its plain version,
                 in the modes of phase 4 (its bench row's step included,
                 timed there) and at nm = 8; agreement 1.0
@@ -65,7 +65,8 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 through K2; then GF(256) QSPA at 10 iterations, 2.5 dB,
                 16384 frames, held to its JAX FER record
  15. bench    - sim-step throughput, kernel paths and plain torch paths,
-                QSPA, EMS, T-EMS and config 5's QSPA and EMS halves
+                QSPA, EMS, T-EMS and config 5's QSPA and EMS halves (EMS
+                with each merge)
  16. micro    - the probes P1-P7: the two entry points
                 (nbldpc_tpu_torch.benchmarks.micro_kernels and .micro_layout)
                 as a user runs them, counters read around them; then each
@@ -577,15 +578,18 @@ def phase_cn_ems(device):
 
     classic = (cn_ems.cn_update, cn_ems.cn_update_plain, ems_check_ops)
     bubble = (cn_ems.cn_update_bubble, cn_ems.cn_update_bubble_plain, bubble_check_ops)
-    # levels > 0: tie-heavy inputs; the last classic case is config 5's EMS
-    # half as `cli run` decodes it in phase main_cfg5: 8 points x 512 frames
+    # levels > 0: tie-heavy inputs; the last case of each merge is config
+    # 5's step shape (8 points x 512 frames): its EMS half as `cli run`
+    # decodes it in phase main_cfg5, and bench row ems_bubble_gf256_n255_k175
     cases = [("gf16_n204_k102", 8192, "classic", classic, 16, 0.3, 0),
              ("gf64_n576_k480", 1024, "classic", classic, 8, 0.1, 0),
              ("gf64_n576_k480", 1024, "bubble", bubble, 8, 0.0, 0),
              ("gf256_n255_k175", 512, "classic", classic, 16, 0.1, 0),
              ("gf256_n255_k175", 512, "bubble", bubble, 16, 0.0, 0),
              ("gf256_n255_k175", 512, "classic", classic, 16, 0.1, 4),
-             ("gf256_n255_k175", 4096, "classic", classic, 16, 0.1, 0)]
+             ("gf256_n255_k175", 512, "bubble", bubble, 16, 0.0, 4),
+             ("gf256_n255_k175", 4096, "classic", classic, 16, 0.1, 0),
+             ("gf256_n255_k175", 4096, "bubble", bubble, 16, 0.0, 0)]
     rows = {}
     for code, B, merge, (kern, plain, ops), nm, offset, levels in cases:
         rows.setdefault(merge, []).append(_hold_cn(
@@ -1211,7 +1215,7 @@ def main() -> int:
               res_scratch, agreement_min=res_scratch["agreement_min"]),
         entry("ems_resident", "ems_resident.cu",
               "nbldpc_tpu/kernels/ems_resident.py:145", ems_res["max_abs_err"], ems_res),
-        # classic: config 5's EMS step shape; bubble: GF(256), 512 frames
+        # classic and bubble at config 5's step shape
         *(entry(name, "cn_ems.cu", replaces,
                 max(r["max_abs_err"] for r in ems_rows[merge]), ems_rows[merge][-1])
           for name, merge, replaces in (

@@ -17,7 +17,10 @@ ROWS has its own code, batch, budget and noise:
          512 frames = 4096 frames per step), sigma from 3.0 dB;
   ems_gf256_n255_k175 - config 5's EMS half (nm = 16, offset 0.1) at the
          same step: the classic check-node kernel inside decode_bl (kernel
-         path only: the plain path takes ~16 s per step there).
+         path only: the plain path takes ~16 s per step there);
+  ems_bubble_gf256_n255_k175 - the same step through the bubble merge (nm
+         = 16, offset 0.0, the JAX package's gf256_ems_bubble record): the
+         bubble check-node kernel inside decode_bl (kernel path only).
 
     python -m nbldpc_tpu_torch bench
     python -m nbldpc_tpu_torch bench --profile qspa_gf256_n255_k175
@@ -69,6 +72,9 @@ ROWS = [
         ("resident", "kernel", "torch"), 4096, 20, 3.0, ebn0=True),
     Row("ems_gf256_n255_k175", "gf256_n255_k175", "ems", ("kernel",),
         4096, 20, 3.0, ebn0=True, config=(("nm", 16), ("offset", 0.1))),
+    Row("ems_bubble_gf256_n255_k175", "gf256_n255_k175", "ems", ("kernel",),
+        4096, 20, 3.0, ebn0=True,
+        config=(("nm", 16), ("offset", 0.0), ("ems_merge", "bubble"))),
 ]
 ROWS_BY_NAME = {r.name: r for r in ROWS}
 

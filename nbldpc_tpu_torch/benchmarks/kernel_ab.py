@@ -1,9 +1,12 @@
-"""Time the resident EMS decode (K3), the T-EMS check node (K5) and the
-resident QSPA decode (K0) of one tree at the shapes their paths run, with
-a digest of every output, so that two trees compare on one card.
+"""Time the resident EMS decode (K3), the T-EMS check node (K5), the
+resident QSPA decode (K0), the QSPA check node (K1) and the EMS check
+nodes (K2b bubble, K2 classic beside it) of one tree at the shapes their
+paths run, with a digest of every output, so that two trees compare on
+one card.
 
     python nbldpc_tpu_torch/benchmarks/kernel_ab.py [--root DIR] [--steps]
                                     [--builds k0_frames1,k3_frames1,...]
+                                    [--only k1,k2b,...]
 
 --root is the repository root whose nbldpc_tpu_torch is timed (default:
 the one holding this file), e.g. a `git archive` of another commit: the
@@ -11,11 +14,13 @@ script calls only wrappers that every tree since the T-EMS port has, and
 the case k0_gf32 builds its code by that tree's
 code.random_regular_spec (a tree without it stops there).
 --steps adds the sim steps of the bench rows qspa_gf16_n204_k102_c8,
-qspa_gf16_n204_k102, ems_gf16_n204_k102 and tems_gf64_n576_k480.
+qspa_gf16_n204_k102, ems_gf16_n204_k102 and tems_gf64_n576_k480, the K1
+path of qspa_gf256_n255_k175 and ems_bubble_gf256_n255_k175 (K2b).
 --builds builds the --root tree's csrc/qspa_resident.cu,
-csrc/ems_resident.cu or csrc/cn_tems.cu once per named edit of BUILDS (the
-design choices and the parts of K0, K3 and K5) and times each build beside
-the library's kernel.
+csrc/ems_resident.cu, csrc/cn_tems.cu, csrc/cn_qspa.cu or csrc/cn_ems.cu
+once per named edit of BUILDS (the design choices and the parts of K0,
+K3, K5, K1 and K2b) and times each build beside the library's kernel. --only keeps the kernel cases
+whose names start with one of the given prefixes.
 
 Prints the card's name and power limit, then one JSON line per case:
 device ms (CUDA events, mean over `reps` calls after one warm-up) and a
@@ -73,6 +78,21 @@ K5_CASES = [("k5_gf16_exact", "gf16_n204_k102", 8192, 0, 0),
             ("k5_gf64_nr8", "gf64_n576_k480", 1024, 8, 0),
             ("k5_gf64_nr8_ties", "gf64_n576_k480", 1024, 8, 4),
             ("k5_gf256_nr8", "gf256_n255_k175", 512, 8, 0)]
+# (case, code, frames): K1 at [102,4,16,8192], at phase highq_qspa's GF(64)
+# shape [96,12,64,2048] and at config 5's bench step [80,7,256,4096]
+K1_CASES = [("k1_gf16", "gf16_n204_k102", 8192),
+            ("k1_gf64", "gf64_n576_k480", 2048),
+            ("k1_gf256_cfg5", "gf256_n255_k175", 4096)]
+# (case, code, frames, nm, tie levels, merge): K2b at phase cn_ems's
+# shapes and config 5's EMS step, once on tie-heavy inputs; K2 (classic)
+# beside it at the same shapes
+EMS_CASES = [(f"{k}_{label}", code, B, nm, levels, merge)
+             for k, merge in (("k2b", "bubble"), ("k2", "classic"))
+             for label, code, B, nm, levels in (
+                 ("gf64_nm8", "gf64_n576_k480", 1024, 8, 0),
+                 ("gf256_512", "gf256_n255_k175", 512, 16, 0),
+                 ("gf256_512_ties", "gf256_n255_k175", 512, 16, 4),
+                 ("gf256_cfg5", "gf256_n255_k175", 4096, 16, 0))]
 
 
 def _k0_graph(code: str, device):
@@ -93,41 +113,73 @@ def _k0_case(case, device):
     return qr.ResidentQSPA(g, iters, et, stats), _llrs(g, frames, noise, device, ebn0)
 
 
-def run_kernels(device, reps: int):
-    from nbldpc_tpu_torch.kernels import cn_tems
+def run_kernels(device, reps: int, only=()):
+    """Every case, or those whose name starts with one of `only`."""
+    import torch
+
+    from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems
     from nbldpc_tpu_torch.kernels import ems_resident as er
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
+    def keep(cases):
+        return [c for c in cases if not only or c[0].startswith(tuple(only))]
+
     g = _graph("gf16_n204_k102", device)
-    for case, frames, noise, ebn0, iters, et, stats, nm in K3_CASES:
+    for case, frames, noise, ebn0, iters, et, stats, nm in keep(K3_CASES):
         llr = _llrs(g, frames, noise, device, ebn0)
         dec = er.ResidentEMS(g, iters, nm, 0.3, et, stats)
         out = er.resident_decode(dec, llr)
         yield {"case": case, "frames": llr.shape[0], "iters": iters, "nm": nm,
                "frame_iterations": int(out[2].sum()), "digest": _digest(*out),
                "ms": cuda_ms(lambda: er.resident_decode(dec, llr), reps)}
-    for case in K0_CASES:
+    for case in keep(K0_CASES):
         dec, llr = _k0_case(case, device)
         out = qr.resident_decode(dec, llr)
         yield {"case": case[0], "code": case[1], "frames": llr.shape[0], "iters": case[5],
                "frame_iterations": int(out[2].sum()), "digest": _digest(*out),
                "ms": cuda_ms(lambda: qr.resident_decode(dec, llr), reps)}
-    for case, code, B, n_r, levels in K5_CASES:
+    for case, code, B, n_r, levels in keep(K5_CASES):
         U = _u_for(_graph(code, device), B, device, levels)
         out = cn_tems.cn_update(U, 2.0, n_r)
         yield {"case": case, "shape": list(U.shape), "n_r": n_r, "tie_levels": levels,
                "digest": _digest(out),
                "ms": cuda_ms(lambda: cn_tems.cn_update(U, 2.0, n_r), 10 * reps)}
+    for case, code, B in keep(K1_CASES):
+        g = _graph(code, device)
+        U = _u_for(g, B, device)
+        out = cn_qspa.cn_update(U)
+        ref = cn_qspa.cn_update_plain(U)
+        real = g.cn_mask[:, :, None, None].expand_as(ref)
+        # the tree's own plain version, above -15 (the card's threshold)
+        err = float((out - ref).abs()[real & (ref > -15)].max())
+        yield {"case": case, "shape": list(U.shape), "digest": _digest(out),
+               "max_abs_err_above_-15": err, "finite": bool(torch.isfinite(out[real]).all()),
+               "ms": cuda_ms(lambda: cn_qspa.cn_update(U), 4 * reps)}
+    for case, code, B, nm, levels, merge in keep(EMS_CASES):
+        U = _u_for(_graph(code, device), B, device, levels)
+        fn = cn_ems.cn_update_bubble if merge == "bubble" else cn_ems.cn_update
+        out = fn(U, nm, 0.0)
+        yield {"case": case, "shape": list(U.shape), "nm": nm, "tie_levels": levels,
+               "digest": _digest(out), "ms": cuda_ms(lambda: fn(U, nm, 0.0), 2 * reps)}
 
 
 def run_steps():
     from nbldpc_tpu_torch import bench
 
-    for name in ("qspa_gf16_n204_k102_c8", "qspa_gf16_n204_k102", "ems_gf16_n204_k102",
-                 "tems_gf64_n576_k480"):
-        row = bench.ROWS_BY_NAME[name]
-        rec = bench.measure(row, row.impls[0], reps=10)
-        yield {"case": f"step_{name}", "ms": rec["ms_per_step"],
+    rows = bench.ROWS_BY_NAME
+    # config 5's step through the bubble merge (bench row
+    # ems_bubble_gf256_n255_k175), made from the classic row so that a tree
+    # without that row runs it too
+    bubble = rows["ems_gf256_n255_k175"]._replace(
+        name="ems_bubble_gf256_n255_k175",
+        config=(("nm", 16), ("offset", 0.0), ("ems_merge", "bubble")))
+    steps = [*((rows[name], rows[name].impls[0], 10) for name in (
+        "qspa_gf16_n204_k102_c8", "qspa_gf16_n204_k102", "ems_gf16_n204_k102",
+        "tems_gf64_n576_k480")),
+        (rows["qspa_gf256_n255_k175"], "kernel", 3), (bubble, "kernel", 3)]
+    for row, impl, reps in steps:
+        rec = bench.measure(row, impl, reps=reps)
+        yield {"case": f"step_{row.name}", "cn_impl": impl, "ms": rec["ms_per_step"],
                "frame_errors_last_step": rec["frame_errors_last_step"]}
 
 
@@ -172,6 +224,26 @@ BUILDS = {
                                       "for (int i = tid; i < 0; i += nt)")]),
     "k3_no_merge": ("ems_resident.cu", [("o[a] = b == 0 ? c : fmaxf(o[a], c);",
                                          "o[a] = b == 0 ? c : o[a];")]),
+    # K1: CUDA's logf instead of log_normal; blocks of 4 warps at q >= 32;
+    # a warp a frame at q = 32 and 64, half a warp at q = 128 and 256
+    "k1_logf": ("cn_qspa.cu", [("lm[s] = log_normal(fabsf(x[s]) + kMagTiny);",
+                                "lm[s] = logf(fabsf(x[s]) + kMagTiny);"),
+                               ("v[s] = log_normal(fmaxf(", "v[s] = logf(fmaxf(")]),
+    "k1_warps4": ("cn_qspa.cu", [("int threads = L == 1 ? 128 : 256;",
+                                  "int threads = L == 1 ? 128 : 128;")]),
+    "k1_l32": ("cn_qspa.cu", [("Q < 32 ? 1 : (Q <= 64 ? 16 : 32);",
+                               "Q < 32 ? 1 : (Q <= 64 ? 32 : 32);")]),
+    "k1_l16": ("cn_qspa.cu", [("Q < 32 ? 1 : (Q <= 64 ? 16 : 32);",
+                               "Q < 32 ? 1 : (Q <= 64 ? 16 : 16);")]),
+    # K2b: 4 register slots a lane whenever they hold the candidates (also
+    # where 2 do); blocks of 4 warps; at most 85 registers a thread (3
+    # blocks an SM)
+    "k2b_slots4": ("cn_ems.cu", [("P <= 2 * L ? 2 : (P <= kSlots * L ? kSlots : 0)",
+                                  "P <= kSlots * L ? kSlots : 0")]),
+    "k2b_warps4": ("cn_ems.cu", [("  int warps = 8;\n  if (!bubble) {",
+                                  "  int warps = bubble ? 4 : 8;\n  if (!bubble) {")]),
+    "k2b_lb3": ("cn_ems.cu", [("__launch_bounds__(256, 4)\ncn_ems_bubble_kernel",
+                               "__launch_bounds__(256, 3)\ncn_ems_bubble_kernel")]),
     "k5_warps16": ("cn_tems.cu", [("smem_bytes<Q>(dc, warps) > kMaxSmem / 3",
                                    "smem_bytes<Q>(dc, warps) > kMaxSmem")]),
     "k5_shuffles": ("cn_tems.cu", [(f"if constexpr (W == 32) {{\n    return __reduce_{op}_sync",
@@ -182,10 +254,10 @@ BUILDS = {
 
 
 def builds_trial(device, names, reps: int):
-    """The --root tree's K0, K3 or K5 built with each edit of BUILDS: K0
-    builds timed at every K0 case, K3 builds at its bench step, K5 builds
-    at every K5 case; `same` tells whether the outputs equal the library
-    kernel's."""
+    """The --root tree's K0, K3, K5, K1 or K2b built with each edit of
+    BUILDS: K0 builds timed at every K0 case, K3 builds at its bench step,
+    K5, K1 and K2b builds at every K5, K1 or K2b case; `same` tells whether
+    the outputs equal the library kernel's."""
     import torch
 
     from nbldpc_tpu_torch.kernels import _build, cn_tems
@@ -205,8 +277,8 @@ def builds_trial(device, names, reps: int):
         cu = out_dir / f"{name}.cu"
         cu.write_text(src)
         procs[name] = subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")),
-             str(cu)], stderr=subprocess.PIPE, text=True)
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+             str(cu.with_suffix(".so")), str(cu)], stderr=subprocess.PIPE, text=True)
     for name, p in procs.items():
         if p.wait() != 0:
             raise RuntimeError(f"nvcc failed for build {name}:\n{p.stderr.read()}")
@@ -257,6 +329,31 @@ def builds_trial(device, names, reps: int):
             dec.perm_down.data_ptr(), dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(), iters,
             int(et), int(stats), stream), name), reps)
         yield {"case": "k3_bench", "build": name, "ms": ms, "same": _digest(*outs) == ref}
+    k1 = [n for n in names if n.startswith("k1")]
+    for case, code, B in K1_CASES if k1 else ():
+        U = _u_for(_graph(code, device), B, device)
+        from nbldpc_tpu_torch.kernels import cn_qspa
+
+        ref = _digest(cn_qspa.cn_update(U))
+        out = torch.empty_like(U)
+        for name in k1:
+            fn = entry(name, "cn_qspa_update")
+            ms = cuda_ms(lambda: checked(fn(U.data_ptr(), out.data_ptr(), *U.shape, stream),
+                                         name), 4 * reps)
+            yield {"case": case, "build": name, "ms": ms, "same": _digest(out) == ref}
+    k2b = [n for n in names if n.startswith("k2b")]
+    bubble = [c for c in EMS_CASES if c[-1] == "bubble"]
+    for case, code, B, nm, levels, _ in bubble if k2b else ():
+        U = _u_for(_graph(code, device), B, device, levels)
+        from nbldpc_tpu_torch.kernels import cn_ems
+
+        ref = _digest(cn_ems.cn_update_bubble(U, nm, 0.0))
+        out = torch.empty_like(U)
+        for name in k2b:
+            fn = entry(name, "cn_ems_update_bubble")
+            ms = cuda_ms(lambda: checked(fn(U.data_ptr(), out.data_ptr(), *U.shape, nm, 0.0,
+                                            stream), name), 2 * reps)
+            yield {"case": case, "build": name, "ms": ms, "same": _digest(out) == ref}
     k5 = [n for n in names if n.startswith("k5")]
     for case, code, B, n_r, levels in K5_CASES if k5 else ():
         U = _u_for(_graph(code, device), B, device, levels)
@@ -274,6 +371,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", action="store_true")
     ap.add_argument("--builds", default="")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only", default="", help="comma-separated case-name prefixes")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -285,7 +383,7 @@ def main(argv=None) -> int:
 
     device = torch.device("cuda", 0)
     print(bench.card_info(), flush=True)
-    runs = [run_kernels(device, args.reps)]
+    runs = [run_kernels(device, args.reps, [o for o in args.only.split(",") if o])]
     if args.steps:
         runs.append(run_steps())
     if args.builds:

@@ -46,113 +46,38 @@
 // and partials B_1..B_{dc-3} (the nm (value, index) pairs for q > 64, else
 // the q-entry list). Frames past B compute on zeros and store nothing.
 //
-// Bubble design (cn_ems_bubble_kernel): threads across symbols. A group of
-// q threads owns one (check, frame) pair, thread a owning symbol a; a block
-// of max(128, q) threads holds max(128, q) / q frames of one check; lists
-// live in the group's shared memory; reductions are warp shuffles and a
-// shared-memory exchange across the group's warps for q > 32. Groups past
-// the last frame compute on frame B-1 and store nothing.
+// Bubble design (cn_ems_bubble_kernel), the classic kernel's layout: one
+// warp per (check, frame) for q >= 32 (lane l holding symbols l, l + 32,
+// ...), 32 / q frames a warp for q < 32; blocks of up to 8 warps take
+// consecutive frames of one check and stage their slabs through shared
+// memory. A frame's sorted nm-lists (operands, then the B partials; F
+// overwrites operand 0) sit in its shared memory, written by one lane a
+// round and read by all. Extraction rounds are the classic kernel's. A
+// merge's P = npairs + min(2 nm, q) candidates sit in registers, 2 or
+// kSlots = 4 a lane (the fewest that hold them: P <= 64 at q >= 32 is nm
+// <= 8, P <= 128 is nm <= 16), lane l holding the consecutive positions l
+// n .. l n + n - 1; more candidates go to the frame's shared memory. A
+// round is one warp max of keys, a ballot of the lanes reaching it (the
+// lowest such lane holds the lowest such position), a shuffle of the
+// pick's index from that lane, and a register compare that retires every
+// candidate of that index, so no merge has a block barrier. Dense outputs
+// go through a per-frame row of q keys in shared memory, each pair (or
+// list entry) taken by an atomicMax of its order-preserving key. At most
+// 64 registers a thread leave four 8-warp blocks an SM. Frames past B
+// compute on zeros and store nothing.
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "slab.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDenseMergeMaxQ = 64;
-constexpr int kRed = 16;                  // block reduction scratch (8 v + 8 i)
 constexpr size_t kMaxSmem = 232448;       // per-block dynamic shared memory, sm_90
-
-template <int Q>
-struct Shape {
-  static constexpr int kThreads = Q < 128 ? 128 : Q;
-  static constexpr int kGroups = kThreads / Q;
-  static constexpr int kWidth = Q < 32 ? Q : 32;   // shuffle width
-};
-
-struct Red {
-  float* v;
-  int* i;
-};
-
-__device__ __forceinline__ bool better(float ov, int oi, float v, int i) {
-  return ov > v || (ov == v && oi < i);
-}
-
-template <int Q>
-__device__ __forceinline__ void group_sync() {
-  if constexpr (Q <= 32) {
-    __syncwarp();
-  } else {
-    __syncthreads();
-  }
-}
-
-// (max value, lowest index reaching it) over the q threads of the group,
-// returned to every thread of the group.
-template <int Q>
-__device__ __forceinline__ void group_argmax(float& v, int& i, Red red) {
-  constexpr int W = Shape<Q>::kWidth;
-#pragma unroll
-  for (int h = 1; h < W; h <<= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, h, W);
-    const int oi = __shfl_xor_sync(kFull, i, h, W);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-  if constexpr (Q > 32) {
-    const int warp = threadIdx.x >> 5;
-    __syncthreads();
-    if ((threadIdx.x & 31) == 0) {
-      red.v[warp] = v;
-      red.i[warp] = i;
-    }
-    __syncthreads();
-    const int w0 = (threadIdx.x / Q) * (Q / 32);
-    v = red.v[w0];
-    i = red.i[w0];
-#pragma unroll
-    for (int w = 1; w < Q / 32; ++w) {
-      if (better(red.v[w0 + w], red.i[w0 + w], v, i)) {
-        v = red.v[w0 + w];
-        i = red.i[w0 + w];
-      }
-    }
-  }
-}
-
-template <int Q>
-__device__ __forceinline__ float group_max(float v, Red red) {
-  constexpr int W = Shape<Q>::kWidth;
-#pragma unroll
-  for (int h = 1; h < W; h <<= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, h, W));
-  if constexpr (Q > 32) {
-    const int warp = threadIdx.x >> 5;
-    __syncthreads();
-    if ((threadIdx.x & 31) == 0) red.v[warp] = v;
-    __syncthreads();
-    const int w0 = (threadIdx.x / Q) * (Q / 32);
-    v = red.v[w0];
-#pragma unroll
-    for (int w = 1; w < Q / 32; ++w) v = fmaxf(v, red.v[w0 + w]);
-  }
-  return v;
-}
-
-// Offset correction and clip of one output slot, stored when valid.
-template <int Q>
-__device__ __forceinline__ void emit(float o, float offset, float* dst, bool valid,
-                                     Red red) {
-  const float mx = group_max<Q>(o, red);
-  float r = (o - mx) + offset;
-  r = fmaxf(fminf(r, 0.f), kNeg);
-  if (valid) *dst = r;
-}
 
 // ---- classic -----------------------------------------------------------------
 
@@ -300,48 +225,6 @@ __device__ __forceinline__ void merge(const float* acc, const float* op, int sym
   }
 }
 
-// The block's [Q, fb] slab of frames b0.. b0 + fb - 1 of one (check, slot)
-// row block [Q, B], fb = 2^lg_fb frames, moved along b: with 32 fb / G
-// threads each thread moves exactly S entries, e = thread + s * threads.
-// slab_fetch reads it into registers (zeros past B), slab_put writes them
-// to the slab (row stride fb + 1) between two barriers, slab_store writes
-// the slab out between two barriers.
-template <int Q>
-__device__ __forceinline__ void slab_fetch(float (&v)[Lanes<Q>::S], const float* src, int B,
-                                           int b0, int lg_fb) {
-#pragma unroll
-  for (int s = 0; s < Lanes<Q>::S; ++s) {
-    const int e = threadIdx.x + s * blockDim.x;
-    const int a = e >> lg_fb, b = b0 + (e & ((1 << lg_fb) - 1));
-    v[s] = b < B ? src[(size_t)a * B + b] : 0.f;
-  }
-}
-
-template <int Q>
-__device__ __forceinline__ void slab_put(float* slab, const float (&v)[Lanes<Q>::S],
-                                         int lg_fb) {
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < Lanes<Q>::S; ++s) {
-    const int e = threadIdx.x + s * blockDim.x;
-    slab[(e >> lg_fb) * ((1 << lg_fb) + 1) + (e & ((1 << lg_fb) - 1))] = v[s];
-  }
-  __syncthreads();
-}
-
-template <int Q>
-__device__ __forceinline__ void slab_store(const float* slab, float* dst, int B, int b0,
-                                           int lg_fb) {
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < Lanes<Q>::S; ++s) {
-    const int e = threadIdx.x + s * blockDim.x;
-    const int a = e >> lg_fb, f = e & ((1 << lg_fb) - 1);
-    if (b0 + f < B) dst[(size_t)a * B + b0 + f] = slab[a * ((1 << lg_fb) + 1) + f];
-  }
-  __syncthreads();
-}
-
 // Floats of shared memory the classic kernel needs for frames of fb per block.
 template <int Q>
 size_t classic_floats(int fb, int dc, int nm) {
@@ -384,17 +267,17 @@ cn_ems_classic_kernel(const float* __restrict__ U, float* __restrict__ out,
       const float r = (o[s] - mx) + offset;
       slab[(sym + 32 * s) * ld + w] = fmaxf(fminf(r, 0.f), kNeg);
     }
-    slab_store<Q>(slab, Om + j * js, B, b0, lg_fb);
+    slab_store<S>(slab, Om + j * js, B, b0, lg_fb);
   };
 
   float d[S], o[S], next[S];
-  slab_fetch<Q>(next, Um, B, b0, lg_fb);
+  slab_fetch<S>(next, Um, B, b0, lg_fb);
   for (int j = 0; j < dc; ++j) {
-    slab_put<Q>(slab, next, lg_fb);
+    slab_put<S>(slab, next, lg_fb);
     float x[S];
 #pragma unroll
     for (int s = 0; s < S; ++s) x[s] = slab[(sym + 32 * s) * ld + w];
-    if (j + 1 < dc) slab_fetch<Q>(next, Um + (j + 1) * js, B, b0, lg_fb);   // in flight
+    if (j + 1 < dc) slab_fetch<S>(next, Um + (j + 1) * js, B, b0, lg_fb);   // in flight
     const float mx = lanes_fmax<Q>(x);
 #pragma unroll
     for (int s = 0; s < S; ++s) x[s] = x[s] - mx;
@@ -432,7 +315,12 @@ cn_ems_classic_kernel(const float* __restrict__ U, float* __restrict__ out,
 
 // ---- bubble ------------------------------------------------------------------
 
-// A sorted nm-list: values V[nm] (descending), GF indices I[nm], comp C.
+// Most candidate slots a lane keeps in registers; a merge with more
+// candidates than kSlots per lane keeps them in the frame's shared memory.
+constexpr int kSlots = 4;
+
+// A sorted nm-list of one frame in its shared memory: values V[nm]
+// (non-increasing), GF indices I[nm], comp C (= V[nm - 1]).
 struct List {
   float* V;
   int* I;
@@ -449,144 +337,272 @@ __host__ __device__ __forceinline__ int stair_row(int t, int nm) {
   return c < nm ? c : nm;
 }
 
-template <int Q>
-__device__ __forceinline__ void top_list(float x, int a, int nm, List l, Red red) {
-  float run = x, last = 0.f;
-  for (int t = 0; t < nm; ++t) {
-    float v = run;
-    int i = a;
-    group_argmax<Q>(v, i, red);
-    if (i == a) run = kNeg;
-    if (a == 0) {
-      l.V[t] = v;
-      l.I[t] = i;
-    }
-    last = v;
-  }
-  if (a == 0) *l.C = last;
+// Floats of a frame's shared memory: the 2 dc - 2 lists (operands 0..dc-1,
+// operand 0 then carrying F, and partials B_0..B_{dc-3}), the dense row
+// of q keys and, without register slots, the candidate slots (keys and
+// indices, cp each).
+__host__ __device__ __forceinline__ int bubble_frame_floats(int q, int dc, int nm,
+                                                            int cp) {
+  return (2 * dc - 2) * (2 * nm + 1) + q + 2 * cp;
 }
 
-// dst = top-nm of the staircase candidates and the fills (dst may be acc).
-template <int Q>
-__device__ void merge_bubble(int a, int nm, int npairs, int P, const int* pT,
-                             const int* pS, List acc, List op, List dst,
-                             float* cv, int* ci, Red red) {
-  group_sync<Q>();          // lists written, the last merge's candidates read
-  const float f = op.V[0] + *acc.C;
-  for (int p = a; p < P; p += Q) {
-    float v;
-    int i;
-    if (p < npairs) {
-      const int t = pT[p], s = pS[p];
-      v = acc.V[t] + op.V[s];
-      i = acc.I[t] ^ op.I[s];
-      v = v > f ? v : kNeg;
-    } else {
-      v = f;
-      i = p - npairs;
-    }
-    cv[p] = v;
-    ci[p] = i;
+// The candidate slots of one lane: slot k is staircase position p =
+// gl n + k (pairs first, in lex (t, s) order, then the fills), so a lane's
+// positions are consecutive and the lowest position reaching a maximum
+// lies in the lowest lane reaching it. KP > 0: n = KP slots in registers;
+// KP = 0: n slots in the frame's shared memory (sk, si at gl + L k, no
+// bank conflicts). `ts` caches the lane's pairs (t | s << 16) for register
+// slots.
+template <int Q, int KP>
+struct Slots {
+  static constexpr int L = Q < 32 ? Q : 32;
+  static constexpr int R = KP > 0 ? KP : 1;
+  unsigned key[R];
+  int idx[R];
+  int ts[R];
+  unsigned* sk;
+  int* si;
+  int n;
+  int gl;
+  const int* tab;
+
+  __device__ __forceinline__ int count() const { return KP > 0 ? KP : n; }
+  __device__ __forceinline__ int pos(int k) const { return gl * count() + k; }
+  __device__ __forceinline__ int pair(int k) const {
+    if constexpr (KP > 0) return ts[k];
+    else return tab[pos(k)];
   }
-  group_sync<Q>();          // candidates visible; acc and op no longer read
-  float last = 0.f;
-  for (int t = 0; t < nm; ++t) {
-    float v = -INFINITY;
-    int pos = INT_MAX;
-    for (int p = a; p < P; p += Q) {
-      if (cv[p] > v) {
-        v = cv[p];
-        pos = p;
+  __device__ __forceinline__ unsigned& K(int k) {
+    if constexpr (KP > 0) return key[k];
+    else return sk[gl + L * k];
+  }
+  __device__ __forceinline__ int& I(int k) {
+    if constexpr (KP > 0) return idx[k];
+    else return si[gl + L * k];
+  }
+};
+
+// The stable top-nm list of x (this lane's S symbols sym + 32 s): nm rounds
+// of (max, lowest symbol reaching it, set it to NEG); only the lane that
+// owns a round's pick rescans.
+template <int Q>
+__device__ __forceinline__ void top_list(const float (&x)[Lanes<Q>::S], int sym, int nm,
+                                         List l) {
+  constexpr int S = Lanes<Q>::S, L = Q < 32 ? Q : 32;
+  unsigned key[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) key[s] = okey(x[s]);
+  const unsigned neg = okey(kNeg);
+  unsigned best;
+  int bs;
+  auto rescan = [&] {
+    best = key[0];
+    bs = 0;
+#pragma unroll
+    for (int s = 1; s < S; ++s) {
+      if (key[s] > best) {
+        best = key[s];
+        bs = s;
       }
     }
-    group_argmax<Q>(v, pos, red);
-    const int pick = ci[pos];
-    for (int p = a; p < P; p += Q)
-      if (ci[p] == pick) cv[p] = kNeg;
-    last = fmaxf(v, f);
-    if (a == 0) {
+  };
+  rescan();
+  unsigned mx = 0;
+  for (int t = 0; t < nm; ++t) {
+    mx = lanes_max<Q>(best);
+    const unsigned cand = best == mx ? sym + 32 * bs : 0xffffffffu;
+    const unsigned idx = lanes_min<Q>(cand);
+    if (cand == idx) {
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        if (s == bs) key[s] = neg;
+      rescan();
+    }
+    if (sym == (t & (L - 1))) {
+      l.V[t] = ofloat(mx);
+      l.I[t] = (int)idx;
+    }
+  }
+  if (sym == 0) *l.C = ofloat(mx);
+}
+
+// dst = top-nm of the staircase pairs above the floor f = op.V[0] + acc.C
+// and min(2 nm, q) fills of value f at indices 0, 1, ...; a pick retires
+// every candidate of its index, ties go to the lowest position, and
+// retired candidates (NEG) can be picked again. dst may be acc.
+template <int Q, int KP>
+__device__ __forceinline__ void merge_bubble(Slots<Q, KP>& c, int nm, int npairs, int P,
+                                             List acc, List op, List dst) {
+  constexpr int L = Slots<Q, KP>::L;
+  const int gl = c.gl;
+  const int lane0 = (threadIdx.x & 31) - gl;  // the group's first lane
+  __syncwarp();                              // the lists are written
+  const float f = op.V[0] + *acc.C;
+  const unsigned kf = okey(f), neg = okey(kNeg);
+#pragma unroll
+  for (int k = 0; k < c.count(); ++k) {
+    const int p = c.pos(k);
+    unsigned key = 0;                        // no candidate: below every key
+    int idx = -1;
+    if (p < npairs) {
+      const int ts = c.pair(k), t = ts & 0xffff, s = ts >> 16;
+      const float v = acc.V[t] + op.V[s];
+      key = v > f ? okey(v) : neg;
+      idx = acc.I[t] ^ op.I[s];
+    } else if (p < P) {
+      key = kf;
+      idx = p - npairs;
+    }
+    c.K(k) = key;
+    c.I(k) = idx;
+  }
+  __syncwarp();                              // acc and op read before dst is written
+  unsigned best;
+  int bi;
+  auto rescan = [&] {
+    best = 0;
+    bi = -1;
+#pragma unroll
+    for (int k = 0; k < c.count(); ++k) {
+      if (c.K(k) > best) {
+        best = c.K(k);
+        bi = c.I(k);
+      }
+    }
+  };
+  rescan();
+  float last = 0.f;
+  for (int t = 0; t < nm; ++t) {
+    const unsigned mx = lanes_max<Q>(best);
+    // the lowest lane of the frame's group reaching mx owns the pick, at
+    // the lowest of its slots reaching it (the one rescan kept)
+    const unsigned reach = __ballot_sync(kFull, best == mx) >> (lane0 & 31);
+    const int owner = __ffs(L == 32 ? reach : reach & ((1u << (L & 31)) - 1)) - 1;
+    const int pick = __shfl_sync(kFull, bi, owner, L);
+#pragma unroll
+    for (int k = 0; k < c.count(); ++k)
+      if (c.I(k) == pick) c.K(k) = neg;
+    rescan();
+    last = fmaxf(ofloat(mx), f);
+    if (gl == (t & (L - 1))) {
       dst.V[t] = last;
       dst.I[t] = pick;
     }
   }
-  if (a == 0) *dst.C = last;
-  group_sync<Q>();
+  if (gl == 0) *dst.C = last;
 }
 
-__device__ __forceinline__ float merge_bubble_dense(int a, int npairs, const int* pT,
-                                                    const int* pS, List acc, List op) {
-  float o = op.V[0] + *acc.C;
-  for (int p = 0; p < npairs; ++p) {
-    const int t = pT[p], s = pS[p];
-    const float v = acc.V[t] + op.V[s];
-    o = fmaxf(o, (acc.I[t] ^ op.I[s]) == a ? v : kNeg);
+// o = the dense form of a final output into the frame's row of q keys:
+// with `pairs`, the merge of acc and op (the floor f = op.V[0] + acc.C,
+// raised to NEG as the plain version's masked max does, then every
+// staircase pair's value at its index); else the scatter of list acc
+// (comp everywhere, each entry at its index). max is exact in any order,
+// so the row takes them by atomicMax of order-preserving keys.
+template <int Q, int KP>
+__device__ __forceinline__ void dense_out(Slots<Q, KP>& c, int sym, int nm, int npairs,
+                                          bool pairs, List acc, List op, unsigned* row,
+                                          float (&o)[Lanes<Q>::S]) {
+  constexpr int S = Lanes<Q>::S, L = Slots<Q, KP>::L;
+  __syncwarp();                              // lists written, the last row read
+  const float base = pairs ? fmaxf(op.V[0] + *acc.C, kNeg) : *acc.C;
+#pragma unroll
+  for (int s = 0; s < S; ++s) row[sym + 32 * s] = okey(base);
+  __syncwarp();
+  if (pairs) {
+#pragma unroll
+    for (int k = 0; k < c.count(); ++k) {
+      if (c.pos(k) < npairs) {
+        const int ts = c.pair(k), t = ts & 0xffff, s = ts >> 16;
+        atomicMax(row + (acc.I[t] ^ op.I[s]), okey(acc.V[t] + op.V[s]));
+      }
+    }
+  } else {
+    for (int t = c.gl; t < nm; t += L) atomicMax(row + acc.I[t], okey(acc.V[t]));
   }
-  return o;
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < S; ++s) o[s] = ofloat(row[sym + 32 * s]);
 }
 
-__device__ __forceinline__ float scatter(int a, int nm, List l) {
-  float o = *l.C;
-  for (int t = nm - 1; t >= 0; --t)
-    if (l.I[t] == a) o = l.V[t];
-  return o;
-}
-
-template <int Q>
-__global__ void __launch_bounds__(Shape<Q>::kThreads)
-cn_ems_bubble_kernel(const float* __restrict__ U, float* __restrict__ out,
-                     int dc, int B, int nm, float offset, int npairs) {
+template <int Q, int KP>
+__global__ void __launch_bounds__(256, 4)
+cn_ems_bubble_kernel(const float* __restrict__ U, float* __restrict__ out, int dc, int B,
+                     int nm, float offset, int npairs, int lg_fb) {
   extern __shared__ float smem[];
-  constexpr int G = Shape<Q>::kGroups;
-  const int g = threadIdx.x / Q;
-  const int a = threadIdx.x % Q;
-  const int m = blockIdx.y;
-  const int b_raw = blockIdx.x * G + g;
-  const bool valid = b_raw < B;
-  const int b = valid ? b_raw : B - 1;
-  const int nf = 2 * nm < Q ? 2 * nm : Q;
-  const int P = npairs + nf;
-  const Red red{smem, reinterpret_cast<int*>(smem + kRed / 2)};
-  int* pT = reinterpret_cast<int*>(smem + kRed);
-  int* pS = pT + npairs;
-  // per group: lists 0..dc-1 (U_j; list 0 then carries F), dc..2dc-1
-  // (B_j), then the candidate values and indices
-  float* area = smem + kRed + 2 * npairs +
-                (size_t)g * (2 * dc * (2 * nm + 1) + 2 * P);
-  float* cv = area + 2 * dc * (2 * nm + 1);
-  int* ci = reinterpret_cast<int*>(cv + P);
+  constexpr int S = Lanes<Q>::S, G = Lanes<Q>::G, L = Slots<Q, KP>::L;
+  const int lane = threadIdx.x & 31;
+  const int sym = lane % Q;                                 // lane l holds sym + 32 s
+  const int w = (threadIdx.x >> 5) * G + lane / Q;          // its frame in the block
+  const int fb = 1 << lg_fb, ld = fb + 1;
+  const int b0 = blockIdx.x * fb;
+  const int P = npairs + (2 * nm < Q ? 2 * nm : Q);
+  const int cp = KP > 0 ? 0 : (P + L - 1) / L * L;
+  float* slab = smem;
+  int* tab = reinterpret_cast<int*>(smem + (size_t)Q * ld);  // pairs, t | s << 16
+  float* area = smem + (size_t)Q * ld + npairs +
+                (size_t)w * bubble_frame_floats(Q, dc, nm, cp);
+  unsigned* row = reinterpret_cast<unsigned*>(area + (2 * dc - 2) * (2 * nm + 1));
   auto bj = [&](int j) { return list_at(area, j == dc - 2 ? dc - 1 : dc + j, nm); };
+  const size_t js = (size_t)Q * B;
+  const float* Um = U + (size_t)blockIdx.y * dc * js;
+  float* Om = out + (size_t)blockIdx.y * dc * js;
 
-  // staircase pairs in lex (t, s) order
   for (int t = threadIdx.x; t < nm; t += blockDim.x) {
     int p = 0;
     for (int u = 0; u < t; ++u) p += stair_row(u, nm);
-    for (int s = 0; s < stair_row(t, nm); ++s, ++p) {
-      pT[p] = t;
-      pS[p] = s;
-    }
+    for (int s = 0; s < stair_row(t, nm); ++s) tab[p++] = t | s << 16;
   }
   __syncthreads();
-
-  const size_t js = (size_t)Q * B;
-  const size_t off = (size_t)m * dc * js + (size_t)a * B + b;
-  for (int j = 0; j < dc; ++j) {
-    float x = U[off + j * js];
-    x = x - group_max<Q>(x, red);
-    top_list<Q>(x, a, nm, list_at(area, j, nm), red);
+  Slots<Q, KP> c;
+  c.gl = sym;
+  c.tab = tab;
+  c.n = cp / L;
+  c.sk = reinterpret_cast<unsigned*>(row + Q);
+  c.si = reinterpret_cast<int*>(c.sk + cp);
+  if constexpr (KP > 0) {
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      const int p = c.pos(k);
+      c.ts[k] = p < npairs ? tab[p] : 0;
+    }
   }
+
+  // postprocess o and store it as output slot j
+  auto emit_out = [&](int j, const float (&o)[S]) {
+    const float mx = lanes_fmax<Q>(o);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float r = (o[s] - mx) + offset;
+      slab[(sym + 32 * s) * ld + w] = fmaxf(fminf(r, 0.f), kNeg);
+    }
+    slab_store<S>(slab, Om + j * js, B, b0, lg_fb);
+  };
+
+  float next[S], o[S];
+  slab_fetch<S>(next, Um, B, b0, lg_fb);
+  for (int j = 0; j < dc; ++j) {
+    slab_put<S>(slab, next, lg_fb);
+    float x[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) x[s] = slab[(sym + 32 * s) * ld + w];
+    if (j + 1 < dc) slab_fetch<S>(next, Um + (j + 1) * js, B, b0, lg_fb);   // in flight
+    const float mx = lanes_fmax<Q>(x);
+#pragma unroll
+    for (int s = 0; s < S; ++s) x[s] = x[s] - mx;
+    top_list<Q>(x, sym, nm, list_at(area, j, nm));
+  }
+  // B_j = merge of U_{j+1..dc-1}; B_{dc-2} is U_{dc-1}
   for (int j = dc - 3; j >= 0; --j)
-    merge_bubble<Q>(a, nm, npairs, P, pT, pS, bj(j + 1), list_at(area, j + 1, nm),
-                    list_at(area, dc + j, nm), cv, ci, red);
-  group_sync<Q>();
-  emit<Q>(scatter(a, nm, bj(0)), offset, out + off, valid, red);
+    merge_bubble<Q, KP>(c, nm, npairs, P, bj(j + 1), list_at(area, j + 1, nm),
+                        list_at(area, dc + j, nm));
+  dense_out<Q, KP>(c, sym, nm, npairs, false, bj(0), bj(0), row, o);
+  emit_out(0, o);
+  // F_j = merge of U_{0..j-1}, kept in list 0 (F_1 is U_0 itself)
   const List f = list_at(area, 0, nm);
   for (int j = 1; j < dc; ++j) {
-    if (j >= 2)
-      merge_bubble<Q>(a, nm, npairs, P, pT, pS, f, list_at(area, j - 1, nm), f, cv,
-                      ci, red);
-    const float o = (j < dc - 1) ? merge_bubble_dense(a, npairs, pT, pS, f, bj(j))
-                                 : scatter(a, nm, f);
-    emit<Q>(o, offset, out + off + j * js, valid, red);
+    if (j >= 2) merge_bubble<Q, KP>(c, nm, npairs, P, f, list_at(area, j - 1, nm), f);
+    dense_out<Q, KP>(c, sym, nm, npairs, j < dc - 1, f, bj(j), row, o);
+    emit_out(j, o);
   }
 }
 
@@ -604,35 +620,40 @@ cudaError_t prepare(Kernel kernel, size_t bytes) {
 template <int Q>
 cudaError_t launch(bool bubble, const float* U, float* out, int M, int dc, int B,
                    int nm, float offset, cudaStream_t stream) {
-  constexpr int G = Shape<Q>::kGroups;
-  const dim3 grid((B + G - 1) / G, M);
   if (M > 65535 || dc < 2 || nm < 1 || nm > Q) return cudaErrorInvalidValue;
-  cudaError_t err;
+  constexpr int G = Lanes<Q>::G;
+  // 8 warps a block unless shared memory forces fewer
+  auto blocks = [&](int warps, size_t bytes, auto kernel, auto... args) {
+    cudaError_t err = prepare(kernel, bytes);
+    if (err != cudaSuccess) return err;
+    const int fb = warps * G;
+    kernel<<<dim3((B + fb - 1) / fb, M), 32 * warps, bytes, stream>>>(
+        U, out, dc, B, nm, offset, args..., __builtin_ctz(fb));
+    return cudaGetLastError();
+  };
+  int warps = 8;
   if (!bubble) {
-    // 8 warps a block unless shared memory forces fewer
-    int warps = 8;
-    while (warps > 1 &&
-           classic_floats<Q>(warps * Lanes<Q>::G, dc, nm) * sizeof(float) > kMaxSmem)
+    while (warps > 1 && classic_floats<Q>(warps * G, dc, nm) * sizeof(float) > kMaxSmem)
       warps /= 2;
-    const int fb = warps * Lanes<Q>::G;
-    const size_t bytes = classic_floats<Q>(fb, dc, nm) * sizeof(float);
-    err = prepare(cn_ems_classic_kernel<Q>, bytes);
-    if (err != cudaSuccess) return err;
-    cn_ems_classic_kernel<Q><<<dim3((B + fb - 1) / fb, M), 32 * warps, bytes, stream>>>(
-        U, out, dc, B, nm, offset, __builtin_ctz(fb));
-  } else {
-    int npairs = 0;
-    for (int t = 0; t < nm; ++t) npairs += stair_row(t, nm);
-    const int P = npairs + (2 * nm < Q ? 2 * nm : Q);
-    const size_t bytes =
-        (kRed + 2 * (size_t)npairs + (size_t)G * (2 * dc * (2 * nm + 1) + 2 * P)) *
-        sizeof(float);
-    err = prepare(cn_ems_bubble_kernel<Q>, bytes);
-    if (err != cudaSuccess) return err;
-    cn_ems_bubble_kernel<Q><<<grid, Shape<Q>::kThreads, bytes, stream>>>(
-        U, out, dc, B, nm, offset, npairs);
+    return blocks(warps, classic_floats<Q>(warps * G, dc, nm) * sizeof(float),
+                  cn_ems_classic_kernel<Q>);
   }
-  return cudaGetLastError();
+  constexpr int L = Q < 32 ? Q : 32;
+  int npairs = 0;
+  for (int t = 0; t < nm; ++t) npairs += stair_row(t, nm);
+  const int P = npairs + (2 * nm < Q ? 2 * nm : Q);
+  // the fewest register slots that hold the merge's candidates, if any do
+  const int slots = P <= 2 * L ? 2 : (P <= kSlots * L ? kSlots : 0);
+  const int cp = slots ? 0 : (P + L - 1) / L * L;
+  auto floats = [&](int w) {
+    return (size_t)Q * (w * G + 1) + npairs +
+           (size_t)w * G * bubble_frame_floats(Q, dc, nm, cp);
+  };
+  while (warps > 1 && floats(warps) * sizeof(float) > kMaxSmem) warps /= 2;
+  const size_t bytes = floats(warps) * sizeof(float);
+  if (slots == 2) return blocks(warps, bytes, cn_ems_bubble_kernel<Q, 2>, npairs);
+  if (slots) return blocks(warps, bytes, cn_ems_bubble_kernel<Q, kSlots>, npairs);
+  return blocks(warps, bytes, cn_ems_bubble_kernel<Q, 0>, npairs);
 }
 
 int dispatch(bool bubble, const float* U, float* out, int M, int dc, int q, int B,

@@ -4,9 +4,10 @@ Each source is compiled by its own nvcc process for sm_90a, all started
 together, and the objects are linked into one shared library with a plain
 C interface, loaded with ctypes. The library lands in
 build/nbldpc_tpu_torch/ under the repository root, named by a hash of the
-sources and flags: the first CUDA use builds it, and a changed source
-builds a new one. Every C entry point returns cudaGetLastError() (or the
-first CUDA error it met), and `check` raises on a nonzero code.
+sources, the headers they share (csrc/*.cuh) and the flags: the first CUDA
+use builds it, and a changed source builds a new one. Every C entry point
+returns cudaGetLastError() (or the first CUDA error it met), and `check`
+raises on a nonzero code.
 """
 
 from __future__ import annotations
@@ -98,7 +99,7 @@ def _sources() -> list:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libnbldpc_kernels_{h.hexdigest()[:16]}.so"

@@ -20,15 +20,30 @@ MAG_TINY = 1e-30
 
 
 def _sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sum over `dim` left to right (keepdim): the kernel's association.
-
-    The inverse WHT cancels to values near 1e-12, so a sum taken in another
-    order moves the log-tail outputs by up to ~1e-2; in one order the
-    kernel and this version round alike."""
+    """Sum over `dim` left to right (keepdim)."""
     s = x.narrow(dim, 0, 1)
     for i in range(1, x.shape[dim]):
         s = s + x.narrow(dim, i, 1)
     return s
+
+
+def _softmax_sum(e: torch.Tensor) -> torch.Tensor:
+    """Sum of e [M, dc, q, B] over q in K1's association (keepdim): with L =
+    32 for q >= 32 (1 below), the symbols l, l + L, ... of each l left to
+    right, then a pairwise tree over l (l and l ^ h at h = 1, 2, ..., L /
+    2); for q < 32 that is left to right. The kernel takes it whatever
+    lanes hold a frame.
+
+    The inverse WHT cancels to values near 1e-12, so a sum taken in another
+    order moves the log-tail outputs by up to ~1e-2; in one order the
+    kernel and this version round alike."""
+    M, dc, q, B = e.shape
+    L = 1 if q < 32 else 32
+    p = _sum_in_order(e.reshape(M, dc, q // L, L, B), 2).squeeze(2)     # [M, dc, L, B]
+    while p.shape[2] > 1:
+        p = p.reshape(M, dc, p.shape[2] // 2, 2, B)
+        p = p[:, :, :, 0] + p[:, :, :, 1]
+    return p
 
 
 def cn_update_plain(U: torch.Tensor) -> torch.Tensor:
@@ -36,7 +51,7 @@ def cn_update_plain(U: torch.Tensor) -> torch.Tensor:
     cn_update_plain.calls += 1
     q = U.shape[2]
     e = torch.exp(U - U.amax(dim=2, keepdim=True))
-    P = e / _sum_in_order(e, 2)
+    P = e / _softmax_sum(e)
     F = wht_axis(P, axis=2)                              # spectra, |F| <= 1
     sign = torch.where(F < 0, -1.0, 1.0).to(F.dtype)
     logmag = torch.log(F.abs() + MAG_TINY)

@@ -59,6 +59,43 @@ def test_cn_kernel_matches_plain(cuda_device, code):
     assert float((out - ref).abs()[real & (ref > -15)].max()) <= 1e-4
 
 
+def _hold_cn_qspa(U, real=None):
+    """K1 against its plain version on U: one launch, finite outputs, error
+    <= 1e-4 where the plain output is above -15 (the deep log tail, where
+    the inverse WHT cancels towards the 1e-12 floor, moves with an ulp of
+    exp or log)."""
+    before = cn_qspa.cn_update.launches
+    out = cn_qspa.cn_update(U)
+    assert cn_qspa.cn_update.launches == before + 1
+    ref = cn_qspa.cn_update_plain(U)
+    real = torch.ones_like(ref, dtype=torch.bool) if real is None else real
+    assert bool(torch.isfinite(out[real]).all())
+    assert float((out - ref).abs()[real & (ref > -15)].max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4096, 37])
+def test_cn_kernel_gf256_matches_plain(cuda_device, B):
+    """K1 at GF(256): config 5's step (4096 frames) and a batch that is no
+    multiple of a block's frames."""
+    g = _graph("gf256_n255_k175", cuda_device)
+    U = _random_u(g, B, cuda_device)
+    _hold_cn_qspa(U, g.cn_mask[:, :, None, None].expand_as(U))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,dc", [(2, 3), (4, 17), (16, 5), (32, 17), (64, 3), (256, 9),
+                                  (256, 33), (16, 110), (256, 210)])
+def test_cn_kernel_shapes_match_plain(cuda_device, q, dc):
+    """K1 at short and long checks on random inputs without pad slots: a
+    block shrinks as its slots' log-magnitudes grow (dc = 33 at q = 256),
+    and past shared memory the spectra are parked in the output (dc = 110
+    at q = 16, a thread a frame; dc = 210 at q = 256, a warp a frame)."""
+    rng = np.random.default_rng(q + dc)
+    U = torch.from_numpy((rng.standard_normal((2, dc, q, 37)) * 3.0).astype(np.float32))
+    _hold_cn_qspa(U.to(cuda_device))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", [(1, False, True), (20, True, True), (20, False, False)])
 @pytest.mark.parametrize("code", ["gf4_n96_k48", "gf16_n204_k102_c8"])
@@ -294,7 +331,10 @@ def _random_u(g, B, device, seed=1, levels=0):
     ("gf64_n576_k480", 8, 37, 0), ("gf256_n255_k175", 16, 37, 0),
     ("gf256_n255_k175", 16, 4096, 0),                 # config 5's step
     ("gf4_n96_k48", 2, 37, 3), ("gf16_n204_k102", 8, 37, 4), ("gf64_n576_k480", 8, 37, 4),
-    ("gf256_n255_k175", 16, 37, 4)])                  # ties in every round
+    ("gf256_n255_k175", 16, 37, 4),                   # ties in every round
+    # nm = q, and nm > 32: K2b's candidates in shared memory
+    ("gf4_n96_k48", 4, 37, 0), ("gf4_n96_k48", 4, 37, 3), ("gf64_n576_k480", 48, 37, 0),
+    ("gf64_n576_k480", 48, 37, 4), ("gf256_n255_k175", 32, 37, 4)])
 def test_cn_ems_kernels_match_plain(cuda_device, code, nm, B, levels, merge):
     g = _graph(code, cuda_device)
     U = _random_u(g, B, cuda_device, levels=levels)   # 37: not a multiple of any tile
@@ -307,6 +347,21 @@ def test_cn_ems_kernels_match_plain(cuda_device, code, nm, B, levels, merge):
     assert bool(torch.isfinite(out).all())
     # only adds and max, in the plain version's association: exact
     assert float((out - ref).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merge", ["classic", "bubble"])
+@pytest.mark.parametrize("q,dc,nm", [(2, 2, 2), (16, 3, 16), (64, 2, 8), (256, 3, 16),
+                                     (256, 9, 8), (32, 3, 32)])
+def test_cn_ems_kernels_short_and_long_checks(cuda_device, q, dc, nm, merge):
+    """Checks of degree 2 and 3 (no merge, one merge a chain) and 9, on
+    tie-heavy inputs without pad slots: exact."""
+    rng = np.random.default_rng(q + dc)
+    U = torch.from_numpy((rng.integers(0, 4, (5, dc, q, 37)) * 1.5).astype(np.float32))
+    U = U.to(cuda_device)
+    kern, plain = ((cn_ems.cn_update, cn_ems.cn_update_plain) if merge == "classic"
+                   else (cn_ems.cn_update_bubble, cn_ems.cn_update_bubble_plain))
+    assert float((kern(U, nm, 0.2) - plain(U, nm, 0.2)).abs().max()) == 0.0
 
 
 @pytest.mark.cuda

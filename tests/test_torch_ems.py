@@ -74,6 +74,24 @@ def test_cn_bubble_matches_jax(highq_codes, q, nm):
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("q,nm,dc", [(16, 8, 4), (16, 16, 4), (64, 8, 4), (256, 16, 4),
+                                     (16, 8, 3), (64, 8, 3), (256, 16, 3)])
+def test_cn_bubble_ties_match_jax(q, nm, dc):
+    """Inputs from four levels, so every extraction round and every merge
+    meets ties (lowest symbol, lowest staircase position), and retired
+    candidates are picked again; q = 16 is the shape K2b packs two frames
+    a warp for, dc = 3 the shortest merge chain."""
+    jg = jgraph.TannerGraph(make_peg_code(6 * dc // 2, 6, q, dv=2, seed=5))
+    assert jg.dc_max == dc
+    U = (np.random.default_rng(q + dc).integers(0, 4, (jg.m, dc, q, 6)) * 1.5
+         ).astype(np.float32)
+    want = np.asarray(jems.ems_cn_update_bl(jnp.asarray(U), jg, nm=nm, offset=0.1,
+                                            merge="bubble"))
+    got = pems.ems_cn_update_bl(torch.from_numpy(U), None, nm=nm, offset=0.1,
+                                merge="bubble").numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
 def test_bubble_pairs_and_candidates():
     pairs = pems.bubble_pairs(16)
     assert pairs == jems.bubble_pairs(16)

@@ -53,7 +53,7 @@ def random_u(jg, B: int, seed: int) -> np.ndarray:
     return Vv, np.array(jax.jit(jg.gather_cn_x_bl)(jnp.asarray(Vv)))
 
 
-@pytest.mark.parametrize("q,n,m", [(4, 12, 6), (16, 16, 8), (64, 12, 6)])
+@pytest.mark.parametrize("q,n,m", [(4, 12, 6), (16, 16, 8), (64, 12, 6), (256, 12, 6)])
 def test_cn_plain_matches_jax(q, n, m):
     spec = make_peg_code(n, m, q, dv=2, seed=3)
     jg = jgraph.TannerGraph(spec)
