@@ -124,6 +124,27 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps calls enqueued behind a
+    sleeping kernel, after one warm-up: the host enqueues every call while
+    the card sleeps, so the time is the card's alone. cuda_ms also counts
+    the host's time per call where the host enqueues slower than the card
+    runs (a probe call of tens of microseconds)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e5 * reps))       # ~0.1 ms a call, more than its host time
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 # Peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet): f32
 # operations outside the tensor cores, TF32 in them, and HBM bytes.
 PEAK_F32_OPS = 67e12
@@ -1054,7 +1075,9 @@ def _hold_micro(name: str, case: str, kernel, plain, inputs: dict, hold_iters: i
                 time_iters: int, library=None, exact_inf=False) -> dict:
     """One probe kernel against its plain version on the same inputs at
     hold_iters iterations; then both timed at time_iters, plain, kernel,
-    kernel, plain, with the library call (if any) beside. kernel(iters) and
+    kernel, plain, with the library call (if any) beside, all by cuda_ms;
+    the kernel also queued behind a sleep (queued_ms: a probe call is tens
+    of microseconds, as short as the wrapper's host time). kernel(iters) and
     plain(iters) run the probe. Every probe kernel repeats its plain
     version's operations in the same order (P4's IEEE divisions and P5's
     expf included, measured on the H100), so max abs error must be 0.0;
@@ -1073,8 +1096,8 @@ def _hold_micro(name: str, case: str, kernel, plain, inputs: dict, hold_iters: i
     k2 = cuda_ms(lambda: kernel(time_iters), 20)
     p2 = cuda_ms(lambda: plain(time_iters), 3)
     row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, ms_runs=[k1, k2],
-               plain_ms_runs=[p1, p2], library_ms=None,
-               **micro_bounds(name, inputs, time_iters))
+               plain_ms_runs=[p1, p2], queued_ms=queued_ms(lambda: kernel(time_iters), 20),
+               library_ms=None, **micro_bounds(name, inputs, time_iters))
     if library is not None:
         out = kernel(time_iters)
         row["library_err"] = _equal_err(out, library())

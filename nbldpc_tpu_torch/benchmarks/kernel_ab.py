@@ -1,8 +1,8 @@
 """Time the resident EMS decode (K3), the T-EMS check node (K5), the
-resident QSPA decode (K0), the QSPA check node (K1) and the EMS check
-nodes (K2b bubble, K2 classic beside it) of one tree at the shapes their
-paths run, with a digest of every output, so that two trees compare on
-one card.
+resident QSPA decode (K0), the QSPA check node (K1), the EMS check nodes
+(K2b bubble, K2 classic beside it) and the probes P4 and P6/P7 of one tree
+at the shapes their paths (the probes: their entry points) run, with a
+digest of every output, so that two trees compare on one card.
 
     python nbldpc_tpu_torch/benchmarks/kernel_ab.py [--root DIR] [--steps]
                                     [--builds k0_frames1,k3_frames1,...]
@@ -19,12 +19,17 @@ path of qspa_gf256_n255_k175 and ems_bubble_gf256_n255_k175 (K2b).
 --builds builds the --root tree's csrc/qspa_resident.cu,
 csrc/ems_resident.cu, csrc/cn_tems.cu, csrc/cn_qspa.cu or csrc/cn_ems.cu
 once per named edit of BUILDS (the design choices and the parts of K0,
-K3, K5, K1 and K2b) and times each build beside the library's kernel. --only keeps the kernel cases
-whose names start with one of the given prefixes.
+K3, K5, K1 and K2b) and times each build beside the library's kernel.
+--only keeps the kernel cases whose names start with one of the given
+prefixes (p4 and route for the probes; route also times the route at 0
+and 200 iterations).
 
 Prints the card's name and power limit, then one JSON line per case:
-device ms (CUDA events, mean over `reps` calls after one warm-up) and a
-digest of the outputs (equal digests: equal outputs, -0 counted as +0).
+device ms (CUDA events, mean over `reps` calls after one warm-up; for the
+probes, whose calls take tens of microseconds, also `queued_ms`: the calls
+enqueued behind a sleeping kernel, so that the host's time per call is
+not counted) and a digest of the outputs (equal digests: equal outputs,
+-0 counted as +0).
 Needs a CUDA card.
 """
 
@@ -42,7 +47,7 @@ HERE = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(HERE))
 # chip_smoke's helpers import the package only when called, so they use
 # the tree that --root puts first on the path
-from chip_smoke import K0_GF32, _graph, _llrs, _u_for, cuda_ms  # noqa: E402
+from chip_smoke import K0_GF32, _graph, _llrs, _u_for, cuda_ms, queued_ms  # noqa: E402
 
 
 def _digest(*tensors) -> str:
@@ -93,6 +98,32 @@ EMS_CASES = [(f"{k}_{label}", code, B, nm, levels, merge)
                  ("gf256_512", "gf256_n255_k175", 512, 16, 0),
                  ("gf256_512_ties", "gf256_n255_k175", 512, 16, 4),
                  ("gf256_cfg5", "gf256_n255_k175", 4096, 16, 0))]
+
+# (case, iterations): the probes at their entry points' shapes and depths,
+# P4 at micro_kernels' x [408,16,128], P6 and P7 at micro_layout's post
+# [16,204,128] ("new") and [16,64,204] ("old"); the route also at 0 and 200
+# iterations (its fixed cost and its slope)
+PROBE_CASES = [("p4", 20), ("route_new", 50), ("route_old", 50)]
+PROBE_DEPTHS = [(f"route_{layout}_{iters}", iters) for layout in ("new", "old")
+                for iters in (0, 200)]
+
+
+def _probe(case: str, iters: int, device):
+    """The wrapper call of one PROBE_CASES or PROBE_DEPTHS entry."""
+    import torch
+
+    from nbldpc_tpu_torch.benchmarks import micro_kernels as mk
+    from nbldpc_tpu_torch.benchmarks import micro_layout as ml
+    from nbldpc_tpu_torch.kernels import micro
+
+    if case == "p4":
+        x = mk.make_inputs(0)[0].to(device)
+        return lambda: micro.cn_iteration(x, iters)
+    layout = case.split("_")[1]
+    inp = ml.make_inputs(0)
+    post = inp[f"post_{layout}"].to(device)
+    vn, nbr = inp["vn"].to(device), inp["nbr"].to(device)
+    return lambda: micro.route(post, vn, nbr, iters, layout)
 
 
 def _k0_graph(code: str, device):
@@ -161,6 +192,12 @@ def run_kernels(device, reps: int, only=()):
         out = fn(U, nm, 0.0)
         yield {"case": case, "shape": list(U.shape), "nm": nm, "tie_levels": levels,
                "digest": _digest(out), "ms": cuda_ms(lambda: fn(U, nm, 0.0), 2 * reps)}
+    for case, iters in keep(PROBE_CASES + PROBE_DEPTHS):
+        fn = _probe(case, iters, device)
+        out = fn()
+        yield {"case": case, "shape": list(out.shape), "iters": iters,
+               "digest": _digest(out), "ms": cuda_ms(fn, 20 * reps),
+               "queued_ms": queued_ms(fn, 20 * reps)}
 
 
 def run_steps():
@@ -364,6 +401,7 @@ def builds_trial(device, names, reps: int):
             ms = cuda_ms(lambda: checked(fn(U.data_ptr(), out.data_ptr(), *U.shape, n_r, 2.0,
                                         stream), name), 10 * reps)
             yield {"case": case, "build": name, "ms": ms, "same": _digest(out) == ref}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])

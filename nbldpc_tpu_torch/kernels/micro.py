@@ -43,8 +43,10 @@ ROT_BITS = 4
 PROB_FLOOR = 1e-12
 # the field sizes the register-resident kernels (P4, P5) are built for
 KERNEL_QS = (2, 4, 8, 16, 32)
-# a block keeps one frame in shared memory (at most 227 KB on the H100)
+# a block's shared memory on the H100 (227 KB)
 MAX_SHARED_BYTES = 232448
+# frames a lane of the route kernel holds (csrc/micro_layout.cu, kRouteVec)
+ROUTE_VEC = 2
 
 
 # --- table makers -----------------------------------------------------------
@@ -85,6 +87,19 @@ def elist_to_index(e_list) -> torch.Tensor:
     if el.ndim != 3 or not (np.isin(el, (0, 1)).all() and (el.sum(axis=1) == 1).all()):
         raise ValueError("e_list must be [DC, N, M] with exactly one 1 per (j, m)")
     return torch.from_numpy(el.argmax(axis=1).reshape(-1).astype(np.int32))
+
+
+def route_shared_bytes(N: int, E: int, D: int, warps: int = 1) -> int:
+    """Shared bytes of a route block of `warps` warps, as
+    csrc/micro_layout.cu's route_smem counts them: two buffers of P + 1
+    positions (P = N rounded up to 32, the last the zero cell) of ROUTE_VEC
+    floats a warp, the table (max(D, 1) rows a slot of 32 nodes, whatever
+    nbr holds, and four more read ahead), and the build's scratch (order,
+    positions, degrees, 32 bins, nbr, vn, the slots' first rows)."""
+    S = (N + 31) // 32
+    rows = S * max(D, 1)
+    floats = warps * 2 * (32 * S + 1) * ROUTE_VEC
+    return 4 * (floats + 32 * (rows + 4) + 3 * N + 32 + N * D + E + S + 1)
 
 
 def route_tables(vn, N: int) -> torch.Tensor:
@@ -132,7 +147,7 @@ def _kernel_q(name: str, q: int) -> None:
 
 def _check_shared(name: str, nbytes: int) -> None:
     if nbytes > MAX_SHARED_BYTES:
-        raise ValueError(f"{name}: one frame needs {nbytes} bytes of shared memory, "
+        raise ValueError(f"{name}: a block needs {nbytes} bytes of shared memory, "
                          f"more than {MAX_SHARED_BYTES}")
 
 
@@ -417,7 +432,7 @@ def route(post: torch.Tensor, vn: torch.Tensor, nbr: torch.Tensor, iters: int,
     if post.device.type == "cpu":
         return route_plain(post, vn, nbr, iters, layout)
     E, D = vn.numel(), nbr.shape[1]
-    _check_shared(name, 4 * (Q * N + Q * E + E + N * D))
+    _check_shared(name, route_shared_bytes(N, E, D))
     sq = post.stride(0)
     sn, sb = (post.stride(1), post.stride(2)) if layout == "new" else (post.stride(2),
                                                                        post.stride(1))

@@ -554,6 +554,132 @@ def test_micro_layout_match_plain(cuda_device, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("BT", [1, 5, 33, 128])
+@pytest.mark.parametrize("E", [4, 408])
+@pytest.mark.parametrize("Q", micro.KERNEL_QS)
+def test_micro_cn_iteration_edges_match_plain(cuda_device, Q, E, BT):
+    """P4's four lanes a (check, frame) at every field it is built for, one
+    check or 102, and frame counts that leave a block ragged."""
+    x, _ = micro_kernels.make_inputs(Q + E + BT, E=E, Q=Q, BT=BT)
+    x = x.to(cuda_device)
+    before = micro.cn_iteration.launches
+    out = micro.cn_iteration(x, 5)
+    assert micro.cn_iteration.launches == before + 1
+    ref = micro.cn_iteration_plain(x, 5)
+    assert torch.equal(out, ref) and torch.equal(out.signbit(), ref.signbit())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", micro.KERNEL_QS)
+def test_micro_cn_iteration_wide_exponents_match_plain(cuda_device, Q):
+    """P4's divisions over operands from 2^-70 to 2^70: inside [2^-60, 2^60]
+    its shared-reciprocal sequence, outside it '/', both the IEEE quotient."""
+    rng = np.random.default_rng(Q)
+    x = rng.random((408, Q, 37)) * np.exp2(rng.integers(-70, 71, size=(408, Q, 37)))
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+    for iters in (1, 3):
+        out, ref = micro.cn_iteration(x, iters), micro.cn_iteration_plain(x, iters)
+        assert torch.equal(out, ref) and torch.equal(out.signbit(), ref.signbit())
+
+
+def _route_edge_inputs(N: int, E: int, TB: int, layout: str, seed: int = 4):
+    """vn with node 0 of degree 0 and node 2 of the largest degree D (9 or
+    more), N not a multiple of 32; post >= 0 with a -0.0 every 7th entry (no
+    NaN can arise past +-inf)."""
+    rng = np.random.default_rng(seed)
+    vn = rng.integers(1, N, size=E)
+    vn[:9] = 2
+    vn = vn.astype(np.int32)
+    nbr = micro.route_tables(vn, N)
+    shape = (3, N, TB) if layout == "new" else (3, TB, N)
+    post = torch.from_numpy(np.abs(rng.standard_normal(shape)).astype(np.float32))
+    post.view(-1)[::7] = -0.0
+    return post, torch.from_numpy(vn), nbr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("TB", [1, 31, 33])
+@pytest.mark.parametrize("layout", ["new", "old"])
+def test_micro_route_edges_match_plain(cuda_device, layout, TB):
+    """P6/P7 with partial warps and blocks, nodes of degree 0 and D, signed
+    zeros (one iteration shows whether a pad's +0 went missing) and 200
+    iterations past +-inf: equal to the plain version, zeros' signs too."""
+    post, vn, nbr = _route_edge_inputs(45, 100, TB, layout)
+    assert int((nbr >= 0).sum(1).min()) == 0 and int((nbr >= 0).sum(1).max()) == nbr.shape[1]
+    post, vn, nbr = post.to(cuda_device), vn.to(cuda_device), nbr.to(cuda_device)
+    for iters in (1, 200):
+        before = micro.route.launches
+        out = micro.route(post, vn, nbr, iters, layout)
+        assert micro.route.launches == before + 1
+        ref = micro.route_plain(post, vn, nbr, iters, layout)
+        assert torch.equal(out, ref) and torch.equal(out.signbit(), ref.signbit())
+        assert not bool(torch.isnan(out).any())
+    assert bool(torch.isinf(ref).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["new", "old"])
+def test_micro_route_large_table_matches_plain(cuda_device, layout):
+    """A larger graph than the probe's: 300 nodes in 10 slots, 1500 edges,
+    a table of 65 rows."""
+    post, vn, nbr = _route_edge_inputs(300, 1500, 3, layout, seed=7)
+    post, vn, nbr = post.to(cuda_device), vn.to(cuda_device), nbr.to(cuda_device)
+    for iters in (1, 30):
+        out = micro.route(post, vn, nbr, iters, layout)
+        ref = micro.route_plain(post, vn, nbr, iters, layout)
+        assert torch.equal(out, ref) and torch.equal(out.signbit(), ref.signbit())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["new", "old"])
+def test_micro_route_any_nbr_matches_plain(cuda_device, layout):
+    """nbr need not be route_tables(vn): edges repeated within and across
+    rows (six times E entries in all), pads between edges, a row of pads
+    alone and a row of none."""
+    rng = np.random.default_rng(11)
+    N, E, D, TB = 45, 30, 9, 33
+    vn = rng.integers(0, N, size=E).astype(np.int32)
+    nbr = rng.integers(0, E, size=(N, D)).astype(np.int32)
+    nbr[rng.random((N, D)) < 0.3] = -1
+    nbr[0], nbr[1] = -1, rng.integers(0, E, size=D)
+    assert int((nbr >= 0).sum()) > 6 * E
+    shape = (3, N, TB) if layout == "new" else (3, TB, N)
+    post = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    post.view(-1)[::5] = -0.0
+    post, vn, nbr = (torch.from_numpy(a).to(cuda_device) if isinstance(a, np.ndarray)
+                     else a.to(cuda_device) for a in (post, vn, nbr))
+    for iters in (1, 20):
+        out = micro.route(post, vn, nbr, iters, layout)
+        ref = micro.route_plain(post, vn, nbr, iters, layout)
+        assert torch.equal(out, ref) and torch.equal(out.signbit(), ref.signbit())
+
+
+@pytest.mark.cuda
+def test_micro_route_shared_memory_limit(cuda_device):
+    """A graph whose one-warp block just fits the shared memory runs and
+    equals the plain version (the wrapper's count agrees with the
+    kernel's); one just past it is refused before any launch."""
+    rng = np.random.default_rng(12)
+    for N, fits in ((3500, True), (4000, False)):
+        vn = rng.permutation(np.maximum(np.arange(N) - 3, 0)).astype(np.int32)
+        nbr = micro.route_tables(vn, N)
+        assert nbr.shape[1] == 4
+        assert (micro.route_shared_bytes(N, N, 4) <= micro.MAX_SHARED_BYTES) == fits
+        post = torch.from_numpy(rng.standard_normal((2, N, 3)).astype(np.float32))
+        post, vn, nbr = post.to(cuda_device), torch.from_numpy(vn).to(cuda_device), \
+            nbr.to(cuda_device)
+        before = micro.route.launches
+        if fits:
+            out = micro.route(post, vn, nbr, 3)
+            assert torch.equal(out, micro.route_plain(post, vn, nbr, 3))
+            assert micro.route.launches == before + 1
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                micro.route(post, vn, nbr, 3)
+            assert micro.route.launches == before
+
+
+@pytest.mark.cuda
 def test_micro_wrappers_reject_bad_input(cuda_device):
     x, perm = micro_kernels.make_inputs(0, E=8, Q=4, BT=4)
     x = x.to(cuda_device)

@@ -109,6 +109,25 @@ def test_decode_bl_matches_jax(small_codes, code, mode):
     assert res.hard.dtype == torch.int32 and res.iters.dtype == torch.int32
 
 
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("ebn0", [1.0, 2.0])
+@pytest.mark.parametrize("q", [64, 256])
+def test_decode_bl_high_q_matches_jax(q, ebn0, mode):
+    """QSPA decode_bl at q >= 32, where the plain check node sums the
+    softmax in K1's association (residues mod 32, then a tree) and not in
+    XLA's order: the decisions still agree with JAX frame for frame."""
+    spec = make_peg_code(12, 6, q, dv=2, seed=3)
+    _, llr = noisy_llrs(spec, 16, ebn0, seed=2)
+    kw = MODES[mode]
+    ref = jqspa.decode(jgraph.TannerGraph(spec), jnp.asarray(llr), max_iters=8,
+                       cn_impl="xla", **kw)
+    res = tqspa.decode(port_graph(spec), torch.from_numpy(llr), max_iters=8,
+                       cn_impl="torch", **kw)
+    np.testing.assert_array_equal(res.hard.numpy(), np.asarray(ref.hard))
+    np.testing.assert_array_equal(res.done.numpy(), np.asarray(ref.done))
+    np.testing.assert_array_equal(res.iters.numpy(), np.asarray(ref.iters))
+
+
 @pytest.mark.parametrize("code", ["gf4_tiny", "gf16_tiny"])
 def test_messages_one_iter_match_oracle(small_codes, code):
     """Check->variable messages after one iteration, c-domain, at 2e-3."""
