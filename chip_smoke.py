@@ -1023,6 +1023,9 @@ MICRO_KERNELS = [
 ]
 # micro_layout's default depth (phase 16 also holds the kernels at 4x it)
 MICRO_LAYOUT_ITERS = 50
+# the deeper depth at which phase 16 also holds P1 and P2 (10x the entry
+# point's 20)
+MICRO_GATHER_DEEP = 200
 
 
 def _equal_err(out, ref) -> float:
@@ -1071,10 +1074,10 @@ def micro_bounds(name: str, inputs: dict, iters: int) -> dict:
                  4 * (2 * post.numel() + E + nbr.numel()))
 
 
-def _hold_micro(name: str, case: str, kernel, plain, inputs: dict, hold_iters: int,
+def _hold_micro(name: str, case: str, kernel, plain, inputs: dict, hold_iters: tuple,
                 time_iters: int, library=None, exact_inf=False) -> dict:
     """One probe kernel against its plain version on the same inputs at
-    hold_iters iterations; then both timed at time_iters, plain, kernel,
+    each depth of hold_iters; then both timed at time_iters, plain, kernel,
     kernel, plain, with the library call (if any) beside, all by cuda_ms;
     the kernel also queued behind a sleep (queued_ms: a probe call is tens
     of microseconds, as short as the wrapper's host time). kernel(iters) and
@@ -1084,13 +1087,16 @@ def _hold_micro(name: str, case: str, kernel, plain, inputs: dict, hold_iters: i
     with exact_inf the outputs may hold +-inf."""
     import torch
 
-    out, ref = kernel(hold_iters), plain(hold_iters)
-    torch.cuda.synchronize()
-    err = _equal_err(out, ref)
-    finite = bool(torch.isfinite(out).all())
-    row = {"phase": "micro", "kernel": name, "case": case, "hold_iters": hold_iters,
-           "max_abs_err": err, "finite": finite,
-           "inf_entries": int(torch.isinf(ref).sum()), "iters": time_iters}
+    err, finite, inf_entries = 0.0, True, 0
+    for iters in hold_iters:
+        out, ref = kernel(iters), plain(iters)
+        torch.cuda.synchronize()
+        err = max(err, _equal_err(out, ref))
+        finite = finite and bool(torch.isfinite(out).all())
+        inf_entries = max(inf_entries, int(torch.isinf(ref).sum()))
+    row = {"phase": "micro", "kernel": name, "case": case, "hold_iters": list(hold_iters),
+           "max_abs_err": err, "finite": finite, "inf_entries": inf_entries,
+           "iters": time_iters}
     p1 = cuda_ms(lambda: plain(time_iters), 3)
     k1 = cuda_ms(lambda: kernel(time_iters), 20)
     k2 = cuda_ms(lambda: kernel(time_iters), 20)
@@ -1114,10 +1120,11 @@ def _hold_micro(name: str, case: str, kernel, plain, inputs: dict, hold_iters: i
 def phase_micro(device, card: str):
     """P1-P7. The entry points as a user runs them (counters zeroed just
     before, read just after), then each kernel against its plain version at
-    the JAX scripts' full shapes: P1-P4 at their 20 iterations, P5-P7 held
-    at micro_layout's deeper depth (200: the route passes +-inf there) and
-    timed at its default 50. Returns (launches, the timed row by kernel
-    with its worst error over the kernel's cases)."""
+    the JAX scripts' full shapes: P1-P4 at their 20 iterations (P1 and P2
+    held at 200 as well), P5-P7 held at micro_layout's deeper depth (200:
+    the route passes +-inf there) and timed at its default 50. Returns
+    (launches, the timed row by kernel with its worst error over the
+    kernel's cases)."""
     import torch
 
     from nbldpc_tpu_torch.benchmarks import micro_kernels as mk
@@ -1142,6 +1149,13 @@ def phase_micro(device, card: str):
     R, BT = x.shape[0] * x.shape[1], x.shape[2]
     for case in mk.NAMES:
         name = f"micro_{mk.WRAPPERS[case].__name__}"
+        if case in ("flat_constant_gather", "per_edge_row_moves"):
+            # the calls at each depth, tables on the card, made before any timing
+            at = {it: mk.case(case, x, perm, it) for it in (mk.ITERS, MICRO_GATHER_DEEP)}
+            rows[name] = _hold_micro(name, case, lambda it, at=at: at[it][0](),
+                                     lambda it, at=at: at[it][1](), {"x": x},
+                                     (mk.ITERS, MICRO_GATHER_DEEP), mk.ITERS)
+            continue
         kernel, plain = mk.case(case, x, perm)
         library = None
         if case == "matmul_onehot_routing":
@@ -1153,7 +1167,7 @@ def phase_micro(device, card: str):
                     y = torch.addmm(ones, A, y)
                 return y.reshape(x.shape)
         rows[name] = _hold_micro(name, case, lambda _it, f=kernel: f(),
-                                 lambda _it, f=plain: f(), {"x": x}, mk.ITERS, mk.ITERS,
+                                 lambda _it, f=plain: f(), {"x": x}, (mk.ITERS,), mk.ITERS,
                                  library)
         if library is not None:
             # the share of P3's ms that its input check (one wait) takes
@@ -1168,7 +1182,7 @@ def phase_micro(device, card: str):
             tensors = {"x": inp[f"x_{layout}"], "rb": inp[f"rb_{layout}"]}
         else:
             tensors = {"post": inp[f"post_{layout}"], "vn": inp["vn"], "nbr": inp["nbr"]}
-        row = _hold_micro(name, case, kernel, plain, tensors, 4 * MICRO_LAYOUT_ITERS,
+        row = _hold_micro(name, case, kernel, plain, tensors, (4 * MICRO_LAYOUT_ITERS,),
                           MICRO_LAYOUT_ITERS, exact_inf=case.startswith("route"))
         if case.endswith("new"):
             rows[name] = row

@@ -1,8 +1,8 @@
 """Time the resident EMS decode (K3), the T-EMS check node (K5), the
 resident QSPA decode (K0), the QSPA check node (K1), the EMS check nodes
-(K2b bubble, K2 classic beside it) and the probes P4 and P6/P7 of one tree
-at the shapes their paths (the probes: their entry points) run, with a
-digest of every output, so that two trees compare on one card.
+(K2b bubble, K2 classic beside it) and the probes P1, P2, P4 and P6/P7 of
+one tree at the shapes their paths (the probes: their entry points) run,
+with a digest of every output, so that two trees compare on one card.
 
     python nbldpc_tpu_torch/benchmarks/kernel_ab.py [--root DIR] [--steps]
                                     [--builds k0_frames1,k3_frames1,...]
@@ -21,8 +21,8 @@ csrc/ems_resident.cu, csrc/cn_tems.cu, csrc/cn_qspa.cu or csrc/cn_ems.cu
 once per named edit of BUILDS (the design choices and the parts of K0,
 K3, K5, K1 and K2b) and times each build beside the library's kernel.
 --only keeps the kernel cases whose names start with one of the given
-prefixes (p4 and route for the probes; route also times the route at 0
-and 200 iterations).
+prefixes (p1, p2, p4 and route for the probes; p1, p2 and route also time
+those probes at 0 and 200 iterations).
 
 Prints the card's name and power limit, then one JSON line per case:
 device ms (CUDA events, mean over `reps` calls after one warm-up; for the
@@ -100,11 +100,11 @@ EMS_CASES = [(f"{k}_{label}", code, B, nm, levels, merge)
                  ("gf256_cfg5", "gf256_n255_k175", 4096, 16, 0))]
 
 # (case, iterations): the probes at their entry points' shapes and depths,
-# P4 at micro_kernels' x [408,16,128], P6 and P7 at micro_layout's post
-# [16,204,128] ("new") and [16,64,204] ("old"); the route also at 0 and 200
-# iterations (its fixed cost and its slope)
-PROBE_CASES = [("p4", 20), ("route_new", 50), ("route_old", 50)]
-PROBE_DEPTHS = [(f"route_{layout}_{iters}", iters) for layout in ("new", "old")
+# P1, P2 and P4 at micro_kernels' x [408,16,128], P6 and P7 at
+# micro_layout's post [16,204,128] ("new") and [16,64,204] ("old"); P1, P2
+# and the route also at 0 and 200 iterations (their fixed cost and slope)
+PROBE_CASES = [("p1", 20), ("p2", 20), ("p4", 20), ("route_new", 50), ("route_old", 50)]
+PROBE_DEPTHS = [(f"{probe}_{iters}", iters) for probe in ("p1", "p2", "route_new", "route_old")
                 for iters in (0, 200)]
 
 
@@ -116,6 +116,10 @@ def _probe(case: str, iters: int, device):
     from nbldpc_tpu_torch.benchmarks import micro_layout as ml
     from nbldpc_tpu_torch.kernels import micro
 
+    if case.startswith(("p1", "p2")):
+        x, perm = mk.make_inputs(0)
+        name = "flat_constant_gather" if case.startswith("p1") else "per_edge_row_moves"
+        return mk.case(name, x.to(device), perm, iters)[0]
     if case == "p4":
         x = mk.make_inputs(0)[0].to(device)
         return lambda: micro.cn_iteration(x, iters)

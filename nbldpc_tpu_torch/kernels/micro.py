@@ -89,6 +89,39 @@ def elist_to_index(e_list) -> torch.Tensor:
     return torch.from_numpy(el.argmax(axis=1).reshape(-1).astype(np.int32))
 
 
+def gather_shared_bytes(R: int, E: int = 0) -> int:
+    """Shared bytes of a P1 (E 0) or P2 block on R = E Q rows, as
+    csrc/micro_gather.cu's gather_smem counts them: two buffers of R + 1
+    floats (the last, a pad slot's cell), the stage of the rows a block
+    stores (R + 8 floats, 8 the largest cluster) and, for P2, 2 E + 8 ints
+    (an edge's class and rank in it, the edge at each half of each pair,
+    four class counts)."""
+    return 4 * (3 * R + 10 + (2 * E + 8 if E else 0))
+
+
+def row_schedule(pi, Q: int) -> np.ndarray:
+    """P2's slots as csrc/micro_gather.cu orders them on the card, the
+    destination row of each (-1: a pad slot). At Q = 16 a warp holds two
+    edges, one a half-warp, paired by class 2 (e % 2) + pi[e] % 2: classes 0
+    with 3 and 1 with 2 (both parities differ: no bank conflict on either
+    side), then the rest in class order 0, 3, 1, 2 (the kernel orders the
+    edges of a class by shared atomics; here they ascend). Other Q: rows in
+    order."""
+    pi = np.asarray(pi).astype(np.int64)
+    E = pi.size
+    if Q != 16:
+        return np.arange(E * Q)
+    e = np.arange(E)
+    by = [e[2 * (e % 2) + pi % 2 == c] for c in range(4)]
+    m03, m12 = min(by[0].size, by[3].size), min(by[1].size, by[2].size)
+    halves = [*np.stack([by[0][:m03], by[3][:m03]], 1).reshape(-1),
+              *np.stack([by[1][:m12], by[2][:m12]], 1).reshape(-1),
+              *by[0][m03:], *by[3][m03:], *by[1][m12:], *by[2][m12:]]
+    edge = np.asarray(halves + [-1] * (len(halves) % 2), np.int64).repeat(16)
+    rows = edge * 16 + np.tile(np.arange(16), edge.size // 16)
+    return np.where(edge >= 0, rows, -1)
+
+
 def route_shared_bytes(N: int, E: int, D: int, warps: int = 1) -> int:
     """Shared bytes of a route block of `warps` warps, as
     csrc/micro_layout.cu's route_smem counts them: two buffers of P + 1
@@ -171,7 +204,8 @@ def flat_gather_plain(x: torch.Tensor, perm: torch.Tensor, iters: int) -> torch.
 
 
 def flat_gather(x: torch.Tensor, perm: torch.Tensor, iters: int) -> torch.Tensor:
-    """P1 on x [E, Q, BT] f32 and perm [E Q] int32 (a permutation)."""
+    """P1 on x [E, Q, BT] f32 and perm [E Q] int32 (any table of rows in
+    range; micro_kernels passes a permutation)."""
     name = "micro_flat_gather"
     _check(name, x, 3)
     _check(name, perm, 1, torch.int32)
@@ -182,7 +216,7 @@ def flat_gather(x: torch.Tensor, perm: torch.Tensor, iters: int) -> torch.Tensor
     iters = _check_iters(name, iters)
     if x.device.type == "cpu":
         return flat_gather_plain(x, perm, iters)
-    _check_shared(name, 12 * E * Q)
+    _check_shared(name, gather_shared_bytes(E * Q))
     out = torch.empty_like(x)
     if x.numel():
         _build.launch(flat_gather, name, x.device, x.data_ptr(), out.data_ptr(),
@@ -219,7 +253,7 @@ def row_moves(x: torch.Tensor, pi: torch.Tensor, perms: torch.Tensor,
     iters = _check_iters(name, iters)
     if x.device.type == "cpu":
         return row_moves_plain(x, pi, perms, iters)
-    _check_shared(name, 12 * E * Q + 4 * E)
+    _check_shared(name, gather_shared_bytes(E * Q, E))
     out = torch.empty_like(x)
     if x.numel():
         _build.launch(row_moves, name, x.device, x.data_ptr(), out.data_ptr(),

@@ -695,3 +695,145 @@ def test_micro_wrappers_reject_bad_input(cuda_device):
     before = micro.flat_gather.launches
     out = micro.flat_gather(x, perm.to(cuda_device), 0)
     assert micro.flat_gather.launches == before + 1 and torch.equal(out, x)
+
+
+# P1 and P2 (csrc/micro_gather.cu): a block a frame, clusters of frames
+# moving the rows in and out, slots scheduled by source bank; exact.
+
+
+def _gather_inputs(E, Q, BT, seed):
+    """x with -0.0 every 5th entry (a copy keeps its sign: 0 iterations),
+    P1's permutation and P2's tables made from it."""
+    x, perm = micro_kernels.make_inputs(seed, E=E, Q=Q, BT=BT)
+    x.view(-1)[::5] = -0.0
+    return x, perm, micro.row_tables(perm, Q)
+
+
+def _hold_gather(x, tables, iters_list=(0, 1, 200)):
+    """P1 (one table) or P2 (two) against its plain version at each depth:
+    one launch each, equal to the plain version, zeros' signs too."""
+    wrapper, plain = ((micro.flat_gather, micro.flat_gather_plain) if len(tables) == 1
+                      else (micro.row_moves, micro.row_moves_plain))
+    for iters in iters_list:
+        before = wrapper.launches
+        out = wrapper(x, *tables, iters)
+        assert wrapper.launches == before + 1
+        ref = plain(x, *tables, iters)
+        assert torch.equal(out, ref) and torch.equal(out.signbit(), ref.signbit())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["p1", "p2"])
+@pytest.mark.parametrize("BT", [1, 5, 33, 64, 128, 256])
+@pytest.mark.parametrize("E,Q", [(13, 3), (1, 3), (1, 16), (37, 16), (408, 16)])
+def test_micro_gather_edges_match_plain(cuda_device, E, Q, BT, probe):
+    """P1 and P2 at frame counts that leave a cluster ragged (odd ones: a
+    float a load), that fill clusters of 8 (64) or 2 (128, two frames a
+    float2), or more than run at once (256); R = E Q no multiple of 32
+    (pad slots), an odd edge count at Q = 16 (a pair with one half empty),
+    and 0, 1 and 200 iterations."""
+    x, perm, (pi, perms) = _gather_inputs(E, Q, BT, E + Q + BT)
+    tables = (perm,) if probe == "p1" else (pi, perms)
+    _hold_gather(x.to(cuda_device), [t.to(cuda_device) for t in tables])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,Q", [(13, 3), (408, 16)])
+def test_micro_gather_any_table_matches_plain(cuda_device, E, Q):
+    """Tables that are no permutation: P1 with repeated rows and with every
+    row reading row 0; P2 with pi repeating edges and perms rows that repeat
+    slots."""
+    rng = np.random.default_rng(E * Q)
+    x, _, _ = _gather_inputs(E, Q, 37, 3)
+    x = x.to(cuda_device)
+    R = E * Q
+    for perm in (rng.integers(0, R, R), np.zeros(R)):
+        _hold_gather(x, [torch.from_numpy(perm.astype(np.int32)).to(cuda_device)], (1, 20))
+    pi = rng.integers(0, 3, E).astype(np.int32)
+    perms = rng.integers(0, Q, (E, Q)).astype(np.int32)
+    assert len(set(pi)) < E and (perms[:, :1] == perms).sum() > E
+    _hold_gather(x, [torch.from_numpy(t).to(cuda_device) for t in (pi, perms)], (1, 20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["p1", "p2"])
+def test_micro_gather_shared_memory_limit(cuda_device, probe):
+    """The largest frame whose block fits the shared memory runs and equals
+    the plain version (the wrapper's count agrees with the kernel's); one
+    row (P1) or edge (P2) more is refused before any launch."""
+    Q = 1 if probe == "p1" else 16
+    size = (lambda E: micro.gather_shared_bytes(E)) if probe == "p1" else \
+        (lambda E: micro.gather_shared_bytes(E * 16, E))
+    E = 1
+    while size(E + 1) <= micro.MAX_SHARED_BYTES:
+        E += 1
+    wrapper = micro.flat_gather if probe == "p1" else micro.row_moves
+    for E, fits in ((E, True), (E + 1, False)):
+        x, perm, (pi, perms) = _gather_inputs(E, Q, 3, 5)
+        tables = [t.to(cuda_device) for t in ((perm,) if probe == "p1" else (pi, perms))]
+        x = x.to(cuda_device)
+        if fits:
+            _hold_gather(x, tables, (3,))
+        else:
+            before = wrapper.launches
+            with pytest.raises(ValueError, match="shared memory"):
+                wrapper(x, *tables, 3)
+            assert wrapper.launches == before
+
+
+# Writes outside an output: each kernel below writes into the middle of a
+# buffer whose ends hold a sentinel, which must survive.
+
+_SENTINEL = 1234.5
+_GUARD = 1 << 18
+
+
+def _guarded_out(shape, device):
+    n = math.prod(shape)
+    buf = torch.full((n + 2 * _GUARD,), _SENTINEL, device=device)
+    return buf, buf[_GUARD:_GUARD + n].view(shape)
+
+
+def _guards_intact(buf) -> bool:
+    torch.cuda.synchronize()
+    return bool((buf[:_GUARD] == _SENTINEL).all() and (buf[-_GUARD:] == _SENTINEL).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code,B", [("gf16_n204_k102_c8", 8192), ("gf64_n576_k480", 2048),
+                                    ("gf256_n255_k175", 1024), ("gf256_n255_k175", 4096),
+                                    ("gf256_n255_k175", 37)])
+def test_cn_kernel_writes_only_its_output(cuda_device, code, B):
+    """K1 at chip_smoke.py phase 3's shapes (and a ragged batch) writes its
+    output and nothing on either side of it."""
+    from nbldpc_tpu_torch.kernels import _build
+
+    U = _random_u(_graph(code, cuda_device), B, cuda_device)
+    buf, out = _guarded_out(U.shape, cuda_device)
+    _build.check(_build.library().cn_qspa_update(U.data_ptr(), out.data_ptr(), *U.shape,
+                                                 _build.stream_ptr(cuda_device)),
+                 "cn_qspa_update")
+    assert _guards_intact(buf)
+    assert torch.equal(out, cn_qspa.cn_update(U))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,Q,BT", [(408, 16, 128), (13, 3, 5), (37, 16, 33)])
+def test_micro_gather_writes_only_its_output(cuda_device, E, Q, BT):
+    """P1 and P2 write their output and nothing on either side of it."""
+    from nbldpc_tpu_torch.kernels import _build
+
+    x, perm, (pi, perms) = _gather_inputs(E, Q, BT, 9)
+    x, perm, pi, perms = (t.to(cuda_device) for t in (x, perm, pi, perms))
+    lib, stream = _build.library(), _build.stream_ptr(cuda_device)
+    for iters in (0, 20):
+        buf, out = _guarded_out(x.shape, cuda_device)
+        _build.check(lib.micro_flat_gather(x.data_ptr(), out.data_ptr(), perm.data_ptr(),
+                                           E * Q, BT, iters, stream), "micro_flat_gather")
+        assert _guards_intact(buf) and torch.equal(out, micro.flat_gather_plain(x, perm, iters))
+        buf, out = _guarded_out(x.shape, cuda_device)
+        _build.check(lib.micro_row_moves(x.data_ptr(), out.data_ptr(), pi.data_ptr(),
+                                         perms.data_ptr(), E, Q, BT, iters, stream),
+                     "micro_row_moves")
+        assert _guards_intact(buf)
+        assert torch.equal(out, micro.row_moves_plain(x, pi, perms, iters))

@@ -280,6 +280,38 @@ def test_route_layouts_agree():
     assert torch.equal(old, new.transpose(1, 2))
 
 
+# --- P2's slot order (what csrc/micro_gather.cu builds on the card) ----------
+
+def _round_wavefronts(addr):
+    """Shared-memory wavefronts of each round (32 consecutive slots): the
+    most distinct addresses in one bank; pad slots (-1) aside."""
+    out = []
+    for row in np.asarray(addr).reshape(-1, 32):
+        a = np.unique(row[row >= 0])
+        out.append(int(np.bincount(a % 32, minlength=32).max()) if a.size else 0)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("E", [1, 37, 408])
+def test_row_schedule_pairs_edges_by_parity(E):
+    """At Q = 16: every row in one slot, each half-warp one edge's 16 rows
+    in slot order, and every round free of bank conflicts on its gathers
+    and its stores but those of pairs left over by the class counts."""
+    perm = np.random.default_rng(E).permutation(E * 16)
+    pi, perms = (t.numpy() for t in micro.row_tables(perm, 16))
+    s = micro.row_schedule(pi, 16)
+    assert s.size == 32 * -(-E // 2)
+    assert np.array_equal(np.sort(s[s >= 0]), np.arange(E * 16))
+    halves = s.reshape(-1, 16)
+    assert np.all((halves < 0).all(1) | (halves == halves[:, :1] + np.arange(16)).all(1))
+    e, q = np.maximum(s, 0) // 16, np.maximum(s, 0) % 16
+    src = np.where(s >= 0, pi[e] * 16 + perms[e, q], -1)
+    n = np.bincount(2 * (np.arange(E) % 2) + pi % 2, minlength=4)
+    left_pairs = -(-(abs(n[0] - n[3]) + abs(n[1] - n[2])) // 2)
+    assert ((_round_wavefronts(src) > 1) | (_round_wavefronts(s) > 1)).sum() <= left_pairs
+    assert np.array_equal(micro.row_schedule(np.zeros(5), 3), np.arange(15))  # other Q: in order
+
+
 # --- wrapper checks ----------------------------------------------------------
 
 def test_wrappers_reject_bad_input():
