@@ -35,14 +35,14 @@
 // the parity of e (their stores) and of pi[e] (their gathers): every such
 // pair is free of conflicts; the few left over are paired as they come.
 // Other Q keep the rows in order.
-//   The fixed part. A cluster of C blocks (8, 4, 2 or 1: the largest whose
-// clusters all run at once, by cudaOccupancyMaxActiveClusters; 2 at the
-// probe's shape on an H100) owns C consecutive frames; each block loads a
-// C-th of the rows of all C frames (two frames of a row as one float2)
-// and writes each value into its frame's block over distributed shared
-// memory; at the end each block writes its frame's rows into the stage of
-// the block that stores them, and that block stores its rows of all C
-// frames the same way. Every remote access is a write, so none waits on
+//   The fixed part. A cluster of C = 2 blocks (two blocks of one GPC
+// always fit; 4 and 8 measured about twice as slow at the probe's shape:
+// their clusters do not all run at once) owns 2 consecutive frames; each
+// block loads half of the rows of both frames (a row's two frames as one
+// float2) and writes each value into its frame's block over distributed
+// shared memory; at the end each block writes its frame's rows into the
+// stage of the block that stores them, and that block stores its rows of
+// both frames the same way. Every remote access is a write, so none waits on
 // the other SM. One float of every 512-byte row per block would touch a
 // cache line per value.
 //
@@ -50,7 +50,8 @@
 // +1 per row (f32, no FMA), in any order of the rows. Plain versions:
 // nbldpc_tpu_torch/kernels/micro.py, flat_gather_plain and row_moves_plain;
 // micro.gather_shared_bytes mirrors gather_smem, and micro.row_schedule
-// P2's slot order.
+// is a host twin of row_slots_paired's order (tested on the CPU; the
+// kernel's own order shows only in its time).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -61,7 +62,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kMaxCluster = 8;       // frames a cluster loads and stores together
+constexpr int kCluster = 2;          // frames a cluster loads and stores together
 constexpr int kChunk = 8;            // a thread's gathers in flight before its stores
 constexpr int kIoUnroll = 8;         // a thread's loads in flight when a frame moves in
 constexpr int kIdxBits = 16;         // a slot: source | destination << 16 (R < 2^16)
@@ -69,6 +70,7 @@ constexpr unsigned kIdxMask = (1u << kIdxBits) - 1;
 constexpr size_t kDefaultShared = 48 * 1024;
 constexpr size_t kMaxShared = 232448;
 constexpr int kMaxDevices = 64;
+constexpr int kMaxSlots = 20;        // slots a thread: the shared memory caps a frame at 19
 
 enum Mode { kFlat, kRows, kRowsPaired };
 
@@ -85,11 +87,11 @@ struct Args {
 
 // Shared bytes of a block (micro.gather_shared_bytes repeats this): two
 // buffers of R + 1 floats (the last, a pad slot's cell), the stage of the
-// rows the block stores (R + kMaxCluster floats) and, for P2, the scratch
+// rows the block stores (R + kCluster floats) and, for P2, the scratch
 // of the pairing: an edge's class and rank in it [E], the edge at each
 // half of each pair [E + 1] and four class counts.
 size_t gather_smem(long long R, long long E) {
-  return 4 * (2 * (R + 1) + R + kMaxCluster + (E ? 2 * E + 8 : 0));
+  return 4 * (2 * (R + 1) + R + kCluster + (E ? 2 * E + 8 : 0));
 }
 
 // barrier.cluster in two halves: arrive (relaxed: it orders no memory)
@@ -155,17 +157,19 @@ __device__ void row_slots_paired(const Args& g, int* scratch, unsigned (&idx)[K]
 }
 
 template <int K>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kMaxThreads)
 gather_kernel(const Args g) {
   extern __shared__ float smem[];
   const cg::cluster_group cl = cg::this_cluster();
-  const int C = (int)cl.num_blocks(), lgC = __ffs(C) - 1, rank = (int)cl.block_rank();
+  constexpr int C = kCluster, lgC = 1;
+  static_assert(C == 1 << lgC, "a cluster of 2^lgC blocks");
+  const int rank = (int)cl.block_rank();
   const int tid = threadIdx.x, nt = blockDim.x, R = g.R, BT = g.BT;
   const int f0 = blockIdx.x - rank;                  // the cluster's first frame
   float* const buf0 = smem;
   float* const buf1 = buf0 + R + 1;
-  float* const stage = buf1 + R + 1;                 // [Rc][C], Rc C < R + kMaxCluster
-  int* const scratch = reinterpret_cast<int*>(stage + R + kMaxCluster);
+  float* const stage = buf1 + R + 1;                 // [Rc][C], Rc C < R + C
+  int* const scratch = reinterpret_cast<int*>(stage + R + C);
   // this block moves rows [r0, r0 + Rc) of the cluster's frames f0 .. f0 +
   // C - 1 in and out, C consecutive floats a row: pair j is row r0 + j / C
   // of frame f0 + j % C
@@ -174,7 +178,7 @@ gather_kernel(const Args g) {
   auto live = [&](int j) { return j < n && f0 + (j & (C - 1)) < BT; };
   auto at = [&](int j) { return (size_t)(r0 + (j >> lgC)) * BT + f0 + (j & (C - 1)); };
   // two frames of a row as one float2 where every pair of frames is aligned
-  const bool vec = C > 1 && BT % 2 == 0 && reinterpret_cast<uintptr_t>(g.x) % 8 == 0 &&
+  const bool vec = BT % 2 == 0 && reinterpret_cast<uintptr_t>(g.x) % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(g.out) % 8 == 0;
 
   // (1) the slots, while the cluster's blocks start (the barrier's wait
@@ -264,52 +268,6 @@ gather_kernel(const Args g) {
   }
 }
 
-// A launch of `blocks` blocks of nt threads and smem bytes in clusters of C
-cudaLaunchConfig_t cluster_config(int blocks, int nt, size_t smem, int C,
-                                  cudaStream_t stream, cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = C;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(nt);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// cudaOccupancyMaxActiveClusters of `kernel` on device dev at nt threads,
-// smem bytes and a cluster of C blocks, remembered (a host call per launch
-// would cost more than a probe's kernel)
-template <typename Kern>
-int active_clusters(Kern kernel, int dev, int nt, size_t smem, int C) {
-  struct Entry {
-    const void* fn;
-    int dev, nt, C;
-    size_t smem;
-    int active;
-  };
-  static Entry seen[64];
-  static int used = 0;
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  for (int i = 0; i < used; ++i)
-    if (seen[i].fn == fn && seen[i].dev == dev && seen[i].nt == nt && seen[i].C == C &&
-        seen[i].smem == smem)
-      return seen[i].active;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(C, nt, smem, C, nullptr, &attr);
-  int active = 0;
-  if (cudaOccupancyMaxActiveClusters(&active, kernel, &cfg) != cudaSuccess) {
-    cudaGetLastError();
-    active = 0;
-  }
-  seen[used < 64 ? used++ : 63] = Entry{fn, dev, nt, C, smem, active};
-  return active;
-}
-
 template <int K>
 cudaError_t launch(const Args& g, size_t smem, cudaStream_t stream) {
   const int nt = ((g.slots + K - 1) / K + 31) / 32 * 32;
@@ -326,50 +284,25 @@ cudaError_t launch(const Args& g, size_t smem, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     allowed[dev] = smem;
   }
-  // the largest cluster with the fewest waves of clusters
-  int C = 1;
-  long long best = -1;
-  for (int c = kMaxCluster; c >= 1; c >>= 1) {
-    const int active = active_clusters(kernel, dev, nt, smem, c);
-    if (active < 1) continue;
-    const long long clusters = (g.BT + c - 1) / c, waves = (clusters + active - 1) / active;
-    if (best < 0 || waves < best) {
-      best = waves;
-      C = c;
-    }
-  }
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      cluster_config((g.BT + C - 1) / C * C, nt, smem, C, stream, &attr);
-  return cudaLaunchKernelEx(&cfg, kernel, g);
+  // a block a frame, the grid padded to whole clusters
+  kernel<<<(g.BT + kCluster - 1) / kCluster * kCluster, nt, smem, stream>>>(g);
+  return cudaGetLastError();
 }
 
-// K, the slots a thread, the least of these with at most 1024 threads
+// K, the slots a thread: the least of these that needs at most 1024
+// threads (7 at the probe's shape)
 cudaError_t dispatch(const Args& g, size_t smem, cudaStream_t stream) {
   if (g.R < 1 || g.R > (int)kIdxMask - 1 || g.BT < 1 || g.iters < 0 || smem > kMaxShared)
     return cudaErrorInvalidValue;
   const int per = (g.slots + kMaxThreads - 1) / kMaxThreads;
-  switch (per) {
-    case 1: return launch<1>(g, smem, stream);
-    case 2: return launch<2>(g, smem, stream);
-    case 3: return launch<3>(g, smem, stream);
-    case 4: return launch<4>(g, smem, stream);
-    case 5: return launch<5>(g, smem, stream);
-    case 6: return launch<6>(g, smem, stream);
-    case 7: return launch<7>(g, smem, stream);
-    case 8: return launch<8>(g, smem, stream);
-    case 9: return launch<9>(g, smem, stream);
-    case 10: return launch<10>(g, smem, stream);
-    case 11: return launch<11>(g, smem, stream);
-    case 12: return launch<12>(g, smem, stream);
-    case 13: return launch<13>(g, smem, stream);
-    case 14: return launch<14>(g, smem, stream);
-    case 15: return launch<15>(g, smem, stream);
-    case 16: return launch<16>(g, smem, stream);
-    case 17: case 18: case 19: case 20: return launch<20>(g, smem, stream);
-    case 21: case 22: case 23: case 24: return launch<24>(g, smem, stream);
-    default: return per <= 32 ? launch<32>(g, smem, stream) : cudaErrorInvalidValue;
-  }
+  if (per <= 1) return launch<1>(g, smem, stream);
+  if (per <= 2) return launch<2>(g, smem, stream);
+  if (per <= 4) return launch<4>(g, smem, stream);
+  if (per <= 7) return launch<7>(g, smem, stream);
+  if (per <= 10) return launch<10>(g, smem, stream);
+  if (per <= 14) return launch<14>(g, smem, stream);
+  if (per <= kMaxSlots) return launch<kMaxSlots>(g, smem, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -93,15 +93,17 @@ def gather_shared_bytes(R: int, E: int = 0) -> int:
     """Shared bytes of a P1 (E 0) or P2 block on R = E Q rows, as
     csrc/micro_gather.cu's gather_smem counts them: two buffers of R + 1
     floats (the last, a pad slot's cell), the stage of the rows a block
-    stores (R + 8 floats, 8 the largest cluster) and, for P2, 2 E + 8 ints
+    stores (R + 2 floats, 2 the cluster's blocks) and, for P2, 2 E + 8 ints
     (an edge's class and rank in it, the edge at each half of each pair,
     four class counts)."""
-    return 4 * (3 * R + 10 + (2 * E + 8 if E else 0))
+    return 4 * (3 * R + 4 + (2 * E + 8 if E else 0))
 
 
 def row_schedule(pi, Q: int) -> np.ndarray:
-    """P2's slots as csrc/micro_gather.cu orders them on the card, the
-    destination row of each (-1: a pad slot). At Q = 16 a warp holds two
+    """A host twin of P2's slot order (csrc/micro_gather.cu,
+    row_slots_paired, builds its own on the card; nothing reads this but
+    the tests of the pairing's property), the destination row of each
+    slot (-1: a pad slot). At Q = 16 a warp holds two
     edges, one a half-warp, paired by class 2 (e % 2) + pi[e] % 2: classes 0
     with 3 and 1 with 2 (both parities differ: no bank conflict on either
     side), then the rest in class order 0, 3, 1, 2 (the kernel orders the

@@ -697,8 +697,8 @@ def test_micro_wrappers_reject_bad_input(cuda_device):
     assert micro.flat_gather.launches == before + 1 and torch.equal(out, x)
 
 
-# P1 and P2 (csrc/micro_gather.cu): a block a frame, clusters of frames
-# moving the rows in and out, slots scheduled by source bank; exact.
+# P1 and P2 (csrc/micro_gather.cu): a block a frame, clusters of two
+# frames moving the rows in and out, P2's edges paired by parity; exact.
 
 
 def _gather_inputs(E, Q, BT, seed):
@@ -728,7 +728,7 @@ def _hold_gather(x, tables, iters_list=(0, 1, 200)):
 @pytest.mark.parametrize("E,Q", [(13, 3), (1, 3), (1, 16), (37, 16), (408, 16)])
 def test_micro_gather_edges_match_plain(cuda_device, E, Q, BT, probe):
     """P1 and P2 at frame counts that leave a cluster ragged (odd ones: a
-    float a load), that fill clusters of 8 (64) or 2 (128, two frames a
+    float a load), that fill clusters of 2 (even ones: two frames a
     float2), or more than run at once (256); R = E Q no multiple of 32
     (pad slots), an odd edge count at Q = 16 (a pair with one half empty),
     and 0, 1 and 200 iterations."""

@@ -280,7 +280,7 @@ def test_route_layouts_agree():
     assert torch.equal(old, new.transpose(1, 2))
 
 
-# --- P2's slot order (what csrc/micro_gather.cu builds on the card) ----------
+# --- P2's slot order (the host twin of what csrc/micro_gather.cu builds) -----
 
 def _round_wavefronts(addr):
     """Shared-memory wavefronts of each round (32 consecutive slots): the
