@@ -23,10 +23,10 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 converged and failed frames, and at BASELINE config 5's
                 step (8 points x 512 frames, early termination); timed at
                 GF(64) and at config 5's bench shape, beside the scratch
-                kernel (the design before the cluster kernel) on the same
-                LLRs; then K0-cl's scratch kernel, which takes the codes
-                whose state no cluster holds, on such a code (GF(256), N =
-                1200) in the modes of phase 4
+                kernel on the same LLRs; then K0-cl's scratch kernel, which
+                takes the codes whose state no cluster holds, on two such
+                codes (GF(256), N = 1200 and GF(64), N = 1800) in the modes
+                of phase 4
   6. cn_ems   - the EMS check-node kernels (classic and bubble) against
                 their plain version, exact to 0.0, both also on tie-heavy
                 inputs (4 levels) and at config 5's step shape
@@ -71,9 +71,11 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 (nbldpc_tpu_torch.benchmarks.micro_kernels and .micro_layout)
                 as a user runs them, counters read around them; then each
                 probe kernel against its plain version at the JAX scripts'
-                full shapes, exact (max abs error 0.0; P6 and P7 past
-                +-inf), timed with its bound, P3 also against chained
-                torch.addmm calls (cuBLAS SGEMM, TF32 off) as its library time
+                full shapes, exact (max abs error 0.0; P5 at 50 and 200
+                iterations; P6 and P7 past +-inf), timed with its bound
+                (P5 with its special-function-unit floor beside), P3 also
+                against chained torch.addmm calls (cuBLAS SGEMM, TF32 off)
+                as its library time
 Then the kernels summary (each kernel's launches on the paths above, its
 worst error against its plain version, its time, its plain version's time,
 the bound of the same work and, for P3, the library call's time), the card
@@ -492,16 +494,19 @@ def phase_resident(device):
 HIGHQ = (("gf64_n576_k480", 1024, [3.0, 3.5]), ("gf256_n255_k175", 512, [2.0, 2.5]))
 # A GF(256) code whose state (4.9 MB a frame) no cluster holds: K0-cl's
 # scratch kernel decodes it. (n, m, seed) of a random dv = 2 code, and
-# the frames and Eb/N0 of its checks in phases resident_cl and main
+# the frames and Eb/N0 of its checks in phases resident_cl and main; and a
+# GF(64) code no cluster holds either (1.8 MB a frame), checked and timed
+# beside it in phase resident_cl
 OVERSIZE = (1200, 400, 3)
 OVERSIZE_FRAMES, OVERSIZE_EBN0 = 512, 2.5
+OVERSIZE_GF64 = (1800, 600, 3)
 
 
-def oversize_spec():
-    """The OVERSIZE code over GF(256)."""
+def oversize_spec(q: int = 256):
+    """The OVERSIZE code over GF(256), or OVERSIZE_GF64 over GF(64)."""
     from nbldpc_tpu_torch.code import random_regular_spec
 
-    return random_regular_spec(256, *OVERSIZE)
+    return random_regular_spec(q, *(OVERSIZE if q == 256 else OVERSIZE_GF64))
 
 
 def phase_resident_cl(device):
@@ -514,8 +519,10 @@ def phase_resident_cl(device):
     cudaOccupancyMaxActiveClusters first. Timed at GF(64) in throughput
     mode and at the bench shape, whose numbers go to the kernels summary,
     with the scratch kernel beside. Then the scratch kernel on the
-    OVERSIZE code in the three modes, timed in throughput mode. Returns
-    the two kernels' summaries."""
+    OVERSIZE code and on OVERSIZE_GF64, each with its plan first, in the
+    three modes, timed in throughput mode. Returns the two kernels'
+    summaries (the scratch kernel's at OVERSIZE, with OVERSIZE_GF64's time
+    beside)."""
     from nbldpc_tpu_torch import bench
     from nbldpc_tpu_torch.graph import TannerGraph
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
@@ -552,14 +559,29 @@ def phase_resident_cl(device):
         result["agreement_min"] = min(result["agreement_min"], r.pop("agreement_min"))
         result.update(r)
     result["max_abs_err"] = worst
-    g = TannerGraph(oversize_spec(), device)
-    if qr.ResidentQSPA(g, 1).cluster_plan is not None:
-        fail("resident_cl: the oversize code fits a cluster")
-    llr = _llrs(g, OVERSIZE_FRAMES, [OVERSIZE_EBN0], device)
-    modes = {"a_early_term": (llr, 20, True, True), "b_throughput": (llr, 20, False, False),
-             "c_one_iter": (llr, 1, False, True)}
-    return result, _hold_resident("resident_cl", "oversize_gf256_n1200", g, modes,
-                                  ("b_throughput",))
+    scratch = {}
+    for q, code in ((256, "oversize_gf256_n1200"), (64, "oversize_gf64_n1800")):
+        g = TannerGraph(oversize_spec(q), device)
+        dec = qr.ResidentQSPA(g, 1)
+        if dec.cluster_plan is not None:
+            fail(f"resident_cl: {code} fits a cluster")
+        plan, _ = qr.scratch_layout(dec)
+        emit({"phase": "resident_cl", "code": code, "kernel": "scratch",
+              "cluster_size": plan.size, "warps": plan.warps, "checks_per_rank": plan.checks,
+              "checks_per_round": plan.round_checks, "rows_per_rank": plan.rows,
+              "post_shared": plan.post_shared, "smem_bytes": plan.smem_bytes,
+              "slice_bytes": 4 * plan.slice_floats,
+              "max_active_clusters": qr.scratch_occupancy(dec, device)})
+        llr = _llrs(g, OVERSIZE_FRAMES, [OVERSIZE_EBN0], device)
+        modes = {"a_early_term": (llr, 20, True, True),
+                 "b_throughput": (llr, 20, False, False),
+                 "c_one_iter": (llr, 1, False, True)}
+        scratch[q] = _hold_resident("resident_cl", code, g, modes, ("b_throughput",))
+    out = scratch[256]
+    out["max_abs_err"] = max(r["max_abs_err"] for r in scratch.values())
+    out["agreement_min"] = min(r["agreement_min"] for r in scratch.values())
+    out.update({f"gf64_{k}": scratch[64][k] for k in ("ms", "plain_ms", "bound_ms")})
+    return result, out
 
 
 def _hold_cn(phase: str, device, code: str, B: int, kern, plain, args, check_ops,
@@ -1059,9 +1081,14 @@ def micro_bounds(name: str, inputs: dict, iters: int) -> dict:
         Q = x.shape[0]
         cols = x.numel() // Q
         # 4 bits x (Q - 1) rolled elements x (2 multiplies, 1 add); exp,
-        # the serial sum, divide and subtract over Q
-        return bound(iters * cols * (12 * (Q - 1) + 4 * Q - 1),
-                     4 * (2 * x.numel() + inputs["rb"].numel()))
+        # the serial sum, divide and subtract over Q; beside it the floor of
+        # the special-function units: Q exps a column and iteration at 16
+        # MUFU.EX2 a clock an SM
+        sms, hz = sm_count_and_clock()
+        return {**bound(iters * cols * (12 * (Q - 1) + 4 * Q - 1),
+                        4 * (2 * x.numel() + inputs["rb"].numel())),
+                "sfu_floor_ms": iters * cols * Q / (16 * sms * hz) * 1e3,
+                "sm_clock_hz": hz}
     post, vn, nbr = inputs["post"], inputs["vn"], inputs["nbr"]
     Q = post.shape[0]
     N = nbr.shape[0]
@@ -1072,6 +1099,17 @@ def micro_bounds(name: str, inputs: dict, iters: int) -> dict:
     per = Q * (E + (E - reached) + 3 * N)
     return bound(iters * frames * per,
                  4 * (2 * post.numel() + E + nbr.numel()))
+
+
+def sm_count_and_clock() -> tuple:
+    """(SMs, the card's maximum SM clock in Hz, from nvidia-smi)."""
+    import torch
+
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits", "-i", "0"],
+                         capture_output=True, text=True, check=True).stdout
+    return (torch.cuda.get_device_properties(0).multi_processor_count,
+            float(mhz.strip().splitlines()[0]) * 1e6)
 
 
 def _hold_micro(name: str, case: str, kernel, plain, inputs: dict, hold_iters: tuple,
@@ -1182,8 +1220,10 @@ def phase_micro(device, card: str):
             tensors = {"x": inp[f"x_{layout}"], "rb": inp[f"rb_{layout}"]}
         else:
             tensors = {"post": inp[f"post_{layout}"], "vn": inp["vn"], "nbr": inp["nbr"]}
-        row = _hold_micro(name, case, kernel, plain, tensors, (4 * MICRO_LAYOUT_ITERS,),
-                          MICRO_LAYOUT_ITERS, exact_inf=case.startswith("route"))
+        hold = (MICRO_LAYOUT_ITERS, 4 * MICRO_LAYOUT_ITERS) if case.startswith("elem") \
+            else (4 * MICRO_LAYOUT_ITERS,)
+        row = _hold_micro(name, case, kernel, plain, tensors, hold, MICRO_LAYOUT_ITERS,
+                          exact_inf=case.startswith("route"))
         if case.endswith("new"):
             rows[name] = row
         else:
@@ -1246,10 +1286,12 @@ def main() -> int:
         entry("qspa_resident_cl", "qspa_cluster.cu",
               "nbldpc_tpu/kernels/qspa_resident.py:192", res_cl["max_abs_err"], res_cl,
               agreement_min=res_cl["agreement_min"], scratch_ms=res_cl["scratch_ms"]),
-        # K0-cl for codes no cluster holds, at the OVERSIZE code
+        # K0-cl for codes no cluster holds, at the OVERSIZE code (and
+        # OVERSIZE_GF64's times beside)
         entry("qspa_resident_cl_scratch", "qspa_resident_cl.cu",
               "nbldpc_tpu/kernels/qspa_resident.py:192", res_scratch["max_abs_err"],
-              res_scratch, agreement_min=res_scratch["agreement_min"]),
+              res_scratch, agreement_min=res_scratch["agreement_min"],
+              **{k: v for k, v in res_scratch.items() if k.startswith("gf64_")}),
         entry("ems_resident", "ems_resident.cu",
               "nbldpc_tpu/kernels/ems_resident.py:145", ems_res["max_abs_err"], ems_res),
         # classic and bubble at config 5's step shape

@@ -1,8 +1,9 @@
 """Time the resident EMS decode (K3), the T-EMS check node (K5), the
-resident QSPA decode (K0), the QSPA check node (K1), the EMS check nodes
-(K2b bubble, K2 classic beside it) and the probes P1, P2, P4 and P6/P7 of
-one tree at the shapes their paths (the probes: their entry points) run,
-with a digest of every output, so that two trees compare on one card.
+resident QSPA decode (K0), K0-cl's scratch kernel (the codes no cluster
+holds), the QSPA check node (K1), the EMS check nodes (K2b bubble, K2
+classic beside it) and the probes P1, P2, P4, P5 and P6/P7 of one tree at
+the shapes their paths (the probes: their entry points) run, with a digest
+of every output, so that two trees compare on one card.
 
     python nbldpc_tpu_torch/benchmarks/kernel_ab.py [--root DIR] [--steps]
                                     [--builds k0_frames1,k3_frames1,...]
@@ -17,12 +18,15 @@ code.random_regular_spec (a tree without it stops there).
 qspa_gf16_n204_k102, ems_gf16_n204_k102 and tems_gf64_n576_k480, the K1
 path of qspa_gf256_n255_k175 and ems_bubble_gf256_n255_k175 (K2b).
 --builds builds the --root tree's csrc/qspa_resident.cu,
-csrc/ems_resident.cu, csrc/cn_tems.cu, csrc/cn_qspa.cu or csrc/cn_ems.cu
-once per named edit of BUILDS (the design choices and the parts of K0,
-K3, K5, K1 and K2b) and times each build beside the library's kernel.
+csrc/qspa_resident_cl.cu, csrc/ems_resident.cu, csrc/cn_tems.cu,
+csrc/cn_qspa.cu or csrc/cn_ems.cu once per named edit of BUILDS (the
+design choices and the parts of K0, K0-cl's scratch kernel, K3, K5, K1 and
+K2b) or of OLD_SCRATCH_BUILDS (the scratch kernel's first design) and
+times each build beside the library's kernel.
 --only keeps the kernel cases whose names start with one of the given
-prefixes (p1, p2, p4 and route for the probes; p1, p2 and route also time
-those probes at 0 and 200 iterations).
+prefixes (k0cl for the scratch kernel; p1, p2, p4, p5 and route for the
+probes; p1, p2, p5 and route also time those probes at 0 and 200
+iterations).
 
 Prints the card's name and power limit, then one JSON line per case:
 device ms (CUDA events, mean over `reps` calls after one warm-up; for the
@@ -47,7 +51,8 @@ HERE = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(HERE))
 # chip_smoke's helpers import the package only when called, so they use
 # the tree that --root puts first on the path
-from chip_smoke import K0_GF32, _graph, _llrs, _u_for, cuda_ms, queued_ms  # noqa: E402
+from chip_smoke import (K0_GF32, OVERSIZE_EBN0, OVERSIZE_FRAMES,  # noqa: E402
+                        _graph, _llrs, _u_for, cuda_ms, oversize_spec, queued_ms)
 
 
 def _digest(*tensors) -> str:
@@ -77,6 +82,14 @@ K0_CASES = [("k0_bench", "gf16_n204_k102_c8", 8192, [0.63], False, 50, False, Fa
             ("k0_gf4_cfg1", "gf4_n96_k48", 512, [2.5], True, 20, True, True),
             ("k0_gf4_8192", "gf4_n96_k48", 8192, [2.5], True, 20, False, False),
             ("k0_gf32", "gf32_random", 2048, [2.0], True, 50, False, False)]
+# (case, q, iterations, early_term, stats_each_iter): K0-cl's scratch
+# kernel on chip_smoke.py's codes no cluster holds (oversize_spec: GF(256),
+# N = 1200, and GF(64), N = 1800), 512 frames at 2.5 dB in the three modes
+# of its phase resident_cl, throughput (the timed one) first
+K0CL_CASES = [(f"k0cl_scratch_gf{q}{suffix}", q, iters, et, stats)
+              for q in (256, 64)
+              for suffix, iters, et, stats in (("", 20, False, False), ("_early", 20, True, True),
+                                               ("_one_iter", 1, False, True))]
 # (case, code, frames, n_r, tie levels): chip_smoke.py's phase cn_tems
 K5_CASES = [("k5_gf16_exact", "gf16_n204_k102", 8192, 0, 0),
             ("k5_gf64_exact", "gf64_n576_k480", 1024, 0, 0),
@@ -100,11 +113,14 @@ EMS_CASES = [(f"{k}_{label}", code, B, nm, levels, merge)
                  ("gf256_cfg5", "gf256_n255_k175", 4096, 16, 0))]
 
 # (case, iterations): the probes at their entry points' shapes and depths,
-# P1, P2 and P4 at micro_kernels' x [408,16,128], P6 and P7 at
-# micro_layout's post [16,204,128] ("new") and [16,64,204] ("old"); P1, P2
-# and the route also at 0 and 200 iterations (their fixed cost and slope)
-PROBE_CASES = [("p1", 20), ("p2", 20), ("p4", 20), ("route_new", 50), ("route_old", 50)]
-PROBE_DEPTHS = [(f"{probe}_{iters}", iters) for probe in ("p1", "p2", "route_new", "route_old")
+# P1, P2 and P4 at micro_kernels' x [408,16,128], P5 at micro_layout's X
+# [16,4,102,128] ("new") and [16,4,64,102] ("old"), P6 and P7 at its post
+# [16,204,128] and [16,64,204]; P1, P2, P5 and the route also at 0 and 200
+# iterations (their fixed cost and slope)
+PROBE_CASES = [("p1", 20), ("p2", 20), ("p4", 20), ("p5_new", 50), ("p5_old", 50),
+               ("route_new", 50), ("route_old", 50)]
+PROBE_DEPTHS = [(f"{probe}_{iters}", iters)
+                for probe in ("p1", "p2", "p5_new", "p5_old", "route_new", "route_old")
                 for iters in (0, 200)]
 
 
@@ -125,6 +141,9 @@ def _probe(case: str, iters: int, device):
         return lambda: micro.cn_iteration(x, iters)
     layout = case.split("_")[1]
     inp = ml.make_inputs(0)
+    if case.startswith("p5"):
+        x, rb = inp[f"x_{layout}"].to(device), inp[f"rb_{layout}"].to(device)
+        return lambda: micro.rot_softmax(x, rb, iters, layout)
     post = inp[f"post_{layout}"].to(device)
     vn, nbr = inp["vn"].to(device), inp["nbr"].to(device)
     return lambda: micro.route(post, vn, nbr, iters, layout)
@@ -146,6 +165,33 @@ def _k0_case(case, device):
     _, code, frames, noise, ebn0, iters, et, stats = case
     g = _k0_graph(code, device)
     return qr.ResidentQSPA(g, iters, et, stats), _llrs(g, frames, noise, device, ebn0)
+
+
+def _k0cl_case(case, device):
+    """(decoder, llr) of one K0CL_CASES entry."""
+    from nbldpc_tpu_torch.graph import TannerGraph
+    from nbldpc_tpu_torch.kernels import qspa_resident as qr
+
+    _, q, iters, et, stats = case
+    g = TannerGraph(oversize_spec(q), device=device)
+    return (qr.ResidentQSPA(g, iters, et, stats),
+            _llrs(g, OVERSIZE_FRAMES, [OVERSIZE_EBN0], device))
+
+
+def scratch_round(dec, device) -> int:
+    """Frames the tree's scratch kernel decodes at once (its persistent
+    grid's blocks, or clusters), read through that tree's own entry
+    points."""
+    from nbldpc_tpu_torch.kernels import _build
+    from nbldpc_tpu_torch.kernels import qspa_resident as qr
+
+    if hasattr(qr, "scratch_occupancy"):
+        return qr.scratch_occupancy(dec, device)
+    g, grid, smem = dec.graph, ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(_build.library().qspa_resident_cl_grid(
+        1 << 20, g.n, g.m, g.dc_max, g.q, ctypes.byref(grid), ctypes.byref(smem)),
+        "qspa_resident_cl_grid")
+    return grid.value
 
 
 def run_kernels(device, reps: int, only=()):
@@ -173,6 +219,15 @@ def run_kernels(device, reps: int, only=()):
         yield {"case": case[0], "code": case[1], "frames": llr.shape[0], "iters": case[5],
                "frame_iterations": int(out[2].sum()), "digest": _digest(*out),
                "ms": cuda_ms(lambda: qr.resident_decode(dec, llr), reps)}
+    for case in keep(K0CL_CASES):
+        dec, llr = _k0cl_case(case, device)
+        out = qr.resident_decode_cl_scratch(dec, llr)
+        plan = getattr(qr, "scratch_layout", lambda d: (None,))(dec)[0]
+        yield {"case": case[0], "frames": llr.shape[0], "iters": case[2],
+               "frame_iterations": int(out[2].sum()), "digest": _digest(*out),
+               "frames_at_once": scratch_round(dec, device),
+               "cluster_size": getattr(plan, "size", None),
+               "ms": cuda_ms(lambda: qr.resident_decode_cl_scratch(dec, llr), reps)}
     for case, code, B, n_r, levels in keep(K5_CASES):
         U = _u_for(_graph(code, device), B, device, levels)
         out = cn_tems.cn_update(U, 2.0, n_r)
@@ -285,6 +340,41 @@ BUILDS = {
                                   "  int warps = bubble ? 4 : 8;\n  if (!bubble) {")]),
     "k2b_lb3": ("cn_ems.cu", [("__launch_bounds__(256, 4)\ncn_ems_bubble_kernel",
                                "__launch_bounds__(256, 3)\ncn_ems_bubble_kernel")]),
+    # K0-cl's scratch kernel as this tree builds it (a frame a cluster,
+    # messages in a slice): a phase or a step dropped (the check phase, the
+    # variable phase, the row stores of step E, the prior's LLR reads, the
+    # leave-one-out products, all but 4 terms of the serial sums; wrong
+    # outputs)
+    "k0clx_no_cn": ("qspa_resident_cl.cu", [("cn_phase<Q, PS>(cl, r, logx, it == 0);",
+                                             "if (false) cn_phase<Q, PS>(cl, r, logx, it == 0);")]),
+    "k0clx_no_vn": ("qspa_resident_cl.cu", [
+        ("vn_phase<Q, PS>(L, r, stats_each_iter || it == max_iters - 1);",
+         "if (false) vn_phase<Q, PS>(L, r, stats_each_iter || it == max_iters - 1);")]),
+    "k0clx_no_msg_store": ("qspa_resident_cl.cu", [
+        ("for (int k = lane; k < Q / 4; k += 32) __stcg(dst + k, srcv[k]);",
+         "for (int k = lane; k < 0; k += 32) __stcg(dst + k, srcv[k]);")]),
+    "k0clx_no_prior": ("qspa_resident_cl.cu", [("(lv[sym] - m)", "(0.0f - m)"),
+                                               ("if (var >= 0 && k * 32 + lane < Q / 4)\n          __pipeline",
+                                                "if (false)\n          __pipeline")]),
+    "k0clx_no_loo": ("qspa_resident_cl.cu", [("const int ncol = nrow / dc * Q;",
+                                              "const int ncol = 0;")]),
+    "k0clx_no_sums": ("qspa_resident_cl.cu", [("for (int k = 0; k < Q / 4; ++k) {\n        const float4 v = row[k];",
+                                               "for (int k = 0; k < 1; ++k) {\n        const float4 v = row[k];")]),
+    # step A's rows in flight a warp halved or doubled (the cluster
+    # kernel's 16 / K doubles them; 32 / K was slower still); every cluster
+    # on one of 4 slices (10 MB at GF(256), N = 1200: the L2 holds them;
+    # wrong outputs: the time without device-memory traffic for the
+    # messages)
+    "k0clx_g_half": ("qspa_resident_cl.cu", [("constexpr int G = K >= 8 ? 1 : 8 / K;",
+                                              "constexpr int G = K >= 4 ? 1 : 4 / K;")]),
+    "k0clx_g_double": ("qspa_resident_cl.cu", [("constexpr int G = K >= 8 ? 1 : 8 / K;",
+                                                "constexpr int G = K >= 16 ? 1 : 16 / K;")]),
+    "k0clx_l2": ("qspa_resident_cl.cu", [("float* slice = scratch + (size_t)cid * slice_floats(",
+                                          "float* slice = scratch + (size_t)(cid % 4) * slice_floats(")]),
+    # P5: the roll dropped (wrong outputs), or blocks of 4 warps
+    "p5_no_roll": ("micro_layout.cu", [("      roll_select<Q>(v, r);\n", "")]),
+    "p5_warps4": ("micro_layout.cu", [("constexpr int kElemThreads = 32;",
+                                       "constexpr int kElemThreads = 128;")]),
     "k5_warps16": ("cn_tems.cu", [("smem_bytes<Q>(dc, warps) > kMaxSmem / 3",
                                    "smem_bytes<Q>(dc, warps) > kMaxSmem")]),
     "k5_shuffles": ("cn_tems.cu", [(f"if constexpr (W == 32) {{\n    return __reduce_{op}_sync",
@@ -293,12 +383,50 @@ BUILDS = {
 }
 
 
+# Trial builds of K0-cl's scratch kernel in its first design (a block of
+# 8 warps a frame, the state in a global scratch), for --root at a tree
+# that still has it, whose own kernel_ab.py has none: its check phase or
+# its variable phase dropped, or every block's slice one of 8 (30 MB: the
+# L2 holds them; wrong outputs: the time without the device-memory
+# traffic). They edit that source, not this tree's.
+OLD_SCRATCH_BUILDS = {
+    "k0cls_no_cn": ("qspa_resident_cl.cu", [
+        ("cn_phase<Q>(post, lc, buf, sums, s_n2e, t, M, dc);",
+         "if (false) cn_phase<Q>(post, lc, buf, sums, s_n2e, t, M, dc);")]),
+    "k0cls_no_vn": ("qspa_resident_cl.cu", [
+        ("vn_phase<Q>(L, mx, lc, post, hard, t, N, dv, E,",
+         "if (false) vn_phase<Q>(L, mx, lc, post, hard, t, N, dv, E,")]),
+    "k0cls_l2": ("qspa_resident_cl.cu", [
+        ("float* post = scratch + (size_t)blockIdx.x * (N + E) * Q;",
+         "float* post = scratch + (size_t)(blockIdx.x % 8) * (N + E) * Q;")]),
+}
+
+
+class _TrialLibrary:
+    """The kernel library with the C entry points of one trial build in
+    place of its own (the wrappers call `_build.library()`)."""
+
+    def __init__(self, path, base):
+        self._lib, self._base = ctypes.CDLL(str(path)), base
+
+    def __getattr__(self, name):
+        from nbldpc_tpu_torch.kernels import _build
+
+        try:
+            fn = getattr(self._lib, name)
+        except AttributeError:
+            return getattr(self._base, name)
+        fn.argtypes, fn.restype = _build.SIGNATURES[name], ctypes.c_int
+        return fn
+
 
 def builds_trial(device, names, reps: int):
-    """The --root tree's K0, K3, K5, K1 or K2b built with each edit of
-    BUILDS: K0 builds timed at every K0 case, K3 builds at its bench step,
-    K5, K1 and K2b builds at every K5, K1 or K2b case; `same` tells whether
-    the outputs equal the library kernel's."""
+    """The --root tree's K0, K0-cl's scratch kernel, K3, K5, K1 or K2b
+    built with each edit of BUILDS: K0 builds timed at every K0 case,
+    scratch builds at the throughput cases of K0CL_CASES (beside the
+    library kernel on one round of frames, as many as run at once), K3
+    builds at its bench step, K5, K1 and K2b builds at every K5, K1 or K2b
+    case; `same` tells whether the outputs equal the library kernel's."""
     import torch
 
     from nbldpc_tpu_torch.kernels import _build, cn_tems
@@ -308,8 +436,9 @@ def builds_trial(device, names, reps: int):
     out_dir = _build.BUILD_DIR / "trial_builds"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
+    every = {**BUILDS, **OLD_SCRATCH_BUILDS}
     for name in names:
-        source, edits = BUILDS[name]
+        source, edits = every[name]
         src = (_build.CSRC / source).read_text()
         for old, new in edits:
             if old not in src:
@@ -335,7 +464,38 @@ def builds_trial(device, names, reps: int):
             raise RuntimeError(f"build {name}: CUDA error {rc}: {msg}")
 
     stream = _build.stream_ptr(device)
-    k0 = [n for n in names if n.startswith("k0")]
+    def through(name, fn):
+        """fn() with the wrappers calling build `name`'s entry points, its
+        output and its time."""
+        real = _build.library
+        trial = _TrialLibrary(out_dir / f"{name}.so", real())
+        _build.library = lambda: trial
+        try:
+            return fn(), cuda_ms(fn, reps)
+        finally:
+            _build.library = real
+
+    scratch = [n for n in names if every[n][0] == "qspa_resident_cl.cu"]
+    for case in [c for c in K0CL_CASES if c[0] in ("k0cl_scratch_gf256", "k0cl_scratch_gf64")]:
+        if not scratch:
+            break
+        dec, llr = _k0cl_case(case, device)
+        ref = _digest(*qr.resident_decode_cl_scratch(dec, llr))
+        at_once = scratch_round(dec, device)
+        one = llr[:at_once].contiguous()
+        yield {"case": case[0], "build": "library", "frames": at_once,
+               "ms_one_round": cuda_ms(lambda: qr.resident_decode_cl_scratch(dec, one), reps)}
+        for name in scratch:
+            outs, ms = through(name, lambda: qr.resident_decode_cl_scratch(dec, llr))
+            yield {"case": case[0], "build": name, "ms": ms, "same": _digest(*outs) == ref}
+    p5 = [n for n in names if n.startswith("p5")]
+    for case, iters in [c for c in PROBE_CASES if c[0].startswith("p5")] if p5 else ():
+        fn = _probe(case, iters, device)
+        ref = _digest(fn())
+        for name in p5:
+            out, ms = through(name, fn)
+            yield {"case": case, "build": name, "ms": ms, "same": _digest(out) == ref}
+    k0 = [n for n in names if every[n][0] == "qspa_resident.cu"]
     for case in K0_CASES if k0 else ():
         dec, llr = _k0_case(case, device)
         g, B = dec.graph, llr.shape[0]
@@ -414,10 +574,18 @@ def main(argv=None) -> int:
     ap.add_argument("--builds", default="")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", default="", help="comma-separated case-name prefixes")
+    ap.add_argument("--scratch-sizes", default="",
+                    help="comma-separated cluster sizes plan_scratch may choose from (a plan "
+                         "alternative; default: the tree's own)")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
+
+    if args.scratch_sizes:
+        from nbldpc_tpu_torch.kernels import qspa_resident
+
+        qspa_resident.SCRATCH_SIZES = tuple(int(c) for c in args.scratch_sizes.split(","))
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA card")

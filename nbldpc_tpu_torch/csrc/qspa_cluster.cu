@@ -561,6 +561,7 @@ qspa_cluster_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
       done_out[b] = (uint8_t)done;
       iters_out[b] = iters;
     }
+    __syncthreads();          // hard[] is read out before the next frame's init writes it
   }
   cl.sync();                  // no rank leaves while another reads its flags
 }

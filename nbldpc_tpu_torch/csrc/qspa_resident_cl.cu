@@ -1,91 +1,162 @@
-// Whole QSPA decode for large fields (q = 64, 128, 256): one frame per
-// block at a time, all iterations in one launch, state in a global scratch.
+// Whole QSPA decode for large fields (q = 64, 128, 256) for the codes whose
+// state no thread-block cluster holds: K0-cl's scratch kernel. One frame a
+// cluster, as in csrc/qspa_cluster.cu; what does not fit the cluster's
+// shared memory goes to a global slice of the cluster's own.
 //
 // Replaces: nbldpc_tpu/kernels/qspa_resident.py, ResidentQSPA._kernel /
 // __call__ (the Pallas K0-cl kernel, the JAX package's QSPA default for
-// q > 32).
+// q > 32), for the codes csrc/qspa_cluster.cu does not take.
 //
-// Probability-domain BP, the plain version's association order
-// (nbldpc_tpu_torch/kernels/qspa_resident.py:decode_plain), the same as
-// csrc/qspa_resident.cu (K0):
+// Probability-domain BP in the plain version's association order
+// (nbldpc_tpu_torch/kernels/qspa_resident.py:_iteration, run_plain), the
+// cluster kernel's:
 //   prior = llr - max_q llr;  post = prior;  lc = 0
 //   per iteration, per edge e = (m, j) with variable v and weight h:
 //     U(x)  = post[v](h^-1 x) - lc[e](h^-1 x)
 //     P     = exp(U) / S, S summed serially in exp order (0, 1, a, a^2,
-//             ...), the plain version's order; delta0 on pad slots. No
-//             max-subtraction: lc lies in [log(1e-12), 0].
-//     F     = WHT(P)
-//     G_j   = (F_0 ... F_{j-1}) * (F_{dc-1} ... F_{j+1})  (prefix x suffix)
+//             ...); delta0 on pad slots
+//     F     = WHT(P), stages h = 1, 2, ..., q / 2
+//     G_j   = (F_0 ... F_{j-1}) * suf(j), suf(dc - 1) = 1,
+//             suf(j) = suf(j + 1) * F_{j+1}
 //     lc[e](h^-1 x) = log(max(WHT(G_j)(x) / q, 1e-12))
 //   post[v] = prior[v] + sum of lc over v's edges, in vn_edge slot order
-//   hard = argmax (ties to the lowest symbol), syndrome by syn_k bits.
+//   hard = argmax (ties to the lowest symbol); syndrome: XOR of h * hard.
 //
-// What bounds it on the H100. A frame's state does not fit one block's
-// shared memory: (N + M dc) q 4 bytes of posterior and edge messages,
-// 834 KB at GF(256) (255,175) and 442 KB at GF(64) (576,480). The work
-// is about 10 q + 2 q log2 q operations per edge and iteration (exp,
-// softmax, two WHTs, the leave-one-out products, floor and log): 3.6e6
-// per frame and iteration at GF(256), so 3.0e11 for 4096 frames x 20
-// iterations, 4.4 ms at the card's 67 TFLOP/s f32; the LLRs read once
-// and the decisions written once are 1.07 GB, 0.32 ms. So the bound is
-// operations. This design moves each frame's state through a global
-// scratch every iteration (about 2.8 MB per frame and iteration at
-// GF(256): the CN phase reads posterior and messages and writes messages,
-// the VN phase reads messages and LLRs and writes the posterior), which
-// far exceeds both: it is simple and right, not fast. Keeping a frame on
-// chip (a thread-block cluster with distributed shared memory) is the
-// redesign for speed.
+// What bounds it on the H100: operations, as the cluster kernel (about
+// 10 q + 2 q log2 q per edge and iteration; 512 frames x 20 iterations of
+// a GF(256) code with N = 1200 and 2400 edges: 2.6 ms at 67 TFLOP/s f32).
+// The design before this one ran a frame on one block of 8 warps, its
+// posterior and messages in a scratch of 3.7 MB a frame, ~396 frames at
+// once: ~12 MB of device-memory traffic a frame and iteration, which no
+// cache held, and a second round of frames under a third full (139.5 ms
+// there on the H100). This one takes 79.9 ms (PERF.md): its check phase
+// ~63, its variable phase ~19, message traffic past the L2 ~10.
 //
-// Design: a persistent grid (as many blocks as fit on the card, at most
-// B) walks the frames; each block owns one slice of the scratch. A check
-// runs on one warp, lane l holding symbols l, l + 32, ..., so WHT stages
-// h < 32 are shuffles and stages h >= 32 are register butterflies, in the
-// plain version's stage order. The check's dc rows of exp(U), later its
-// spectra, sit in the warp's shared-memory buffer (rows Q + 1 apart, so
-// the serial softmax sums, lane j summing row j, hit distinct banks). GF
-// permutations are perm_down gathers. The variable update and the hard
-// decision run one warp per variable (argmax by shuffles, ties to the
-// lower symbol). Block barriers separate the CN, VN and syndrome phases;
-// a frame stops iterating as soon as its outputs are final.
+// Design. The host plans the partition (kernels/qspa_resident.py,
+// plan_scratch): a cluster of C = 1, 2, 4 or 8 blocks ("ranks"), rank r
+// owning the checks [r cpr, (r + 1) cpr) and the variables placed with
+// them, as the cluster kernel's plan. What stays on chip, in each rank's
+// shared memory: the posterior rows of its variables (of the sizes whose
+// ranks hold them, the one with the fewest check rounds; where even 8 do
+// not, the posterior too goes to the slice, PS = false), each variable's
+// max_q llr and hard decision, the tables, and the buffer of a round of
+// checks. The prior is not kept: the variable phase forms it again from
+// the LLRs, llr - max, the same float.
+// The edge messages live in the cluster's slice of the global scratch
+// (`torch.empty` in the wrapper; [C cpr dc, Q] floats, then the posterior
+// [C nv, Q] where PS is false), so the clusters that run at once move
+// them through the L2 (GF(256), N = 1200: 2.4 MB a slice, 15 clusters
+// 37 MB of the 50 MB). A persistent grid of as many clusters as
+// cudaOccupancyMaxActiveClusters allows walks the frames.
+//   CN phase, the rank's checks in rounds that fit the buffer, block
+//   barriers between the steps (as the cluster kernel):
+//   A. per edge row, one warp, lane l holding exp positions l, l + 32,
+//      ...: U from the variable's posterior row (distributed shared
+//      memory) and the edge's message row (the slice; not read in the
+//      first iteration, where it is 0 and x - 0 is x), both rotated by
+//      the edge's shift; exp(U) into the buffer in exp order. One row in
+//      flight a warp at q = 256 (two, the cluster kernel's, spill).
+//   B. one thread per row sums it serially in exp order.
+//   C. per row, one warp: P read at position log x + 1, F = WHT(P) in x
+//      order, in place.
+//   D. one thread per (check, symbol): the suffix products in registers
+//      (at most DC of them), then G_j = prefix * suf(j) written over F_j,
+//      which the prefix has already taken.
+//   E. per row, one warp: WHT(G_j), floor, log, written in the buffer at
+//      the exp-order position of h^-1 x, then the whole row to the slice
+//      with 16-byte stores (pad rows are never read and are not stored).
+//   VN phase: one warp per owned variable, two at a time: its message rows
+//   from the slice (16-byte loads), in slot order, plus the prior from the
+//   LLR row (asked into the L2 when the phase starts, then copied
+//   asynchronously into the round buffer, free in this phase, and read
+//   there in exp order); the posterior stored, the hard decision by warp
+//   shuffles.
+//   Syndrome: the cluster kernel's (one warp per check, one flag a rank).
+// cluster.sync() (barrier.cluster arrive.release / wait.acquire)
+// separates the CN, VN and syndrome phases. Data the kernel writes to the
+// slice is read and written with .cg accesses (L2, not the SM's L1), so
+// what one rank wrote before a cluster barrier, another reads after it.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr float kProbFloor = 1e-12f;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxDc = 32;                // one serial softmax sum per lane
-constexpr size_t kMaxSmem = 232448;       // per-block dynamic shared memory, sm_90
+// Warps per block: the cluster kernel's (16 at q = 256, where 128
+// registers a thread hold step A's rows; 24 below).
+template <int Q>
+constexpr int max_warps() { return Q >= 256 ? 16 : 24; }
+constexpr int kMaxDc = 32;
+constexpr int kMaxCluster = 8;
+constexpr int kVnRows = 2;                // variables a warp takes at once in the VN phase
+constexpr size_t kMaxSmem = 232448;       // per-block shared memory, sm_90
 
 struct Tables {
-  const int* cn_vn;      // [M*dc] variable of each edge slot (pads -> 0)
-  const int* cn_real;    // [M*dc] 1 on real slots, 0 on pads
-  const int* perm_down;  // [M*dc*q] h^-1 x
-  const int* vn_edge;    // [N*dv] edge slot of each variable slot (pads -> M*dc)
-  const int* syn_k;      // [M*dc*p] h * 2^t (0 on pads)
+  const int* edge_info;  // [C, cpr*dc] shift << 20 | rank << 16 | posterior row
+                         // of each of the rank's edge slots; -1 on pads
+  const int* row_src;    // [C, nv*dv] rank << 16 | message row of each slot of
+                         // each of the rank's variables; -1 on pads
+  const int* row_var;    // [C, nv] variable of each posterior row; -1 if unused
   const int* n2e;        // [q] exp-order basis: 0, 1, a, a^2, ...
+  const int* gf_log;     // [q] (log 0 unused)
+  const int* gf_exp;     // [2(q - 1)] a^i, doubled
 };
 
-size_t smem_bytes(int N, int dc, int Q) {
-  // per warp dc rows of Q + 1 floats and dc sums; per variable mx and hard
-  return ((size_t)kWarps * dc * (Q + 2) + 2 * (size_t)N) * sizeof(float);
+// Rows of Q + 4 floats in the round buffer: the round's rc dc edge rows,
+// and at least kVnRows a warp (the variable phase's LLR rows).
+__host__ __device__ int buf_rows(int rc, int dc, int W) { return max(rc * dc, kVnRows * W); }
+
+// Dynamic shared memory of a block, in the order the kernel lays it out:
+// the posterior [nv, Q] (when PS), the round buffer and the rc dc sums,
+// max_q llr [nv], hard [nv], two syndrome flags, and the rank's tables
+// (edge_info [cpr dc], row_src [nv dv], row_var [nv]).
+// kernels/qspa_resident.py:scratch_smem_bytes mirrors it and adds the
+// static tables (n2e [Q], log [Q] and exp [2Q] ints).
+size_t dyn_bytes(int nv, int cpr, int rc, int dc, int dv, int W, int Q, bool ps) {
+  return ((ps ? (size_t)nv * Q : 0) + (size_t)buf_rows(rc, dc, W) * (Q + 4) + (size_t)rc * dc +
+          2 * (size_t)nv + 2 + (size_t)cpr * dc + (size_t)nv * dv + nv) *
+         sizeof(float);
+}
+
+// Floats of one cluster's slice: the messages, then the posterior if !ps.
+__host__ __device__ size_t slice_floats(int C, int nv, int cpr, int dc, int Q, bool ps) {
+  return (size_t)C * cpr * dc * Q + (ps ? 0 : (size_t)C * nv * Q);
+}
+
+__device__ __forceinline__ int rank_of(int loc) { return (loc >> 16) & 0xf; }
+__device__ __forceinline__ int row_of(int loc) { return loc & 0xffff; }
+__device__ __forceinline__ int shift_of(int info) { return info >> 20; }
+
+// Rows are kept in exp order: position 0 holds symbol 0, position i > 0
+// symbol a^(i-1); multiplying by h^-1 rotates positions 1 .. Q - 1 by
+// sh = (Q - 1 - log h) mod (Q - 1).
+template <int Q>
+__device__ __forceinline__ int rot(int i, int sh) {
+  if (i == 0) return 0;
+  const int j = i - 1 + sh;
+  return (j >= Q - 1 ? j - (Q - 1) : j) + 1;
 }
 
 // Unnormalized WHT of the warp's Q-vector, r[k] holding symbol k * 32 +
-// lane: stages h = 1, 2, ..., Q / 2 writing (lo + hi, lo - hi).
+// lane: stages h = 1, 2, ..., Q / 2 writing (lo + hi, lo - hi). Across
+// lanes the upper lane forms lo - hi as (-hi) + lo, the same float.
 template <int Q>
 __device__ __forceinline__ void wht_warp(float (&r)[Q / 32], int lane) {
   constexpr int K = Q / 32;
 #pragma unroll
   for (int h = 1; h < 32; h <<= 1) {
+    const unsigned neg = (lane & h) ? 0x80000000u : 0u;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const float o = __shfl_xor_sync(kFull, r[k], h);
-      r[k] = (lane & h) ? (o - r[k]) : (r[k] + o);
+      r[k] = __uint_as_float(__float_as_uint(r[k]) ^ neg) + o;
     }
   }
 #pragma unroll
@@ -102,6 +173,30 @@ __device__ __forceinline__ void wht_warp(float (&r)[Q / 32], int lane) {
   }
 }
 
+// Whole-row moves with 8- or 16-byte accesses: a lane moves V = 2 or 4
+// consecutive floats, positions (kk * 32 + lane) V + c, kk < Q / (32 V).
+template <int Q>
+__host__ __device__ constexpr int vec_width() { return Q / 32 >= 4 ? 4 : 2; }
+// Slice accesses (.cg: through the L2, whichever SM wrote the data).
+__device__ __forceinline__ void ld_cg(const float* p, float (&o)[4]) {
+  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void ld_cg(const float* p, float (&o)[2]) {
+  const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+  o[0] = v.x; o[1] = v.y;
+}
+// A posterior row: shared memory (any rank's) when PS, else the slice.
+template <bool PS>
+__device__ __forceinline__ float ld_post(const float* p) { return PS ? *p : __ldcg(p); }
+template <bool PS>
+__device__ __forceinline__ void st_post(float* p, float v) {
+  if (PS)
+    *p = v;
+  else
+    __stcg(p, v);
+}
+
 // (max, lowest symbol reaching it) over the warp; every lane gets it.
 __device__ __forceinline__ int warp_argmax(float best, int idx) {
 #pragma unroll
@@ -116,37 +211,75 @@ __device__ __forceinline__ int warp_argmax(float best, int idx) {
   return idx;
 }
 
-// 1 when every check is satisfied. Reads hard[] (caller syncs before);
-// returns the same value in every thread of the block.
-__device__ int syndrome_ok(const int* hard, const Tables& t, int M, int dc,
-                           int P) {
-  int bad = 0;
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    int x = 0;
-    for (int j = 0; j < dc; ++j) {
-      const int e = m * dc + j;
-      const int sym = hard[__ldg(&t.cn_vn[e])];
-      for (int b = 0; b < P; ++b)
-        if ((sym >> b) & 1) x ^= __ldg(&t.syn_k[e * P + b]);
-    }
-    bad |= (x != 0);
-  }
-  return !__syncthreads_or(bad);
+// The rank's view: shared-memory state, buffers and tables, and its
+// cluster's slice.
+struct Rank {
+  float* post;       // [nv, Q] shared (PS) or the rank's rows of the slice
+  float* buf;        // [rc dc, Q + 4] the round's edge rows
+  float* sums;       // [rc dc]
+  float* mx;         // [nv] max_q llr of each posterior row's variable
+  int* hard;         // [nv]
+  int* flag;         // [2]
+  int* edge_info;    // [cpr dc]
+  int* row_src;      // [nv dv]
+  int* row_var;      // [nv]
+  const int* n2e;    // [Q]
+  const int* log;    // [Q]
+  const int* exp;    // [2Q]
+  float* msg;        // the slice's messages [C cpr dc, Q]
+  float* gpost;      // the slice's posterior [C nv, Q] (unused when PS)
+  int rank, nv, cpr, nchk, rc, dc, dv;
+};
+
+// Posterior row `row` of rank `rank`.
+template <int Q, bool PS>
+__device__ __forceinline__ const float* post_row(const cg::cluster_group& cl, const Rank& r,
+                                                 int rank, int row) {
+  if (PS) return cl.map_shared_rank(r.post, rank) + row * Q;
+  return r.gpost + ((size_t)rank * r.nv + row) * Q;
 }
 
-// Start of a frame: mx[v] = max_q llr, post = prior = llr - mx, lc = 0,
-// hard = argmax of the prior.
+// 1 when every check of the code is satisfied, the same in every thread of
+// the cluster (the cluster kernel's syndrome_ok): one warp per check of the
+// rank, each rank one flag in flag[slot], ORed after a cluster barrier.
 template <int Q>
-__device__ void init_phase(const float* L, float* post, float* lc, float* mx,
-                           int* hard, int N, int E) {
+__device__ int syndrome_ok(const cg::cluster_group& cl, const Rank& r, int slot) {
+  const int lane = threadIdx.x & 31;
+  const int W = blockDim.x >> 5;
+  int bad = 0;
+  for (int lm = threadIdx.x >> 5; lm < r.nchk; lm += W) {
+    const int info = lane < r.dc ? r.edge_info[lm * r.dc + lane] : -1;
+    unsigned prod = 0;
+    if (info >= 0) {
+      const int sym = cl.map_shared_rank(r.hard, rank_of(info))[row_of(info)];
+      const int sh = shift_of(info);            // log h = (Q - 1 - sh) mod (Q - 1)
+      if (sym) prod = r.exp[r.log[sym] + (sh ? Q - 1 - sh : 0)];
+    }
+    bad |= __reduce_xor_sync(kFull, prod) != 0;
+  }
+  bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) r.flag[slot] = bad;
+  cl.sync();
+  const int C = (int)cl.num_blocks();
+  const int any = (int)threadIdx.x < C ? *cl.map_shared_rank(r.flag + slot, threadIdx.x) : 0;
+  return !__syncthreads_or(any);
+}
+
+// Start of a frame: post = llr - max_q llr for the rank's variables, in
+// exp order, mx = that max, hard = argmax.
+template <int Q, bool PS>
+__device__ void init_phase(const float* L, const Rank& r) {
   constexpr int K = Q / 32;
   const int lane = threadIdx.x & 31;
-  for (int v = threadIdx.x >> 5; v < N; v += kWarps) {
+  const int W = blockDim.x >> 5;
+  for (int i = threadIdx.x >> 5; i < r.nv; i += W) {
+    const int v = r.row_var[i];
+    if (v < 0) continue;
     float x[K];
     float m = -INFINITY;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      x[k] = L[v * Q + k * 32 + lane];
+      x[k] = __ldg(&L[(size_t)v * Q + r.n2e[k * 32 + lane]]);
       m = fmaxf(m, x[k]);
     }
 #pragma unroll
@@ -155,255 +288,452 @@ __device__ void init_phase(const float* L, float* post, float* lc, float* mx,
     int idx = Q;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
+      const int a = k * 32 + lane;
       const float p = x[k] - m;
-      post[v * Q + k * 32 + lane] = p;
-      if (p > best) {
+      st_post<PS>(r.post + i * Q + a, p);
+      const int sym = r.n2e[a];
+      if (p > best || (p == best && sym < idx)) {
         best = p;
-        idx = k * 32 + lane;
+        idx = sym;
       }
     }
     idx = warp_argmax(best, idx);
     if (lane == 0) {
-      mx[v] = m;
-      hard[v] = idx;
+      r.hard[i] = idx;
+      r.mx[i] = m;
     }
   }
-  for (int i = threadIdx.x; i < E * Q; i += blockDim.x) lc[i] = 0.f;
 }
 
-// Check-node phase: every check's dc edge messages lc[e] are replaced.
-// Warp w owns checks w, w + kWarps, ...; buf is its dc x (Q + 1) rows,
-// sums its dc softmax sums.
-template <int Q>
-__device__ void cn_phase(const float* post, float* lc, float* buf, float* sums,
-                         const int* s_n2e, const Tables& t, int M, int dc) {
-  constexpr int K = Q / 32;
-  constexpr int R = Q + 1;
-  const int lane = threadIdx.x & 31;
-  for (int m = threadIdx.x >> 5; m < M; m += kWarps) {
-    // exp(U) of every edge of the check
-    for (int j = 0; j < dc; ++j) {
-      const int e = m * dc + j;
-      const int v = __ldg(&t.cn_vn[e]);
+// Step D for the round's columns (check, symbol): the suffix products in
+// registers, then G_j = prefix * suf(j) over F_j; DC >= dc.
+template <int Q, int DC>
+__device__ void loo_products(const Rank& r, int ncol) {
+  constexpr int RS = Q + 4;
+  const int dc = r.dc;
+  for (int i = threadIdx.x; i < ncol; i += blockDim.x) {
+    float* col = r.buf + (i / Q) * dc * RS + i % Q;
+    float suf[DC];
+    float acc = 1.f;
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int pd = __ldg(&t.perm_down[e * Q + k * 32 + lane]);
-        buf[j * R + k * 32 + lane] = expf(post[v * Q + pd] - lc[e * Q + pd]);
+    for (int j = DC - 1; j >= 0; --j) {
+      if (j < dc) {
+        suf[j] = acc;
+        acc = acc * col[j * RS];
       }
     }
-    __syncwarp();
-    // softmax sums, serially in exp order: lane j sums row j
-    if (lane < dc) {
-      const float* row = buf + lane * R;
-      float s = row[s_n2e[0]];
-      for (int k = 1; k < Q; ++k) s += row[s_n2e[k]];
-      sums[lane] = s;
+    acc = 1.f;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      if (j < dc) {
+        const float f = col[j * RS];
+        col[j * RS] = acc * suf[j];
+        acc = acc * f;
+      }
     }
-    __syncwarp();
-    // spectra F_j = WHT(P_j), in place (a lane touches only its symbols)
-    for (int j = 0; j < dc; ++j) {
-      const bool real = __ldg(&t.cn_real[m * dc + j]) != 0;
-      const float s = sums[j];
-      float r[K];
+  }
+}
+
+// Check-node phase over the rank's checks, rc at a time, steps A-E of the
+// header; logx[k] = log(k * 32 + lane); `first`: the messages are 0.
+template <int Q, bool PS>
+__device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (&logx)[Q / 32],
+                         bool first) {
+  constexpr int K = Q / 32;
+  constexpr int RS = Q + 4;                   // buffer row stride: 16-byte rows
+  constexpr int G = K >= 8 ? 1 : 8 / K;       // rows in flight per warp (more spill)
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int dc = r.dc;
+  for (int c0 = 0; c0 < r.nchk; c0 += r.rc) {
+    const int nrow = min(r.rc, r.nchk - c0) * dc;
+    const int* info = r.edge_info + c0 * dc;   // the round's rows t = (c - c0) dc + j
+    float* rows = r.msg + ((size_t)r.rank * r.cpr + c0) * dc * Q;   // their messages
+    // A: exp(U) of every real edge row, in exp order, G rows in flight
+    for (int t0 = warp * G; t0 < nrow; t0 += W * G) {
+      float u[G][K];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int loc = t0 + g < nrow ? info[t0 + g] : -1;
+        if (loc < 0) continue;
+        const float* pv = post_row<Q, PS>(cl, r, rank_of(loc), row_of(loc));
+        const float* lr = rows + (size_t)(t0 + g) * Q;
+        const int sh = shift_of(loc);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int src = rot<Q>(k * 32 + lane, sh);
+          u[g][k] = first ? ld_post<PS>(pv + src) : ld_post<PS>(pv + src) - __ldcg(lr + src);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (t0 + g >= nrow || info[t0 + g] < 0) continue;
+        float* bt = r.buf + (t0 + g) * RS;
+#pragma unroll
+        for (int k = 0; k < K; ++k) bt[k * 32 + lane] = expf(u[g][k]);
+      }
+    }
+    __syncthreads();
+    // B: softmax sums, serially in exp order, one thread per row
+    for (int t = threadIdx.x; t < nrow; t += blockDim.x) {
+      if (info[t] < 0) continue;
+      const float4* row = reinterpret_cast<const float4*>(r.buf + t * RS);
+      float s = 0.f;                     // 0 + first entry: the first entry
+#pragma unroll 4
+      for (int k = 0; k < Q / 4; ++k) {
+        const float4 v = row[k];
+        s = s + v.x;
+        s = s + v.y;
+        s = s + v.z;
+        s = s + v.w;
+      }
+      r.sums[t] = s;
+    }
+    __syncthreads();
+    // C: spectra F = WHT(P), P read in x order, written back in x order
+    for (int t = warp; t < nrow; t += W) {
+      const bool real = info[t] >= 0;
+      float* bt = r.buf + t * RS;
+      const float s = real ? r.sums[t] : 1.f;
+      float f[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const int x = k * 32 + lane;
-        r[k] = real ? buf[j * R + x] / s : (x == 0 ? 1.f : 0.f);
+        f[k] = real ? bt[x ? logx[k] + 1 : 0] / s : (x == 0 ? 1.f : 0.f);
       }
-      wht_warp<Q>(r, lane);
+      wht_warp<Q>(f, lane);
+      __syncwarp();
 #pragma unroll
-      for (int k = 0; k < K; ++k) buf[j * R + k * 32 + lane] = r[k];
+      for (int k = 0; k < K; ++k) bt[k * 32 + lane] = f[k];
     }
-    // leave-one-out products, inverse WHT, floor, log, permute up
-    float runp[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) runp[k] = 1.f;
-    for (int j = 0; j < dc; ++j) {
-      const int e = m * dc + j;
+    __syncthreads();
+    // D: the leave-one-out products, over the spectra
+    const int ncol = nrow / dc * Q;
+    if (dc <= 8)
+      loo_products<Q, 8>(r, ncol);
+    else if (dc <= 16)
+      loo_products<Q, 16>(r, ncol);
+    else
+      loo_products<Q, kMaxDc>(r, ncol);
+    __syncthreads();
+    // E: inverse WHT, floor, log, permuted up in the buffer, then the row
+    // to the slice
+    for (int t = warp; t < nrow; t += W) {
+      float* bt = r.buf + t * RS;
       float g[K];
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int x = k * 32 + lane;
-        float sj = 1.f;
-        for (int i = dc - 1; i > j; --i) sj = sj * buf[i * R + x];
-        g[k] = runp[k] * sj;
-        runp[k] = runp[k] * buf[j * R + x];
-      }
+      for (int k = 0; k < K; ++k) g[k] = bt[k * 32 + lane];
       wht_warp<Q>(g, lane);
+      __syncwarp();                       // the row is read before it is overwritten
+      const int loc = info[t];
+      if (loc < 0) continue;              // a pad row's messages are never read
+      const int sh = shift_of(loc);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const int pd = __ldg(&t.perm_down[e * Q + k * 32 + lane]);
-        lc[e * Q + pd] = logf(fmaxf(g[k] * (1.0f / Q), kProbFloor));
+        const int x = k * 32 + lane;            // to h^-1 x, in exp order
+        bt[x ? rot<Q>(logx[k] + 1, sh) : 0] = logf(fmaxf(g[k] * (1.0f / Q), kProbFloor));
       }
+      __syncwarp();
+      float4* dst = reinterpret_cast<float4*>(rows + (size_t)t * Q);
+      const float4* srcv = reinterpret_cast<const float4*>(bt);
+      for (int k = lane; k < Q / 4; k += 32) __stcg(dst + k, srcv[k]);
     }
-    __syncwarp();
+    __syncthreads();                      // the buffer is the next round's
   }
 }
 
-// Variable-node phase, one warp per variable: post = prior + the sum of
-// the variable's edge messages in slot order; with `decide`, hard = argmax.
-template <int Q>
-__device__ void vn_phase(const float* L, const float* mx, const float* lc,
-                         float* post, int* hard, const Tables& t, int N, int dv,
-                         int E, bool decide) {
-  constexpr int K = Q / 32;
+// Variable-node phase over the rank's variables, one warp per variable,
+// two at a time: post = prior + the sum of the variable's message rows in
+// slot order, a lane moving V consecutive floats; the prior llr - max
+// formed again from the LLR row, copied asynchronously into the warp's
+// rows of the round buffer (free in this phase) and gathered there in exp
+// order; with `decide`, hard = argmax.
+template <int Q, bool PS>
+__device__ void vn_phase(const float* L, const Rank& r, bool decide) {
+  constexpr int V = vec_width<Q>();
+  constexpr int NV = Q / 32 / V;
+  constexpr int NR = kVnRows;
+  constexpr int LQ = (Q / 4 + 31) / 32;      // 16-byte pieces of an LLR row a lane
   const int lane = threadIdx.x & 31;
-  for (int v = threadIdx.x >> 5; v < N; v += kWarps) {
-    float best = -INFINITY;
-    int idx = Q;
-    const float m = mx[v];
+  const int W = blockDim.x >> 5;
+  const int cdq = r.cpr * r.dc;
+  float* stage = r.buf + (size_t)(threadIdx.x >> 5) * NR * Q;   // the warp's LLR rows
+  // the LLR rows of every variable the warp will take, asked into the L2
+  // now, so that only the first pass waits on device memory
+  for (int i = (threadIdx.x >> 5) + lane * W; i < r.nv; i += 32 * W) {
+    const int var = r.row_var[i];
+    if (var >= 0)
+      asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(L + (size_t)var * Q),
+                   "r"(Q * 4) : "memory");
+  }
+  for (int i0 = threadIdx.x >> 5; i0 < r.nv; i0 += NR * W) {
+    float acc[NR][NV][V];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int a = k * 32 + lane;
-      float acc = 0.f;
-      for (int s = 0; s < dv; ++s) {
-        const int e = __ldg(&t.vn_edge[v * dv + s]);
-        if (e < E) acc += lc[e * Q + a];
-      }
-      const float p = (L[v * Q + a] - m) + acc;
-      post[v * Q + a] = p;
-      if (p > best) {
-        best = p;
-        idx = a;
+    for (int n = 0; n < NR; ++n)
+#pragma unroll
+      for (int kk = 0; kk < NV; ++kk)
+#pragma unroll
+        for (int c = 0; c < V; ++c) acc[n][kk][c] = 0.f;
+    // the variables' LLR rows, in x order, copied to the stage while the
+    // messages load (16-byte asynchronous copies: no registers held)
+#pragma unroll
+    for (int n = 0; n < NR; ++n) {
+      const int i = i0 + n * W;
+      const int var = i < r.nv ? r.row_var[i] : -1;
+#pragma unroll
+      for (int k = 0; k < LQ; ++k)
+        if (var >= 0 && k * 32 + lane < Q / 4)
+          __pipeline_memcpy_async(stage + n * Q + (k * 32 + lane) * 4,
+                                  L + (size_t)var * Q + (k * 32 + lane) * 4, 16);
+    }
+    __pipeline_commit();
+    for (int s = 0; s < r.dv; ++s) {
+#pragma unroll
+      for (int n = 0; n < NR; ++n) {
+        const int i = i0 + n * W;
+        const int src = i < r.nv ? r.row_src[i * r.dv + s] : -1;
+        if (src < 0) continue;
+        const float* row = r.msg + ((size_t)rank_of(src) * cdq + row_of(src)) * Q;
+#pragma unroll
+        for (int kk = 0; kk < NV; ++kk) {
+          float v[V];
+          ld_cg(row + (kk * 32 + lane) * V, v);
+#pragma unroll
+          for (int c = 0; c < V; ++c) acc[n][kk][c] += v[c];
+        }
       }
     }
-    if (decide) {
-      idx = warp_argmax(best, idx);
-      if (lane == 0) hard[v] = idx;
+    __pipeline_wait_prior(0);
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < NR; ++n) {
+      const int i = i0 + n * W;
+      if (i >= r.nv) continue;
+      const int var = r.row_var[i];
+      if (var < 0) continue;
+      const float* lv = stage + n * Q;
+      const float m = r.mx[i];
+      float best = -INFINITY;
+      int idx = Q;
+#pragma unroll
+      for (int kk = 0; kk < NV; ++kk) {
+        const int a0 = (kk * 32 + lane) * V;
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+          const int sym = r.n2e[a0 + c];
+          const float p = (lv[sym] - m) + acc[n][kk][c];
+          st_post<PS>(r.post + i * Q + a0 + c, p);
+          if (p > best || (p == best && sym < idx)) {
+            best = p;
+            idx = sym;
+          }
+        }
+      }
+      if (decide) {
+        idx = warp_argmax(best, idx);
+        if (lane == 0) r.hard[i] = idx;
+      }
     }
+    __syncwarp();                         // the stage is read before the next rows
   }
 }
 
-template <int Q>
-__global__ void __launch_bounds__(kThreads)
-qspa_resident_cl_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
-                        uint8_t* __restrict__ done_out, int* __restrict__ iters_out,
-                        float* scratch, int B, int N, int M, int dc,
-                        int dv, int P, Tables t, int max_iters, int early_term,
-                        int stats_each_iter) {
+template <int Q, bool PS>
+__global__ void __launch_bounds__(max_warps<Q>() * 32, 1)
+qspa_scratch_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
+                    uint8_t* __restrict__ done_out, int* __restrict__ iters_out,
+                    float* scratch, int B, int N, int M, int dc, int dv, int nv, int cpr,
+                    int rc, Tables t, int max_iters, int early_term, int stats_each_iter) {
+  constexpr int K = Q / 32;
   extern __shared__ float smem[];
-  __shared__ int s_n2e[Q];
-  const int E = M * dc;
-  const int warp = threadIdx.x >> 5;
-  float* buf = smem + warp * dc * (Q + 1);              // [dc, Q + 1] per warp
-  float* sums = smem + kWarps * dc * (Q + 1) + warp * dc;  // [dc] per warp
-  float* mx = smem + kWarps * dc * (Q + 2);             // [N]
-  int* hard = reinterpret_cast<int*>(mx + N);           // [N]
-  float* post = scratch + (size_t)blockIdx.x * (N + E) * Q;   // [N, Q]
-  float* lc = post + (size_t)N * Q;                     // [E, Q] c-domain
-  for (int i = threadIdx.x; i < Q; i += blockDim.x) s_n2e[i] = __ldg(&t.n2e[i]);
+  __shared__ int s_n2e[Q], s_log[Q], s_exp[2 * Q];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const int lane = threadIdx.x & 31;
+  const int cid = blockIdx.x / C, ncl = gridDim.x / C;
+  float* slice = scratch + (size_t)cid * slice_floats(C, nv, cpr, dc, Q, PS);
+  Rank r;
+  r.msg = slice;
+  r.gpost = slice + (size_t)C * cpr * dc * Q;
+  r.post = PS ? smem : r.gpost + (size_t)rank * nv * Q;
+  r.buf = smem + (PS ? nv * Q : 0);
+  r.sums = r.buf + buf_rows(rc, dc, (int)(blockDim.x >> 5)) * (Q + 4);
+  r.mx = r.sums + rc * dc;
+  r.hard = reinterpret_cast<int*>(r.mx + nv);
+  r.flag = r.hard + nv;
+  r.edge_info = r.flag + 2;
+  r.row_src = r.edge_info + cpr * dc;
+  r.row_var = r.row_src + nv * dv;
+  r.n2e = s_n2e;
+  r.log = s_log;
+  r.exp = s_exp;
+  r.rank = rank;
+  r.nv = nv;
+  r.cpr = cpr;
+  r.nchk = max(0, min(cpr, M - rank * cpr));
+  r.rc = rc;
+  r.dc = dc;
+  r.dv = dv;
+  for (int i = threadIdx.x; i < Q; i += blockDim.x) {
+    s_n2e[i] = __ldg(&t.n2e[i]);
+    s_log[i] = __ldg(&t.gf_log[i]);
+  }
+  for (int i = threadIdx.x; i < 2 * (Q - 1); i += blockDim.x) s_exp[i] = __ldg(&t.gf_exp[i]);
+  for (int i = threadIdx.x; i < cpr * dc; i += blockDim.x)
+    r.edge_info[i] = __ldg(&t.edge_info[rank * cpr * dc + i]);
+  for (int i = threadIdx.x; i < nv * dv; i += blockDim.x)
+    r.row_src[i] = __ldg(&t.row_src[rank * nv * dv + i]);
+  for (int i = threadIdx.x; i < nv; i += blockDim.x) r.row_var[i] = __ldg(&t.row_var[rank * nv + i]);
+  int logx[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) logx[k] = __ldg(&t.gf_log[k * 32 + lane]);
+  __syncthreads();
   // Outputs are final once a frame is done, except in throughput mode,
   // where the decision is taken after the whole budget.
   const bool may_stop = early_term || stats_each_iter;
+  int slot = 0;
 
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+  for (int b = cid; b < B; b += ncl) {
     const float* L = llr + (size_t)b * N * Q;
-    init_phase<Q>(L, post, lc, mx, hard, N, E);
-    __syncthreads();
-    const int done0 = syndrome_ok(hard, t, M, dc, P);
+    init_phase<Q, PS>(L, r);
+    cl.sync();
+    const int done0 = syndrome_ok<Q>(cl, r, slot);
+    slot ^= 1;
     int done = done0;
     int iters = 0;
     for (int it = 0; it < max_iters; ++it) {
       if (may_stop && done) break;
-      cn_phase<Q>(post, lc, buf, sums, s_n2e, t, M, dc);
-      __syncthreads();
-      vn_phase<Q>(L, mx, lc, post, hard, t, N, dv, E,
-                  stats_each_iter || it == max_iters - 1);
-      __syncthreads();
+      cn_phase<Q, PS>(cl, r, logx, it == 0);
+      cl.sync();
+      vn_phase<Q, PS>(L, r, stats_each_iter || it == max_iters - 1);
+      cl.sync();
       if (!stats_each_iter) {
         iters += 1 - done0;
         continue;
       }
-      done = syndrome_ok(hard, t, M, dc, P);
+      done = syndrome_ok<Q>(cl, r, slot);
+      slot ^= 1;
       iters += 1;
     }
-    if (!stats_each_iter) done = syndrome_ok(hard, t, M, dc, P);
-    for (int v = threadIdx.x; v < N; v += blockDim.x)
-      hard_out[(size_t)b * N + v] = hard[v];
-    if (threadIdx.x == 0) {
+    if (!stats_each_iter) {
+      done = syndrome_ok<Q>(cl, r, slot);
+      slot ^= 1;
+    }
+    for (int i = threadIdx.x; i < nv; i += blockDim.x) {
+      const int v = r.row_var[i];
+      if (v >= 0) hard_out[(size_t)b * N + v] = r.hard[i];
+    }
+    if (rank == 0 && threadIdx.x == 0) {
       done_out[b] = (uint8_t)done;
       iters_out[b] = iters;
     }
-    __syncthreads();                     // hard and mx are the next frame's
+    __syncthreads();          // hard[] is read out before the next frame's init writes it
   }
+  cl.sync();                  // no rank leaves while another reads its shared memory
 }
 
-// Checks the layout against the card's limits, sets the kernel's dynamic
-// shared memory (*smem bytes) and returns the blocks of the persistent
-// grid (at most B).
-template <int Q>
-cudaError_t grid_size(int B, int N, int dc, int* grid, int* smem) {
-  const size_t bytes = smem_bytes(N, dc, Q);
-  // the static s_n2e[Q] shares the block's shared memory
-  if (bytes + Q * sizeof(int) > kMaxSmem || dc > kMaxDc) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(qspa_resident_cl_kernel<Q>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+template <int Q, bool PS>
+cudaError_t configure_ps(int C, int W, size_t dyn, cudaLaunchConfig_t* cfg,
+                         cudaLaunchAttribute* attr) {
+  cudaError_t err = cudaFuncSetAttribute(qspa_scratch_kernel<Q, PS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return err;
-  int dev, sms, per_sm;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, qspa_resident_cl_kernel<Q>, kThreads, bytes)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long resident = (long)per_sm * sms;
-  *grid = (int)(B < resident ? B : resident);
-  *smem = (int)bytes;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(C);
+  cfg->blockDim = dim3(W * 32);
+  cfg->dynamicSmemBytes = dyn;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
   return cudaSuccess;
 }
 
-template <int Q>
-cudaError_t launch(const float* llr, int* hard, uint8_t* done, int* iters,
-                   float* scratch, int grid, int smem, int B, int N, int M, int dc,
-                   int dv, int P, const Tables& t, int max_iters, int early_term,
-                   int stats_each_iter, cudaStream_t stream) {
-  qspa_resident_cl_kernel<Q><<<grid, kThreads, smem, stream>>>(
-      llr, hard, done, iters, scratch, B, N, M, dc, dv, P, t, max_iters,
-      early_term, stats_each_iter);
+// The launch configuration of one cluster of C blocks of W warps with
+// `smem` bytes of shared memory each in all (the static tables included),
+// after checking it against the layout and the kernel's limits; then the
+// clusters that run at once (*clusters), and, with `launch`, the decode on
+// a grid of `grid` clusters.
+template <int Q, bool PS>
+cudaError_t run(int C, int nv, int cpr, int rc, int W, int smem, int dc, int dv, int* clusters,
+                bool launch, const float* llr, int* hard, uint8_t* done, int* iters,
+                float* scratch, int grid, int B, int N, int M, const Tables& t, int max_iters,
+                int early_term, int stats_each_iter, cudaStream_t stream) {
+  const size_t dyn = dyn_bytes(nv, cpr, rc, dc, dv, W, Q, PS);
+  if (C < 1 || C > kMaxCluster || (C & (C - 1)) || W < 1 || W > max_warps<Q>() || dc < 1 ||
+      dc > kMaxDc || dv < 1 || nv < 1 || cpr < 1 || rc < 1 || rc > cpr || nv > 0xffff ||
+      cpr * dc > 0xffff || dyn + 4 * Q * sizeof(int) != (size_t)smem ||
+      (size_t)smem > kMaxSmem)
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure_ps<Q, PS>(C, W, dyn, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaOccupancyMaxActiveClusters(clusters, qspa_scratch_kernel<Q, PS>, &cfg)) !=
+      cudaSuccess)
+    return err;
+  if (*clusters < 1) return cudaErrorInvalidConfiguration;
+  if (!launch) return cudaSuccess;
+  if (grid < 1 || (long long)M > (long long)C * cpr || (long long)N > (long long)C * nv)
+    return cudaErrorInvalidValue;
+  cfg.gridDim = dim3(grid * C);
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, qspa_scratch_kernel<Q, PS>, llr, hard, done, iters, scratch,
+                           B, N, M, dc, dv, nv, cpr, rc, t, max_iters, early_term,
+                           stats_each_iter);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+cudaError_t dispatch(int q, int ps, int C, int nv, int cpr, int rc, int W, int smem, int dc,
+                     int dv, int* clusters, bool launch, const float* llr, int* hard,
+                     uint8_t* done, int* iters, float* scratch, int grid, int B, int N, int M,
+                     const Tables& t, int max_iters, int early_term, int stats_each_iter,
+                     cudaStream_t s) {
+#define NBLDPC_SCRATCH_RUN(QQ, PP)                                                        \
+  run<QQ, PP>(C, nv, cpr, rc, W, smem, dc, dv, clusters, launch, llr, hard, done, iters, \
+              scratch, grid, B, N, M, t, max_iters, early_term, stats_each_iter, s)
+  switch (q) {
+    case 64: return ps ? NBLDPC_SCRATCH_RUN(64, true) : NBLDPC_SCRATCH_RUN(64, false);
+    case 128: return ps ? NBLDPC_SCRATCH_RUN(128, true) : NBLDPC_SCRATCH_RUN(128, false);
+    case 256: return ps ? NBLDPC_SCRATCH_RUN(256, true) : NBLDPC_SCRATCH_RUN(256, false);
+    default: return cudaErrorInvalidValue;
+  }
+#undef NBLDPC_SCRATCH_RUN
 }
 
 }  // namespace
 
-// Blocks of the persistent grid for a batch of B frames (at most B) and
-// the dynamic shared memory of a block, both for qspa_resident_cl_decode:
-// the caller sizes the scratch as grid * (N + M dc) * q floats. Returns
-// cudaErrorInvalidValue for a q, dc or N the kernel does not take.
-extern "C" int qspa_resident_cl_grid(int B, int N, int M, int dc, int q,
-                                     int* grid, int* smem) {
-  (void)M;
-  switch (q) {
-    case 64: return grid_size<64>(B, N, dc, grid, smem);
-    case 128: return grid_size<128>(B, N, dc, grid, smem);
-    case 256: return grid_size<256>(B, N, dc, grid, smem);
-    default: return cudaErrorInvalidValue;
-  }
+// cudaOccupancyMaxActiveClusters of the kernel at a plan from
+// kernels/qspa_resident.py:plan_scratch: how many clusters run at once.
+extern "C" int qspa_scratch_occupancy(int q, int dc, int dv, int C, int nv, int cpr, int rc,
+                                      int W, int smem, int post_shared, int* clusters) {
+  const Tables t{};
+  return dispatch(q, post_shared, C, nv, cpr, rc, W, smem, dc, dv, clusters, false, nullptr,
+                  nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, t, 0, 0, 0, nullptr);
 }
 
+// The decode of B frames under a plan: clusters of C blocks of W warps,
+// nv posterior rows and cpr checks per rank (rc checks per round), `smem`
+// bytes of shared memory per block in all, the posterior in shared memory
+// when post_shared; `grid` clusters, each with its slice of `scratch`
+// (grid x (C cpr dc + (post_shared ? 0 : C nv)) x q floats, allocated by
+// the caller). Returns cudaErrorInvalidValue for a plan or q the kernel
+// does not take.
 extern "C" int qspa_resident_cl_decode(
-    const float* llr, int* hard, uint8_t* done, int* iters, float* scratch,
-    int grid, int smem, int B, int N, int M, int dc, int dv, int q,
-    const int* cn_vn, const int* cn_real, const int* perm_down,
-    const int* vn_edge, const int* syn_k, const int* n2e,
-    int max_iters, int early_term, int stats_each_iter, void* stream) {
-  const Tables t{cn_vn, cn_real, perm_down, vn_edge, syn_k, n2e};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float* llr, int* hard, uint8_t* done, int* iters, float* scratch, int grid, int B,
+    int N, int M, int dc, int dv, int q, int C, int nv, int cpr, int rc, int W, int smem,
+    int post_shared, const int* edge_info, const int* row_src, const int* row_var,
+    const int* n2e, const int* gf_log, const int* gf_exp, int max_iters, int early_term,
+    int stats_each_iter, void* stream) {
+  const Tables t{edge_info, row_src, row_var, n2e, gf_log, gf_exp};
   if (B == 0) return cudaSuccess;
-  if (grid < 1) return cudaErrorInvalidValue;
-  switch (q) {
-    case 64:
-      return launch<64>(llr, hard, done, iters, scratch, grid, smem, B, N, M, dc,
-                        dv, 6, t, max_iters, early_term, stats_each_iter, s);
-    case 128:
-      return launch<128>(llr, hard, done, iters, scratch, grid, smem, B, N, M, dc,
-                         dv, 7, t, max_iters, early_term, stats_each_iter, s);
-    case 256:
-      return launch<256>(llr, hard, done, iters, scratch, grid, smem, B, N, M, dc,
-                         dv, 8, t, max_iters, early_term, stats_each_iter, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  int clusters = 0;
+  return dispatch(q, post_shared, C, nv, cpr, rc, W, smem, dc, dv, &clusters, true, llr, hard,
+                  done, iters, scratch, grid, B, N, M, t, max_iters, early_term,
+                  stats_each_iter, static_cast<cudaStream_t>(stream));
 }

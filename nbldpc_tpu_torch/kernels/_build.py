@@ -49,13 +49,16 @@ SIGNATURES = {
     "qspa_resident_field": [_I, _P],
     # out (device), stream: positive normal floats where K0's log differs from logf
     "qspa_resident_log_mismatches": [_P, _P],
-    # B N M dc q, out: blocks of the persistent grid, shared bytes per block
-    "qspa_resident_cl_grid": [_I, _I, _I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)],
     "qspa_resident_cl_decode": [_P, _P, _P, _P, _P,      # llr, outs, scratch
-                                _I, _I,                  # grid, shared bytes
+                                _I,                      # clusters of the grid
                                 _I, _I, _I, _I, _I, _I,  # B N M dc dv q
-                                _P, _P, _P, _P, _P, _P,  # tables
+                                _I, _I, _I, _I, _I, _I,  # plan: C rows checks round warps smem
+                                _I,                      # posterior in shared memory
+                                _P, _P, _P,              # edge_info row_src row_var
+                                _P, _P, _P,              # n2e gf_log gf_exp
                                 _I, _I, _I, _P],         # iters, modes, stream
+    # q dc dv C rows checks round warps smem post_shared, out: clusters at once
+    "qspa_scratch_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "qspa_cluster_decode": [_P, _P, _P, _P,             # llr, hard, done, iters
                             _I, _I, _I, _I, _I, _I,     # B N M dc dv q
                             _I, _I, _I, _I, _I, _I,     # plan: C rows checks round warps smem

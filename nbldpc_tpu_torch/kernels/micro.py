@@ -368,18 +368,54 @@ cn_iteration.launches = 0
 
 # --- P5: rotation + softmax chain, two layouts ------------------------------
 
+def _blend_rot(z: torch.Tensor, rb: torch.Tensor) -> torch.Tensor:
+    """P5's rotation of z = X[1:] as the JAX probe writes it: for each bit
+    t, z <- z (1 - b_t) + roll(z, 2^t mod L) b_t."""
+    L = z.shape[0]
+    for t in range(rb.shape[0]):
+        s = (1 << t) % L
+        rolled = torch.cat([z[L - s:], z[:L - s]])
+        b = rb[t]
+        z = z * (1.0 - b) + rolled * b
+    return z
+
+
 def rot_softmax_plain(x: torch.Tensor, rb: torch.Tensor, iters: int) -> torch.Tensor:
     """iters x: X <- softmax_q(rot(X)) - 0.5, q on axis 0; rot rolls X[1:]
     (L = Q - 1 rows) by 2^t mod L where bit t of RB is set, as the blend
     Z (1 - b) + rolled b. Layout-agnostic: RB broadcasts over the frames."""
-    L = x.shape[0] - 1
     for _ in range(iters):
-        z = x[1:]
-        for t in range(rb.shape[0]):
-            s = (1 << t) % L
-            rolled = torch.cat([z[L - s:], z[:L - s]])
-            b = rb[t]
-            z = z * (1.0 - b) + rolled * b
+        ex = torch.exp(torch.cat([x[:1], _blend_rot(x[1:], rb)]))
+        x = ex / _serial_sum(ex, 0) - 0.5
+    return x
+
+
+def rot_amounts(rb: torch.Tensor, Q: int) -> tuple:
+    """P5's rotation of each column as one roll, as csrc/micro_layout.cu
+    forms it: (r, flat), shaped like RB[0]. flat where every RB entry of
+    the column is 0 or 1; there the blend is a roll of X[1:] by r = sum_t
+    b_t (2^t mod L) mod L (r is 0 elsewhere)."""
+    L = Q - 1
+    flat = ((rb == 0) | (rb == 1)).all(dim=0)
+    shifts = torch.tensor([(1 << t) % L for t in range(rb.shape[0])], device=rb.device)
+    r = ((rb == 1).long() * shifts.view(-1, *[1] * (rb.ndim - 1))).sum(dim=0) % L
+    return torch.where(flat, r, 0), flat
+
+
+def rot_softmax_rolled(x: torch.Tensor, rb: torch.Tensor, iters: int) -> torch.Tensor:
+    """P5 in the kernel's scheme: iteration 0 blends as rot_softmax_plain;
+    later iterations roll X[1:] of the flat columns by their rot_amounts
+    and blend the others. It equals rot_softmax_plain, NaN where it has
+    NaN: after one iteration every value is finite or its column all NaN,
+    where the blend by 0 and 1 is the roll but for the sign of a zero,
+    which exp erases."""
+    L = x.shape[0] - 1
+    r, flat = rot_amounts(rb, L + 1)
+    idx = (torch.arange(L, device=x.device).view(-1, *[1] * (x.ndim - 1)) - r) % L
+    for it in range(iters):
+        z = _blend_rot(x[1:], rb)
+        if it:
+            z = torch.where(flat, torch.gather(x[1:], 0, idx.expand_as(z)), z)
         ex = torch.exp(torch.cat([x[:1], z]))
         x = ex / _serial_sum(ex, 0) - 0.5
     return x
@@ -405,7 +441,8 @@ def _elem_dims(name: str, x: torch.Tensor, rb: torch.Tensor, layout: str) -> tup
 def rot_softmax(x: torch.Tensor, rb: torch.Tensor, iters: int,
                 layout: str = "new") -> torch.Tensor:
     """P5 on X [Q, DC, M, TB] with RB [4, DC, M, 1] ("new") or X [Q, DC,
-    TB, M] with RB [4, DC, 1, M] ("old"), f32, RB in {0, 1}."""
+    TB, M] with RB [4, DC, 1, M] ("old"), f32, RB in {0, 1} (any other
+    entry is blended, as the plain version does, every iteration)."""
     name = "micro_rot_softmax"
     _check(name, x, 4)
     _check(name, rb, 4)

@@ -18,7 +18,8 @@ shared memory, laid out by `k0_smem_layout`) for q <= 32 and K0-cl for
 32 < q <= 256: csrc/qspa_cluster.cu
 (a frame's state in the shared memory of a thread-block cluster, as
 `plan_cluster` lays it out) when the code's state fits a cluster of 8,
-else csrc/qspa_resident_cl.cu (the state in a global scratch). All take
+else csrc/qspa_resident_cl.cu (a frame a cluster too, as `plan_scratch`
+lays it out, its edge messages in a global slice a cluster). All take
 llr [B, N, q] and return (hard [B, N] int32, done [B] bool, iters [B]
 int32).
 """
@@ -51,6 +52,13 @@ K0_MAX_FRAMES = 4
 CLUSTER_SIZES = (1, 2, 4, 8)
 CLUSTER_WARPS = {64: 24, 128: 24, 256: 16}
 CLUSTER_MAX_DC = 32
+# K0-cl's scratch kernel: the part of the H100's 50 MB L2 that the slices
+# of the clusters running at once are meant to fit, and the card's SMs (a
+# grid of clusters of C blocks runs at most CARD_SMS // C at once)
+SCRATCH_L2_BYTES = 40 * 2**20
+CARD_SMS = 132
+# the cluster sizes plan_scratch chooses from
+SCRATCH_SIZES = CLUSTER_SIZES
 
 
 def _round_up(x: int, k: int) -> int:
@@ -177,6 +185,66 @@ def plan_cluster(graph: TannerGraph) -> ClusterPlan | None:
     return None
 
 
+def scratch_smem_bytes(q: int, dc: int, dv: int, rows: int, checks: int,
+                       round_checks: int, post_shared: bool) -> int:
+    """Shared memory of one block of K0-cl's scratch kernel: the posterior
+    rows (when they stay on chip), the round buffer (a round's edge rows
+    of q + 4 floats, at least two a warp: the variable phase stages its
+    LLR rows there) and the round's sums, max_q llr and the hard decision
+    of each row, two flags and the rank's tables (csrc/qspa_resident_cl.cu,
+    dyn_bytes), plus its static n2e [q], log [q] and exp [2q] int tables."""
+    buf_rows = max(round_checks * dc, 2 * CLUSTER_WARPS[q])
+    return 4 * ((rows * q if post_shared else 0) + buf_rows * (q + 4) + round_checks * dc
+                + 2 * rows + 2 + checks * dc + rows * dv + rows) + 16 * q
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ScratchPlan(ClusterPlan):
+    """The scratch kernel's partition of a frame over a cluster (the fields
+    of ClusterPlan), whether the posterior rows stay in shared memory
+    (`post_shared`), and the floats of one cluster's slice of the global
+    scratch: the edge messages [size * checks * dc, q], then, unless
+    post_shared, the posterior [size * rows, q]."""
+    post_shared: bool
+    slice_floats: int
+
+
+def plan_scratch(graph: TannerGraph) -> ScratchPlan | None:
+    """The scratch kernel's partition for 32 < q <= 256 and dc <= 32: of
+    the clusters in SCRATCH_SIZES whose ranks hold their share of the
+    posterior in shared memory, the one whose ranks run their checks in
+    the fewest rounds (every round costs five block barriers and a serial
+    sum), the smaller on a tie; where none holds it, clusters of 8 with the
+    posterior in the slice. Its check rounds as few as fit. None when
+    nothing fits (or q or dc is out of range)."""
+    g = graph
+    q, m, dc, dv = g.q, g.m, g.dc_max, g.dv_max
+    if not K0_MAX_Q < q <= MAX_Q or dc > CLUSTER_MAX_DC:
+        return None
+    E = m * dc
+    for shared, sizes in ((True, SCRATCH_SIZES), (False, CLUSTER_SIZES[-1:])):
+        best = None
+        for size in sizes:
+            checks = math.ceil(m / size)
+            rank, row, rows = _place_variables(g.np["vn_edge"], E, dc, size, checks)
+            most = 0
+            while most < checks and scratch_smem_bytes(q, dc, dv, rows, checks, most + 1,
+                                                       shared) <= MAX_SMEM_BYTES:
+                most += 1
+            if most < 1 or rows > 0xFFFF or checks * dc > 0xFFFF:
+                continue
+            rounds = math.ceil(checks / most)
+            if best is None or rounds < best[0]:
+                round_checks = math.ceil(checks / rounds)
+                best = (rounds, ScratchPlan(
+                    size, CLUSTER_WARPS[q], checks, rows, round_checks, rank, row,
+                    scratch_smem_bytes(q, dc, dv, rows, checks, round_checks, shared),
+                    shared, size * (checks * dc + (0 if shared else rows)) * q))
+        if best is not None:
+            return best[1]
+    return None
+
+
 def cluster_tables(graph: TannerGraph, plan: ClusterPlan) -> dict:
     """The int32 tables of the cluster kernel, by rank (each rank copies its
     slice into shared memory): edge_info [size, checks * dc] = shift << 20 |
@@ -258,7 +326,8 @@ class ResidentQSPA:
             np.minimum(host["vn_edge"], E - 1).astype(np.int64)).to(dev)
         self._real = torch.from_numpy(host["cn_mask"].reshape(E)).to(dev)
 
-        # K0-cl's cluster kernel: its partition (None: the scratch kernel)
+        # K0-cl's cluster kernel: its partition (None: the scratch kernel,
+        # whose partition and tables `scratch_layout` makes when first asked)
         self.cluster_plan = plan_cluster(g) if q > K0_MAX_Q else None
         if self.cluster_plan is not None:
             self.cluster = {k: t(v) for k, v in cluster_tables(g, self.cluster_plan).items()}
@@ -466,38 +535,73 @@ def cluster_occupancy(dec: ResidentQSPA, device) -> int:
     return out.value
 
 
+def scratch_layout(dec: ResidentQSPA) -> tuple:
+    """(plan_scratch of dec's graph, its tables on dec's device: those of
+    cluster_tables plus the field's log and exp), made once per decoder;
+    the plan is None where no partition fits."""
+    if "_scratch" not in dec.__dict__:
+        g = dec.graph
+        plan = plan_scratch(g) if g.q > K0_MAX_Q else None
+        tables = {}
+        if plan is not None:
+            host = dict(cluster_tables(g, plan), gf_log=g.gf.log, gf_exp=g.gf.exp)
+            tables = {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.int32)).to(g.device)
+                      for k, v in host.items()}
+        dec._scratch = (plan, tables)
+    return dec._scratch
+
+
+def _plan_args(plan: ScratchPlan) -> tuple:
+    """The plan as the C entry points take it."""
+    return (plan.size, plan.rows, plan.checks, plan.round_checks, plan.warps,
+            plan.smem_bytes, int(plan.post_shared))
+
+
+def scratch_occupancy(dec: ResidentQSPA, device) -> int:
+    """cudaOccupancyMaxActiveClusters of the scratch kernel at dec's
+    plan_scratch: the clusters its persistent grid runs at once."""
+    from nbldpc_tpu_torch.kernels import _build
+
+    g, (plan, _) = dec.graph, scratch_layout(dec)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(_build.library().qspa_scratch_occupancy(
+            g.q, g.dc_max, g.dv_max, *_plan_args(plan), ctypes.byref(out)),
+            "qspa_scratch_occupancy")
+    return out.value
+
+
 def resident_decode_cl_scratch(dec: ResidentQSPA, llr: torch.Tensor):
     """K0-cl's scratch kernel (csrc/qspa_resident_cl.cu) on a CUDA tensor
     llr [B, N, q] f32, q in {64, 128, 256}, for codes whose state no
-    cluster holds: a persistent grid walks the frames, each block through
-    its own slice of a scratch of grid x (N + M dc) x q floats (posterior
-    and edge messages). Raises ValueError on a tensor it does not take, a
-    CPU tensor included; the kernel's own check of q, dc and shared memory
-    raises RuntimeError."""
+    cluster holds: a persistent grid of min(B, occupancy) clusters, a frame
+    a cluster as `plan_scratch` lays it out, each cluster's edge messages
+    (and, for the largest codes, its posterior) in its own slice of a
+    scratch of grid x plan.slice_floats floats. Raises ValueError on a
+    tensor it does not take, a CPU tensor included, or a code no plan fits;
+    the kernel's own check of the plan raises RuntimeError."""
     g = dec.graph
     name = "qspa_resident_cl_decode"
     if llr.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {llr.device}")
     hard, done, iters = checked_outputs(dec, llr, name)
+    plan, c = scratch_layout(dec)
+    if plan is None:
+        raise ValueError(f"{name}: no cluster partition of GF({g.q}) N = {g.n}, "
+                         f"dc = {g.dc_max} fits the shared memory")
     B = llr.shape[0]
     if B == 0:
         return hard, done, iters
     from nbldpc_tpu_torch.kernels import _build
 
-    lib = _build.library()
-    with torch.cuda.device(llr.device):
-        grid, smem = ctypes.c_int(0), ctypes.c_int(0)
-        _build.check(lib.qspa_resident_cl_grid(B, g.n, g.m, g.dc_max, g.q,
-                                               ctypes.byref(grid), ctypes.byref(smem)),
-                     "qspa_resident_cl_grid")
-        scratch = torch.empty(grid.value * (g.n + g.m * g.dc_max) * g.q,
-                              dtype=torch.float32, device=llr.device)
+    grid = min(B, scratch_occupancy(dec, llr.device))
+    scratch = torch.empty(grid * plan.slice_floats, dtype=torch.float32, device=llr.device)
     _build.launch(resident_decode_cl_scratch, name, llr.device,
                   llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
-                  scratch.data_ptr(), grid.value, smem.value,
-                  B, g.n, g.m, g.dc_max, g.dv_max, g.q,
-                  dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(), dec.perm_down.data_ptr(),
-                  dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(), dec.n2e.data_ptr(),
+                  scratch.data_ptr(), grid, B, g.n, g.m, g.dc_max, g.dv_max, g.q,
+                  *_plan_args(plan), c["edge_info"].data_ptr(),
+                  c["row_src"].data_ptr(), c["row_var"].data_ptr(), dec.n2e.data_ptr(),
+                  c["gf_log"].data_ptr(), c["gf_exp"].data_ptr(),
                   dec.max_iters, int(dec.early_term), int(dec.stats_each_iter))
     return hard, done, iters
 

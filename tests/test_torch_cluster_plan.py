@@ -153,3 +153,93 @@ def test_perm_from_logs_matches_perm_down_small_codes(small_codes, name):
     g = port_graph(small_codes[name])
     got = perm_from_logs(g.gf.log, g.gf.exp, qr.cn_shift(g), g.q)
     assert np.array_equal(got, g.np["perm_down"].reshape(-1, g.q))
+
+
+# K0-cl's scratch kernel (csrc/qspa_resident_cl.cu): its partition
+# (plan_scratch) for the codes no cluster holds, GF(256) from about N = 480
+# and GF(64) from about N = 1800 (random dv = 2 codes, M = N / 3), and for
+# a code whose posterior no cluster of 8 holds either (GF(256), N = 2400)
+OVERSIZE = {"gf256_n480": (256, 480, 160), "gf256_n1200": (256, 1200, 400),
+            "gf64_n1800": (64, 1800, 600), "gf256_n2400": (256, 2400, 800)}
+
+
+def _oversize(name):
+    q, n, m = OVERSIZE[name]
+    return TannerGraph(random_regular_spec(q, n, m, seed=3), "cpu")
+
+
+@pytest.mark.parametrize("name", list(OVERSIZE))
+def test_scratch_plan_exists_where_no_cluster_fits(name):
+    g = _oversize(name)
+    assert qr.plan_cluster(g) is None
+    plan = qr.plan_scratch(g)
+    assert plan is not None and plan.size in qr.CLUSTER_SIZES
+    assert plan.warps == qr.CLUSTER_WARPS[g.q]
+    assert 1 <= plan.round_checks <= plan.checks
+    # the posterior stays on chip but for the largest code
+    assert plan.post_shared == (name != "gf256_n2400")
+    # the smallest cluster that holds it ... (GF(256), N = 1200: 8 ranks)
+    if name == "gf256_n1200":
+        assert plan.size == 8
+
+
+@pytest.mark.parametrize("name", list(OVERSIZE))
+def test_scratch_plan_owns_each_check_and_variable_once(name):
+    g = _oversize(name)
+    plan = qr.plan_scratch(g)
+    ranges = [range(r * plan.checks, min(g.m, (r + 1) * plan.checks))
+              for r in range(plan.size)]
+    assert sorted(m for rg in ranges for m in rg) == list(range(g.m))
+    row_var = qr.cluster_tables(g, plan)["row_var"].reshape(plan.size, plan.rows)
+    assert np.array_equal(np.sort(row_var[row_var >= 0]), np.arange(g.n))
+    assert np.array_equal(row_var[plan.vn_rank, plan.vn_row], np.arange(g.n))
+    assert np.bincount(plan.vn_rank, minlength=plan.size).max() == plan.rows
+
+
+@pytest.mark.parametrize("name", list(OVERSIZE))
+def test_scratch_plan_fits_shared_memory_and_the_l2(name):
+    g = _oversize(name)
+    plan = qr.plan_scratch(g)
+    assert plan.smem_bytes == qr.scratch_smem_bytes(
+        g.q, g.dc_max, g.dv_max, plan.rows, plan.checks, plan.round_checks, plan.post_shared)
+    assert plan.smem_bytes <= qr.MAX_SMEM_BYTES
+    # as few rounds as fit: one round fewer would not
+    rounds = -(-plan.checks // plan.round_checks)
+    if rounds > 1:
+        assert qr.scratch_smem_bytes(g.q, g.dc_max, g.dv_max, plan.rows, plan.checks,
+                                     -(-plan.checks // (rounds - 1)),
+                                     plan.post_shared) > qr.MAX_SMEM_BYTES
+    # a slice: every rank's message rows, and the posterior if it is off chip
+    E_rows = plan.size * plan.checks * g.dc_max
+    assert plan.slice_floats == g.q * (E_rows + (0 if plan.post_shared else
+                                                 plan.size * plan.rows))
+    # the slices of the clusters the card runs at once fit the L2 budget,
+    # but for the code whose posterior is off chip too
+    grid_bytes = qr.CARD_SMS // plan.size * 4 * plan.slice_floats
+    assert (grid_bytes <= qr.SCRATCH_L2_BYTES) == plan.post_shared
+
+
+def _fewest_rounds(g):
+    """(rounds, size) of the cluster size whose ranks, the posterior in
+    shared memory, run their checks in the fewest rounds (the smaller on a
+    tie), from the shared-memory formula alone."""
+    best = None
+    for size in qr.SCRATCH_SIZES:
+        checks = -(-g.m // size)
+        rows = qr._place_variables(g.np["vn_edge"], g.m * g.dc_max, g.dc_max, size, checks)[2]
+        fits = [c for c in range(1, checks + 1) if qr.scratch_smem_bytes(
+            g.q, g.dc_max, g.dv_max, rows, checks, c, True) <= qr.MAX_SMEM_BYTES]
+        if fits and (best is None or -(-checks // max(fits)) < best[0]):
+            best = (-(-checks // max(fits)), size)
+    return best
+
+
+@pytest.mark.parametrize("q,n,m", [(64, 576, 96), (256, 255, 85), (128, 96, 24),
+                                   (256, 480, 160), (64, 1800, 600)])
+def test_scratch_plan_takes_the_fewest_rounds(q, n, m):
+    # the scratch kernel takes every code of 32 < q <= 256, dc <= 32
+    g = TannerGraph(random_regular_spec(q, n, m, seed=3), "cpu")
+    plan = qr.plan_scratch(g)
+    assert plan.post_shared and plan.smem_bytes <= qr.MAX_SMEM_BYTES
+    assert (-(-plan.checks // plan.round_checks), plan.size) == _fewest_rounds(g)
+    assert qr.plan_scratch(_graph("gf16_n204_k102")) is None      # K0's field

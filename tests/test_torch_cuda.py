@@ -8,6 +8,7 @@ without a card. Run them there with:
 
 from pathlib import Path
 
+import functools
 import math
 
 import numpy as np
@@ -116,21 +117,22 @@ def _zero_cw_llrs(g, B, ebn0, device, seed=5):
 RESIDENT_COUNTERS = (qr.resident_decode, qr.resident_decode_cl, qr.resident_decode_cl_scratch)
 
 
-def _hold_resident(g, llr, mode, kernel=None):
-    """One call of qr.resident_decode against the plain resident decode on
-    the same LLRs. The call launches `kernel` once (by its counter: K0 for
-    q <= 32, else by default K0-cl's cluster kernel, or its scratch kernel
-    for a code whose state no cluster holds) and no other. Agreement (hard,
-    done and iters all equal) >= 0.999 after one iteration, else >= 0.995
-    with frame-error counts within |z| < 3: exact but for ulp-level ties of
+def _hold_resident(g, llr, mode, kernel=None, direct=False):
+    """One call of qr.resident_decode (with `direct`, of the wrapper
+    `kernel` itself) against the plain resident decode on the same LLRs.
+    The call launches `kernel` once (by its counter: K0 for q <= 32, else
+    by default K0-cl's cluster kernel, or its scratch kernel for a code
+    whose state no cluster holds) and no other. Agreement (hard, done and
+    iters all equal) >= 0.999 after one iteration, else >= 0.995 with
+    frame-error counts within |z| < 3: exact but for ulp-level ties of
     exp/log that a later iteration may amplify."""
     dec = qr.ResidentQSPA(g, *mode)
     if kernel is None:
         kernel = qr.resident_decode if g.q <= qr.K0_MAX_Q else qr.resident_decode_cl
-    if g.q > qr.K0_MAX_Q:
+    if g.q > qr.K0_MAX_Q and not direct:
         assert (dec.cluster_plan is None) == (kernel is qr.resident_decode_cl_scratch)
     before = [c.launches for c in RESIDENT_COUNTERS]
-    hk, dk, ik = qr.resident_decode(dec, llr)
+    hk, dk, ik = (kernel if direct else qr.resident_decode)(dec, llr)
     assert [c.launches for c in RESIDENT_COUNTERS] == [
         n + (c is kernel) for c, n in zip(RESIDENT_COUNTERS, before)]
     hp, dp, ip = qr.decode_plain(dec, llr)
@@ -283,6 +285,58 @@ def test_resident_cl_scratch_kernel_oversize_code(cuda_device, mode):
     g = TannerGraph(random_regular_spec(256, 1200, 400, seed=3), device=cuda_device)
     _hold_resident(g, _zero_cw_llrs(g, 300, 2.5, cuda_device), mode,
                    qr.resident_decode_cl_scratch)
+
+
+# K0-cl's scratch kernel (csrc/qspa_resident_cl.cu, a frame a cluster, the
+# messages in a global slice a cluster) on random dv = 2 codes no cluster
+# holds: GF(256) from about N = 480, GF(64) from about N = 1800
+SCRATCH_CODES = {"gf256_n480": (256, 480, 160), "gf256_n1200": (256, 1200, 400),
+                 "gf64_n1800": (64, 1800, 600)}
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_graph(code, device):
+    q, n, m = SCRATCH_CODES[code]
+    return TannerGraph(random_regular_spec(q, n, m, seed=3), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 7, 300, 512])
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+@pytest.mark.parametrize("code", list(SCRATCH_CODES))
+def test_resident_cl_scratch_kernel_codes_no_cluster_holds(cuda_device, code, mode, B):
+    """One frame, a few, fewer than the clusters that run at once and more
+    (512: a second round of frames)."""
+    g = _scratch_graph(code, cuda_device)
+    _hold_resident(g, _zero_cw_llrs(g, B, 2.5, cuda_device), mode,
+                   qr.resident_decode_cl_scratch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+def test_resident_cl_scratch_kernel_posterior_in_slice(cuda_device, mode):
+    # GF(256), N = 2400: no cluster of 8 holds even the posterior, which
+    # then lives in the slice too
+    g = TannerGraph(random_regular_spec(256, 2400, 800, seed=3), device=cuda_device)
+    assert not qr.scratch_layout(qr.ResidentQSPA(g, 1))[0].post_shared
+    _hold_resident(g, _zero_cw_llrs(g, 37, 2.5, cuda_device), mode,
+                   qr.resident_decode_cl_scratch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+@pytest.mark.parametrize("code", ["irregular_gf64", "dc12_gf64", "dc20_gf128",
+                                  "gf256_n255_k175"])
+def test_resident_cl_scratch_kernel_any_code(cuda_device, code, mode):
+    """The scratch kernel called on codes a cluster holds: check and
+    variable pad slots (GF(64), degrees 3-5 and 1-4), check degrees above 8
+    and 16 (the suffix products' two wider register sets), config 5's."""
+    spec = {"irregular_gf64": lambda: _irregular_spec(64, 6),
+            "dc12_gf64": lambda: random_regular_spec(64, 300, 50, seed=2),
+            "dc20_gf128": lambda: random_regular_spec(128, 200, 20, seed=4)}.get(code)
+    g = _graph(code, cuda_device) if spec is None else TannerGraph(spec(), device=cuda_device)
+    _hold_resident(g, _zero_cw_llrs(g, 300, 2.5, cuda_device), mode,
+                   qr.resident_decode_cl_scratch, direct=True)
 
 
 @pytest.mark.cuda
@@ -582,6 +636,41 @@ def test_micro_cn_iteration_wide_exponents_match_plain(cuda_device, Q):
         assert torch.equal(out, ref) and torch.equal(out.signbit(), ref.signbit())
 
 
+def _same_bits(a, b) -> bool:
+    """Equal NaN positions and, elsewhere, equal values with equal signs."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+            and torch.equal(a[~nan].signbit(), b[~nan].signbit()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("TB", [1, 33, 64])
+@pytest.mark.parametrize("layout", ["new", "old"])
+@pytest.mark.parametrize("Q", micro.KERNEL_QS)
+def test_micro_rot_softmax_edges_match_plain(cuda_device, Q, layout, TB):
+    """P5 with -0.0, +-inf, NaN and overflowing exps in X, an odd M, RB
+    with a 0.5 entry (that column blends every iteration) and a -0.0, at
+    TB = 1, 33 (warps across columns of another roll: selects) and 64
+    (warps sharing a roll: the static permutations), and 0, 1 and 200
+    iterations: the plain version's bits, NaN where it has NaN."""
+    rng = np.random.default_rng(Q + TB)
+    DC, M = 3, 5
+    shape = (Q, DC, M, TB) if layout == "new" else (Q, DC, TB, M)
+    rb_shape = (micro.ROT_BITS, DC, M, 1) if layout == "new" else (micro.ROT_BITS, DC, 1, M)
+    x = torch.from_numpy((rng.standard_normal(shape) * 30).astype(np.float32))
+    flat = x.view(-1)
+    flat[::7], flat[::11] = -0.0, 0.0
+    flat[3], flat[5], flat[9] = float("inf"), -float("inf"), float("nan")
+    rb = torch.from_numpy(rng.integers(0, 2, size=rb_shape).astype(np.float32))
+    rb.view(-1)[2], rb.view(-1)[4] = 0.5, -0.0
+    x, rb = x.to(cuda_device), rb.to(cuda_device)
+    for iters in (0, 1, 200):
+        before = micro.rot_softmax.launches
+        out = micro.rot_softmax(x, rb, iters, layout)
+        assert micro.rot_softmax.launches == before + 1
+        assert _same_bits(out, micro.rot_softmax_plain(x, rb, iters))
+
+
 def _route_edge_inputs(N: int, E: int, TB: int, layout: str, seed: int = 4):
     """vn with node 0 of degree 0 and node 2 of the largest degree D (9 or
     more), N not a multiple of 32; post >= 0 with a -0.0 every 7th entry (no
@@ -815,6 +904,59 @@ def test_cn_kernel_writes_only_its_output(cuda_device, code, B):
                  "cn_qspa_update")
     assert _guards_intact(buf)
     assert torch.equal(out, cn_qspa.cn_update(U))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["gf256_n1200", "gf64_n1800"])
+def test_resident_cl_scratch_writes_only_its_outputs(cuda_device, code):
+    """K0-cl's scratch kernel writes its hard decisions, done flags and
+    iteration counts and its slices of the scratch, and nothing on either
+    side of any of them; its outputs equal the wrapper's."""
+    from nbldpc_tpu_torch.kernels import _build
+
+    g, B = _scratch_graph(code, cuda_device), 37
+    dec = qr.ResidentQSPA(g, 20, False, False)
+    llr = _zero_cw_llrs(g, B, 2.5, cuda_device)
+    plan, c = qr.scratch_layout(dec)
+    grid = min(B, qr.scratch_occupancy(dec, cuda_device))
+    bufs, (hard, iters, scratch) = zip(*(_guarded_out(shape, cuda_device) for shape in (
+        (B, g.n), (B,), (grid * plan.slice_floats,))))
+    hard, iters = hard.view(torch.int32), iters.view(torch.int32)
+    dbuf = torch.full((B + 2 * _GUARD,), 0xAB, dtype=torch.uint8, device=cuda_device)
+    done = dbuf[_GUARD:_GUARD + B]
+    _build.check(_build.library().qspa_resident_cl_decode(
+        llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(), scratch.data_ptr(),
+        grid, B, g.n, g.m, g.dc_max, g.dv_max, g.q, plan.size, plan.rows, plan.checks,
+        plan.round_checks, plan.warps, plan.smem_bytes, int(plan.post_shared),
+        c["edge_info"].data_ptr(), c["row_src"].data_ptr(), c["row_var"].data_ptr(),
+        dec.n2e.data_ptr(), c["gf_log"].data_ptr(), c["gf_exp"].data_ptr(),
+        20, 0, 0, _build.stream_ptr(cuda_device)), "qspa_resident_cl_decode")
+    assert all(_guards_intact(b) for b in bufs)
+    assert bool((dbuf[:_GUARD] == 0xAB).all() and (dbuf[-_GUARD:] == 0xAB).all())
+    want = qr.resident_decode_cl_scratch(dec, llr)
+    assert torch.equal(hard, want[0]) and torch.equal(done.bool(), want[1])
+    assert torch.equal(iters, want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["new", "old"])
+def test_micro_rot_softmax_writes_only_its_output(cuda_device, layout):
+    """P5 at micro_layout's shapes writes its output and nothing on either
+    side of it."""
+    from nbldpc_tpu_torch.kernels import _build
+
+    inp = micro_layout.make_inputs(0)
+    x, rb = inp[f"x_{layout}"].to(cuda_device), inp[f"rb_{layout}"].to(cuda_device)
+    Q, DC = x.shape[:2]
+    (M, TB), (sm, sb) = ((x.shape[2:], x.stride()[2:]) if layout == "new"
+                         else (x.shape[:1:-1], x.stride()[:1:-1]))
+    for iters in (0, 50):
+        buf, out = _guarded_out(x.shape, cuda_device)
+        _build.check(_build.library().micro_rot_softmax(
+            x.data_ptr(), rb.data_ptr(), out.data_ptr(), Q, DC, M, TB, x.stride(0),
+            x.stride(1), sm, sb, iters, _build.stream_ptr(cuda_device)), "micro_rot_softmax")
+        assert _guards_intact(buf)
+        assert torch.equal(out, micro.rot_softmax_plain(x, rb, iters))
 
 
 @pytest.mark.cuda

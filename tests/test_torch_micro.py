@@ -227,6 +227,74 @@ def test_rot_softmax_matches_jax_make_elem(jml, layout):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
+def _p5_inputs(Q, layout, seed, DC=3, M=5, TB=7):
+    """P5's X with -0.0, +0.0, +-inf, NaN and values whose exp overflows
+    among normal draws, and a random RB of 0s and 1s (one entry -0.0)."""
+    rng = np.random.default_rng(seed)
+    shape = (Q, DC, M, TB) if layout == "new" else (Q, DC, TB, M)
+    rb_shape = (micro.ROT_BITS, DC, M, 1) if layout == "new" else (micro.ROT_BITS, DC, 1, M)
+    x = torch.from_numpy((rng.standard_normal(shape) * 30).astype(np.float32))
+    flat = x.view(-1)
+    flat[::7], flat[::11] = -0.0, 0.0
+    flat[3], flat[5], flat[9] = float("inf"), -float("inf"), float("nan")
+    rb = torch.from_numpy(rng.integers(0, 2, size=rb_shape).astype(np.float32))
+    rb.view(-1)[4] = -0.0
+    return x, rb
+
+
+def _same_bits(a, b) -> bool:
+    """Equal NaN positions and, elsewhere, equal values with equal signs."""
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+            and torch.equal(a[~nan].signbit(), b[~nan].signbit()))
+
+
+@pytest.mark.parametrize("layout", ["new", "old"])
+@pytest.mark.parametrize("Q", [2, 4, 8, 16, 32])
+def test_rot_softmax_rolled_equals_plain(Q, layout):
+    """P5's scheme on the card (the blend in iteration 0, then one roll a
+    column) equals the plain version bit for bit, NaN where it has NaN,
+    with signed zeros, infinities and NaN in X and a 0.5 in RB."""
+    x, rb = _p5_inputs(Q, layout, Q)
+    rb.view(-1)[2] = 0.5
+    for iters in (0, 1, 2, 3, 50):
+        want = micro.rot_softmax_plain(x, rb, iters)
+        assert _same_bits(micro.rot_softmax_rolled(x, rb, iters), want)
+        assert _same_bits(micro.rot_softmax(x, rb, iters, layout), want)
+
+
+@pytest.mark.parametrize("Q", [2, 4, 8, 16, 32])
+def test_rot_amounts_compose_the_bits(Q):
+    """The host twin of the kernel's roll: r = sum_t b_t (2^t mod L) mod L
+    equals the four rolls of the blend applied one after another."""
+    L = Q - 1
+    rb = torch.tensor([[b >> t & 1 for b in range(16)] for t in range(micro.ROT_BITS)],
+                      dtype=torch.float32).view(micro.ROT_BITS, 1, 16, 1)
+    r, flat = micro.rot_amounts(rb, Q)
+    assert bool(flat.all()) and r.shape == (1, 16, 1)
+    z = torch.arange(L, dtype=torch.float32)
+    for b in range(16):
+        want = z
+        for t in range(micro.ROT_BITS):
+            if b >> t & 1:
+                s = (1 << t) % L
+                want = torch.cat([want[L - s:], want[:L - s]])
+        assert torch.equal(torch.roll(z, int(r[0, b, 0])), want)
+
+
+def test_rot_amounts_flag_other_entries_to_the_blend():
+    """A column with an RB entry other than 0 or 1 (0.5 here, or NaN) is
+    not flat: the kernel blends it every iteration; -0.0 counts as 0."""
+    rb = torch.zeros((micro.ROT_BITS, 1, 4, 1))
+    rb[1, 0, 0] = 0.5
+    rb[2, 0, 1] = float("nan")
+    rb[0, 0, 2] = -0.0
+    rb[3, 0, 3] = 1.0
+    r, flat = micro.rot_amounts(rb, 16)
+    assert flat.view(-1).tolist() == [False, False, True, True]
+    assert r.view(-1).tolist() == [0, 0, 0, 8]
+
+
 SMALL_ROUTE = dict(Q=4, DC=4, M=6, N=12, TB_NEW=8, TB_OLD=8)
 
 
