@@ -1,9 +1,9 @@
 """Time the resident EMS decode (K3), the T-EMS check node (K5), the
-resident QSPA decode (K0), K0-cl's scratch kernel (the codes no cluster
-holds), the QSPA check node (K1), the EMS check nodes (K2b bubble, K2
-classic beside it) and the probes P1, P2, P4, P5 and P6/P7 of one tree at
-the shapes their paths (the probes: their entry points) run, with a digest
-of every output, so that two trees compare on one card.
+resident QSPA decode (K0), K0-cl's two kernels, the QSPA check node (K1),
+the EMS check nodes (K2b bubble, K2 classic beside it) and the probes P1,
+P2, P4, P5 and P6/P7 of one tree at the shapes their paths (the probes:
+their entry points) run, with a digest of every output, so that two trees
+compare on one card.
 
     python nbldpc_tpu_torch/benchmarks/kernel_ab.py [--root DIR] [--steps]
                                     [--builds k0_frames1,k3_frames1,...]
@@ -11,8 +11,9 @@ of every output, so that two trees compare on one card.
 
 --root is the repository root whose nbldpc_tpu_torch is timed (default:
 the one holding this file), e.g. a `git archive` of another commit: the
-script calls only wrappers that every tree since the T-EMS port has, and
-the case k0_gf32 builds its code by that tree's
+script calls only wrappers that every tree since the T-EMS port has (the
+k0cl cases: since the scratch kernel's redesign, which added
+`scratch_occupancy`), and the case k0_gf32 builds its code by that tree's
 code.random_regular_spec (a tree without it stops there).
 --steps adds the sim steps of the bench rows qspa_gf16_n204_k102_c8,
 qspa_gf16_n204_k102, ems_gf16_n204_k102 and tems_gf64_n576_k480, the K1
@@ -21,11 +22,11 @@ path of qspa_gf256_n255_k175 and ems_bubble_gf256_n255_k175 (K2b).
 csrc/qspa_resident_cl.cu, csrc/ems_resident.cu, csrc/cn_tems.cu,
 csrc/cn_qspa.cu or csrc/cn_ems.cu once per named edit of BUILDS (the
 design choices and the parts of K0, K0-cl's scratch kernel, K3, K5, K1 and
-K2b) or of OLD_SCRATCH_BUILDS (the scratch kernel's first design) and
-times each build beside the library's kernel.
+K2b) and times each build beside the library's kernel.
 --only keeps the kernel cases whose names start with one of the given
-prefixes (k0cl for the scratch kernel; p1, p2, p4, p5 and route for the
-probes; p1, p2, p5 and route also time those probes at 0 and 200
+prefixes (k0cl for K0-cl: its scratch kernel on the codes no cluster
+holds, both its kernels on two that one does; p1, p2, p4, p5 and route
+for the probes; p1, p2, p5 and route also time those probes at 0 and 200
 iterations).
 
 Prints the card's name and power limit, then one JSON line per case:
@@ -90,6 +91,11 @@ K0CL_CASES = [(f"k0cl_scratch_gf{q}{suffix}", q, iters, et, stats)
               for q in (256, 64)
               for suffix, iters, et, stats in (("", 20, False, False), ("_early", 20, True, True),
                                                ("_one_iter", 1, False, True))]
+# (case, code, frames, Eb/N0): K0-cl's cluster kernel and, beside it, its
+# scratch kernel on the codes a cluster holds, 20 iterations, throughput:
+# config 5's bench step and phase resident_cl's GF(64) (576,480) shape
+K0CL_CLUSTER_CASES = [("k0cl_cluster_cfg5", "gf256_n255_k175", 4096, 3.0),
+                      ("k0cl_cluster_gf64", "gf64_n576_k480", 2048, 3.0)]
 # (case, code, frames, n_r, tie levels): chip_smoke.py's phase cn_tems
 K5_CASES = [("k5_gf16_exact", "gf16_n204_k102", 8192, 0, 0),
             ("k5_gf64_exact", "gf64_n576_k480", 1024, 0, 0),
@@ -178,22 +184,6 @@ def _k0cl_case(case, device):
             _llrs(g, OVERSIZE_FRAMES, [OVERSIZE_EBN0], device))
 
 
-def scratch_round(dec, device) -> int:
-    """Frames the tree's scratch kernel decodes at once (its persistent
-    grid's blocks, or clusters), read through that tree's own entry
-    points."""
-    from nbldpc_tpu_torch.kernels import _build
-    from nbldpc_tpu_torch.kernels import qspa_resident as qr
-
-    if hasattr(qr, "scratch_occupancy"):
-        return qr.scratch_occupancy(dec, device)
-    g, grid, smem = dec.graph, ctypes.c_int(0), ctypes.c_int(0)
-    _build.check(_build.library().qspa_resident_cl_grid(
-        1 << 20, g.n, g.m, g.dc_max, g.q, ctypes.byref(grid), ctypes.byref(smem)),
-        "qspa_resident_cl_grid")
-    return grid.value
-
-
 def run_kernels(device, reps: int, only=()):
     """Every case, or those whose name starts with one of `only`."""
     import torch
@@ -222,12 +212,20 @@ def run_kernels(device, reps: int, only=()):
     for case in keep(K0CL_CASES):
         dec, llr = _k0cl_case(case, device)
         out = qr.resident_decode_cl_scratch(dec, llr)
-        plan = getattr(qr, "scratch_layout", lambda d: (None,))(dec)[0]
         yield {"case": case[0], "frames": llr.shape[0], "iters": case[2],
                "frame_iterations": int(out[2].sum()), "digest": _digest(*out),
-               "frames_at_once": scratch_round(dec, device),
-               "cluster_size": getattr(plan, "size", None),
+               "frames_at_once": qr.scratch_occupancy(dec, device),
+               "cluster_size": qr.scratch_layout(dec)[0].size,
                "ms": cuda_ms(lambda: qr.resident_decode_cl_scratch(dec, llr), reps)}
+    for case, code, frames, ebn0 in keep(K0CL_CLUSTER_CASES):
+        g = _graph(code, device)
+        dec, llr = qr.ResidentQSPA(g, 20, False, False), _llrs(g, frames, [ebn0], device)
+        out = qr.resident_decode_cl(dec, llr)
+        scratch = qr.resident_decode_cl_scratch(dec, llr)
+        yield {"case": case, "code": code, "frames": frames, "iters": 20,
+               "digest": _digest(*out), "scratch_digest": _digest(*scratch),
+               "ms": cuda_ms(lambda: qr.resident_decode_cl(dec, llr), reps),
+               "scratch_ms": cuda_ms(lambda: qr.resident_decode_cl_scratch(dec, llr), reps)}
     for case, code, B, n_r, levels in keep(K5_CASES):
         U = _u_for(_graph(code, device), B, device, levels)
         out = cn_tems.cn_update(U, 2.0, n_r)
@@ -341,64 +339,23 @@ BUILDS = {
     "k2b_lb3": ("cn_ems.cu", [("__launch_bounds__(256, 4)\ncn_ems_bubble_kernel",
                                "__launch_bounds__(256, 3)\ncn_ems_bubble_kernel")]),
     # K0-cl's scratch kernel as this tree builds it (a frame a cluster,
-    # messages in a slice): a phase or a step dropped (the check phase, the
-    # variable phase, the row stores of step E, the prior's LLR reads, the
-    # leave-one-out products, all but 4 terms of the serial sums; wrong
-    # outputs)
+    # messages in a slice): its check phase or its variable phase dropped,
+    # or every cluster on one of 4 slices (10 MB at GF(256), N = 1200: the L2
+    # holds them; wrong outputs: the time without device-memory traffic for
+    # the messages), or the grid capped at 13 clusters (GF(256), N = 1200:
+    # their slices and LLR rows, 48 MB, fit the 50 MB L2)
     "k0clx_no_cn": ("qspa_resident_cl.cu", [("cn_phase<Q, PS>(cl, r, logx, it == 0);",
                                              "if (false) cn_phase<Q, PS>(cl, r, logx, it == 0);")]),
-    "k0clx_no_vn": ("qspa_resident_cl.cu", [
-        ("vn_phase<Q, PS>(L, r, stats_each_iter || it == max_iters - 1);",
-         "if (false) vn_phase<Q, PS>(L, r, stats_each_iter || it == max_iters - 1);")]),
-    "k0clx_no_msg_store": ("qspa_resident_cl.cu", [
-        ("for (int k = lane; k < Q / 4; k += 32) __stcg(dst + k, srcv[k]);",
-         "for (int k = lane; k < 0; k += 32) __stcg(dst + k, srcv[k]);")]),
-    "k0clx_no_prior": ("qspa_resident_cl.cu", [("(lv[sym] - m)", "(0.0f - m)"),
-                                               ("if (var >= 0 && k * 32 + lane < Q / 4)\n          __pipeline",
-                                                "if (false)\n          __pipeline")]),
-    "k0clx_no_loo": ("qspa_resident_cl.cu", [("const int ncol = nrow / dc * Q;",
-                                              "const int ncol = 0;")]),
-    "k0clx_no_sums": ("qspa_resident_cl.cu", [("for (int k = 0; k < Q / 4; ++k) {\n        const float4 v = row[k];",
-                                               "for (int k = 0; k < 1; ++k) {\n        const float4 v = row[k];")]),
-    # step A's rows in flight a warp halved or doubled (the cluster
-    # kernel's 16 / K doubles them; 32 / K was slower still); every cluster
-    # on one of 4 slices (10 MB at GF(256), N = 1200: the L2 holds them;
-    # wrong outputs: the time without device-memory traffic for the
-    # messages)
-    "k0clx_g_half": ("qspa_resident_cl.cu", [("constexpr int G = K >= 8 ? 1 : 8 / K;",
-                                              "constexpr int G = K >= 4 ? 1 : 4 / K;")]),
-    "k0clx_g_double": ("qspa_resident_cl.cu", [("constexpr int G = K >= 8 ? 1 : 8 / K;",
-                                                "constexpr int G = K >= 16 ? 1 : 16 / K;")]),
+    "k0clx_no_vn": ("qspa_resident_cl.cu", [("{ vn_phase<Q, PS>(", "{ if (false) vn_phase<Q, PS>(")]),
     "k0clx_l2": ("qspa_resident_cl.cu", [("float* slice = scratch + (size_t)cid * slice_floats(",
                                           "float* slice = scratch + (size_t)(cid % 4) * slice_floats(")]),
-    # P5: the roll dropped (wrong outputs), or blocks of 4 warps
-    "p5_no_roll": ("micro_layout.cu", [("      roll_select<Q>(v, r);\n", "")]),
-    "p5_warps4": ("micro_layout.cu", [("constexpr int kElemThreads = 32;",
-                                       "constexpr int kElemThreads = 128;")]),
+    "k0clx_grid13": ("qspa_resident_cl.cu", [("cfg.gridDim = dim3(grid * C);",
+                                              "cfg.gridDim = dim3((grid < 13 ? grid : 13) * C);")]),
     "k5_warps16": ("cn_tems.cu", [("smem_bytes<Q>(dc, warps) > kMaxSmem / 3",
                                    "smem_bytes<Q>(dc, warps) > kMaxSmem")]),
     "k5_shuffles": ("cn_tems.cu", [(f"if constexpr (W == 32) {{\n    return __reduce_{op}_sync",
                                     f"if constexpr (W == 64) {{\n    return __reduce_{op}_sync")
                                    for op in ("max", "min")]),
-}
-
-
-# Trial builds of K0-cl's scratch kernel in its first design (a block of
-# 8 warps a frame, the state in a global scratch), for --root at a tree
-# that still has it, whose own kernel_ab.py has none: its check phase or
-# its variable phase dropped, or every block's slice one of 8 (30 MB: the
-# L2 holds them; wrong outputs: the time without the device-memory
-# traffic). They edit that source, not this tree's.
-OLD_SCRATCH_BUILDS = {
-    "k0cls_no_cn": ("qspa_resident_cl.cu", [
-        ("cn_phase<Q>(post, lc, buf, sums, s_n2e, t, M, dc);",
-         "if (false) cn_phase<Q>(post, lc, buf, sums, s_n2e, t, M, dc);")]),
-    "k0cls_no_vn": ("qspa_resident_cl.cu", [
-        ("vn_phase<Q>(L, mx, lc, post, hard, t, N, dv, E,",
-         "if (false) vn_phase<Q>(L, mx, lc, post, hard, t, N, dv, E,")]),
-    "k0cls_l2": ("qspa_resident_cl.cu", [
-        ("float* post = scratch + (size_t)blockIdx.x * (N + E) * Q;",
-         "float* post = scratch + (size_t)(blockIdx.x % 8) * (N + E) * Q;")]),
 }
 
 
@@ -436,9 +393,8 @@ def builds_trial(device, names, reps: int):
     out_dir = _build.BUILD_DIR / "trial_builds"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    every = {**BUILDS, **OLD_SCRATCH_BUILDS}
     for name in names:
-        source, edits = every[name]
+        source, edits = BUILDS[name]
         src = (_build.CSRC / source).read_text()
         for old, new in edits:
             if old not in src:
@@ -475,27 +431,20 @@ def builds_trial(device, names, reps: int):
         finally:
             _build.library = real
 
-    scratch = [n for n in names if every[n][0] == "qspa_resident_cl.cu"]
+    scratch = [n for n in names if BUILDS[n][0] == "qspa_resident_cl.cu"]
     for case in [c for c in K0CL_CASES if c[0] in ("k0cl_scratch_gf256", "k0cl_scratch_gf64")]:
         if not scratch:
             break
         dec, llr = _k0cl_case(case, device)
         ref = _digest(*qr.resident_decode_cl_scratch(dec, llr))
-        at_once = scratch_round(dec, device)
+        at_once = qr.scratch_occupancy(dec, device)
         one = llr[:at_once].contiguous()
         yield {"case": case[0], "build": "library", "frames": at_once,
                "ms_one_round": cuda_ms(lambda: qr.resident_decode_cl_scratch(dec, one), reps)}
         for name in scratch:
             outs, ms = through(name, lambda: qr.resident_decode_cl_scratch(dec, llr))
             yield {"case": case[0], "build": name, "ms": ms, "same": _digest(*outs) == ref}
-    p5 = [n for n in names if n.startswith("p5")]
-    for case, iters in [c for c in PROBE_CASES if c[0].startswith("p5")] if p5 else ():
-        fn = _probe(case, iters, device)
-        ref = _digest(fn())
-        for name in p5:
-            out, ms = through(name, fn)
-            yield {"case": case, "build": name, "ms": ms, "same": _digest(out) == ref}
-    k0 = [n for n in names if every[n][0] == "qspa_resident.cu"]
+    k0 = [n for n in names if BUILDS[n][0] == "qspa_resident.cu"]
     for case in K0_CASES if k0 else ():
         dec, llr = _k0_case(case, device)
         g, B = dec.graph, llr.shape[0]
@@ -574,18 +523,10 @@ def main(argv=None) -> int:
     ap.add_argument("--builds", default="")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", default="", help="comma-separated case-name prefixes")
-    ap.add_argument("--scratch-sizes", default="",
-                    help="comma-separated cluster sizes plan_scratch may choose from (a plan "
-                         "alternative; default: the tree's own)")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
-
-    if args.scratch_sizes:
-        from nbldpc_tpu_torch.kernels import qspa_resident
-
-        qspa_resident.SCRATCH_SIZES = tuple(int(c) for c in args.scratch_sizes.split(","))
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: needs a CUDA card")

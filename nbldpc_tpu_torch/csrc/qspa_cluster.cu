@@ -73,39 +73,15 @@
 //   `done` and stop together.
 // cluster.sync() (barrier.cluster arrive.release / wait.acquire)
 // separates the CN, VN and syndrome phases, and precedes the exit, so no
-// rank's shared memory goes away while another reads it.
+// rank's shared memory goes away while another reads it. What this kernel
+// shares with the scratch kernel (the helpers, the syndrome, steps B and
+// C, the frame loop) is in qspa_cluster.cuh.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
+#include "qspa_cluster.cuh"
 
 namespace {
 
-constexpr float kProbFloor = 1e-12f;
-constexpr unsigned kFull = 0xffffffffu;
-// Warps per block: 24 below q = 256; 16 at q = 256, where the 128
-// registers a thread then has hold step A's rows without spilling (with
-// 24 warps the kernel spills there and ran slower on the H100; below
-// q = 256, 24 warps ran faster than 16).
-template <int Q>
-constexpr int max_warps() { return Q >= 256 ? 16 : 24; }
-constexpr int kMaxDc = 32;
-constexpr int kMaxCluster = 8;
-constexpr size_t kMaxSmem = 232448;       // per-block shared memory, sm_90
-
-struct Tables {
-  const int* edge_info;  // [C, cpr*dc] shift << 20 | rank << 16 | posterior row
-                         // of each of the rank's edge slots; -1 on pads
-  const int* row_src;    // [C, nv*dv] rank << 16 | message row of each slot of
-                         // each of the rank's variables; -1 on pads
-  const int* row_var;    // [C, nv] variable of each posterior row; -1 if unused
-  const int* n2e;        // [q] exp-order basis: 0, 1, a, a^2, ...
-  const int* gf_log;     // [q] (log 0 unused)
-  const int* gf_exp;     // [2(q - 1)] a^i, doubled
-};
+using namespace k0cl;
 
 // Dynamic shared memory of a block, in the order the kernel lays it out:
 // prior and posterior [nv, Q], messages [cpr dc, Q], the round's rc dc
@@ -119,54 +95,7 @@ size_t dyn_bytes(int nv, int cpr, int rc, int dc, int dv, int Q) {
          sizeof(float);
 }
 
-__device__ __forceinline__ int rank_of(int loc) { return (loc >> 16) & 0xf; }
-__device__ __forceinline__ int row_of(int loc) { return loc & 0xffff; }
-__device__ __forceinline__ int shift_of(int info) { return info >> 20; }
-
-// Rows are kept in exp order: position 0 holds symbol 0, position i > 0
-// symbol a^(i-1). The position of h^-1 y, for y at position i, with sh =
-// (Q - 1 - log h) mod (Q - 1): multiplying by h^-1 rotates positions
-// 1 .. Q - 1.
-template <int Q>
-__device__ __forceinline__ int rot(int i, int sh) {
-  if (i == 0) return 0;
-  const int j = i - 1 + sh;
-  return (j >= Q - 1 ? j - (Q - 1) : j) + 1;
-}
-
-// Unnormalized WHT of the warp's Q-vector, r[k] holding symbol k * 32 +
-// lane: stages h = 1, 2, ..., Q / 2 writing (lo + hi, lo - hi). Across
-// lanes the upper lane forms lo - hi as (-hi) + lo, the same float.
-template <int Q>
-__device__ __forceinline__ void wht_warp(float (&r)[Q / 32], int lane) {
-  constexpr int K = Q / 32;
-#pragma unroll
-  for (int h = 1; h < 32; h <<= 1) {
-    const unsigned neg = (lane & h) ? 0x80000000u : 0u;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float o = __shfl_xor_sync(kFull, r[k], h);
-      r[k] = __uint_as_float(__float_as_uint(r[k]) ^ neg) + o;
-    }
-  }
-#pragma unroll
-  for (int h = 1; h < K; h <<= 1) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      if (!(k & h)) {
-        const float lo = r[k];
-        const float hi = r[k + h];
-        r[k] = lo + hi;
-        r[k + h] = lo - hi;
-      }
-    }
-  }
-}
-
-// Whole-row moves with 8- or 16-byte accesses: a lane moves V = 2 or 4
-// consecutive floats, positions (kk * 32 + lane) V + c, kk < Q / (32 V).
-template <int Q>
-__host__ __device__ constexpr int vec_width() { return Q / 32 >= 4 ? 4 : 2; }
+// Whole-row moves with 8- or 16-byte accesses (vec_width).
 __device__ __forceinline__ void ld_vec(const float* p, float (&o)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
@@ -180,20 +109,6 @@ __device__ __forceinline__ void st_vec(float* p, const float (&o)[4]) {
 }
 __device__ __forceinline__ void st_vec(float* p, const float (&o)[2]) {
   *reinterpret_cast<float2*>(p) = make_float2(o[0], o[1]);
-}
-
-// (max, lowest symbol reaching it) over the warp; every lane gets it.
-__device__ __forceinline__ int warp_argmax(float best, int idx) {
-#pragma unroll
-  for (int h = 16; h >= 1; h >>= 1) {
-    const float ob = __shfl_xor_sync(kFull, best, h);
-    const int oi = __shfl_xor_sync(kFull, idx, h);
-    if (ob > best || (ob == best && oi < idx)) {
-      best = ob;
-      idx = oi;
-    }
-  }
-  return idx;
 }
 
 // The rank's shared-memory view: state, buffers and tables.
@@ -213,36 +128,6 @@ struct Rank {
   const int* exp;    // [2Q]
   int nv, nchk, rc, dc, dv;
 };
-
-// 1 when every check of the code is satisfied, the same in every thread of
-// the cluster. One warp per check of the rank: lane j forms h_j * hard of
-// its variable, read in the rank that owns it (final: the caller synced
-// the cluster), and the warp XORs them; each rank writes one flag to
-// flag[slot], and after the barrier every rank ORs the cluster's flags.
-// Consecutive calls alternate `slot`, so a rank never overwrites a flag
-// that another rank may still read.
-template <int Q>
-__device__ int syndrome_ok(const cg::cluster_group& cl, const Rank& r, int slot) {
-  const int lane = threadIdx.x & 31;
-  const int W = blockDim.x >> 5;
-  int bad = 0;
-  for (int lm = threadIdx.x >> 5; lm < r.nchk; lm += W) {
-    const int info = lane < r.dc ? r.edge_info[lm * r.dc + lane] : -1;
-    unsigned prod = 0;
-    if (info >= 0) {
-      const int sym = cl.map_shared_rank(r.hard, rank_of(info))[row_of(info)];
-      const int sh = shift_of(info);            // log h = (Q - 1 - sh) mod (Q - 1)
-      if (sym) prod = r.exp[r.log[sym] + (sh ? Q - 1 - sh : 0)];
-    }
-    bad |= __reduce_xor_sync(kFull, prod) != 0;
-  }
-  bad = __syncthreads_or(bad);
-  if (threadIdx.x == 0) r.flag[slot] = bad;
-  cl.sync();
-  const int C = (int)cl.num_blocks();
-  const int any = (int)threadIdx.x < C ? *cl.map_shared_rank(r.flag + slot, threadIdx.x) : 0;
-  return !__syncthreads_or(any);
-}
 
 // Start of a frame: prior = post = llr - max_q llr for the rank's
 // variables, hard = argmax of the prior, the rank's messages = 0.
@@ -326,37 +211,10 @@ __device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (
     }
     __syncthreads();
     // B: softmax sums, serially in exp order, one thread per row
-    for (int t = threadIdx.x; t < nrow; t += blockDim.x) {
-      if (info[t] < 0) continue;
-      const float4* row = reinterpret_cast<const float4*>(r.buf + t * RS);
-      float s = 0.f;                     // 0 + first entry: the first entry
-#pragma unroll 4
-      for (int k = 0; k < Q / 4; ++k) {
-        const float4 v = row[k];
-        s = s + v.x;
-        s = s + v.y;
-        s = s + v.z;
-        s = s + v.w;
-      }
-      r.sums[t] = s;
-    }
+    softmax_sums<Q>(r.buf, r.sums, info, nrow);
     __syncthreads();
     // C: spectra F = WHT(P), P read in x order, written back in x order
-    for (int t = warp; t < nrow; t += W) {
-      const bool real = info[t] >= 0;
-      float* bt = r.buf + t * RS;
-      const float s = real ? r.sums[t] : 1.f;
-      float f[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int x = k * 32 + lane;
-        f[k] = real ? bt[x ? logx[k] + 1 : 0] / s : (x == 0 ? 1.f : 0.f);
-      }
-      wht_warp<Q>(f, lane);
-      __syncwarp();
-#pragma unroll
-      for (int k = 0; k < K; ++k) bt[k * 32 + lane] = f[k];
-    }
+    spectra<Q>(r.buf, r.sums, info, nrow, logx);
     __syncthreads();
     // D: per (check, symbol) the suffix products suf(j) into message row
     // j, then G_j = prefix * suf(j) over them; two columns per thread at
@@ -489,7 +347,6 @@ qspa_cluster_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
   const cg::cluster_group cl = cg::this_cluster();
   const int C = (int)cl.num_blocks();
   const int rank = (int)cl.block_rank();
-  const int lane = threadIdx.x & 31;
   Rank r;
   r.prior = smem;
   r.post = r.prior + nv * Q;
@@ -509,61 +366,15 @@ qspa_cluster_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
   r.rc = rc;
   r.dc = dc;
   r.dv = dv;
-  for (int i = threadIdx.x; i < Q; i += blockDim.x) {
-    s_n2e[i] = __ldg(&t.n2e[i]);
-    s_log[i] = __ldg(&t.gf_log[i]);
-  }
-  for (int i = threadIdx.x; i < 2 * (Q - 1); i += blockDim.x) s_exp[i] = __ldg(&t.gf_exp[i]);
-  for (int i = threadIdx.x; i < cpr * dc; i += blockDim.x)
-    r.edge_info[i] = __ldg(&t.edge_info[rank * cpr * dc + i]);
-  for (int i = threadIdx.x; i < nv * dv; i += blockDim.x)
-    r.row_src[i] = __ldg(&t.row_src[rank * nv * dv + i]);
-  for (int i = threadIdx.x; i < nv; i += blockDim.x) r.row_var[i] = __ldg(&t.row_var[rank * nv + i]);
   int logx[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) logx[k] = __ldg(&t.gf_log[k * 32 + lane]);
+  load_tables<Q>(t, rank, cpr, r, s_n2e, s_log, s_exp, logx);
   __syncthreads();
-  // Outputs are final once a frame is done, except in throughput mode,
-  // where the decision is taken after the whole budget.
-  const bool may_stop = early_term || stats_each_iter;
-  int slot = 0;
-
-  for (int b = blockIdx.x / C; b < B; b += gridDim.x / C) {
-    init_phase<Q>(llr + (size_t)b * N * Q, r);
-    cl.sync();
-    const int done0 = syndrome_ok<Q>(cl, r, slot);
-    slot ^= 1;
-    int done = done0;
-    int iters = 0;
-    for (int it = 0; it < max_iters; ++it) {
-      if (may_stop && done) break;
-      cn_phase<Q>(cl, r, logx);
-      cl.sync();
-      vn_phase<Q>(cl, r, stats_each_iter || it == max_iters - 1);
-      cl.sync();
-      if (!stats_each_iter) {
-        iters += 1 - done0;
-        continue;
-      }
-      done = syndrome_ok<Q>(cl, r, slot);
-      slot ^= 1;
-      iters += 1;
-    }
-    if (!stats_each_iter) {
-      done = syndrome_ok<Q>(cl, r, slot);
-      slot ^= 1;
-    }
-    for (int i = threadIdx.x; i < nv; i += blockDim.x) {
-      const int v = r.row_var[i];
-      if (v >= 0) hard_out[(size_t)b * N + v] = r.hard[i];
-    }
-    if (rank == 0 && threadIdx.x == 0) {
-      done_out[b] = (uint8_t)done;
-      iters_out[b] = iters;
-    }
-    __syncthreads();          // hard[] is read out before the next frame's init writes it
-  }
-  cl.sync();                  // no rank leaves while another reads its flags
+  run_frames<Q>(
+      cl, r, blockIdx.x / C, gridDim.x / C, B, N, max_iters, early_term, stats_each_iter,
+      hard_out, done_out, iters_out,
+      [&](int b) { init_phase<Q>(llr + (size_t)b * N * Q, r); },
+      [&](int, int) { cn_phase<Q>(cl, r, logx); },
+      [&](int, bool decide) { vn_phase<Q>(cl, r, decide); });
 }
 
 // The launch configuration of a cluster of C blocks of W warps, each
@@ -574,25 +385,10 @@ template <int Q>
 cudaError_t configure(int dc, int dv, int C, int nv, int cpr, int rc, int W, int smem,
                       cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   const size_t dyn = dyn_bytes(nv, cpr, rc, dc, dv, Q);
-  if (C < 1 || C > kMaxCluster || (C & (C - 1)) || W < 1 || W > max_warps<Q>() || dc < 1 ||
-      dc > kMaxDc || dv < 1 || nv < 1 || cpr < 1 || rc < 1 || rc > cpr || nv > 0xffff ||
-      cpr * dc > 0xffff ||
-      dyn + 4 * Q * sizeof(int) != (size_t)smem || (size_t)smem > kMaxSmem)
+  if (!plan_ok<Q>(C, W, dc, dv, nv, cpr, rc) || dyn + 4 * Q * sizeof(int) != (size_t)smem ||
+      (size_t)smem > kMaxSmem)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(qspa_cluster_kernel<Q>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-  if (err != cudaSuccess) return err;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = C;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(C);
-  cfg->blockDim = dim3(W * 32);
-  cfg->dynamicSmemBytes = dyn;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
+  return cluster_config(qspa_cluster_kernel<Q>, C, W, dyn, cfg, attr);
 }
 
 template <int Q>

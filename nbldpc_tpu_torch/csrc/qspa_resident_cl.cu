@@ -44,10 +44,12 @@
 // the LLRs, llr - max, the same float.
 // The edge messages live in the cluster's slice of the global scratch
 // (`torch.empty` in the wrapper; [C cpr dc, Q] floats, then the posterior
-// [C nv, Q] where PS is false), so the clusters that run at once move
-// them through the L2 (GF(256), N = 1200: 2.4 MB a slice, 15 clusters
-// 37 MB of the 50 MB). A persistent grid of as many clusters as
-// cudaOccupancyMaxActiveClusters allows walks the frames.
+// [C nv, Q] where PS is false). A persistent grid of as many clusters as
+// cudaOccupancyMaxActiveClusters allows walks the frames; where their
+// slices fit the L2 (GF(256), N = 1200: 2.4 MB a slice, 15 clusters 37
+// MB of the 50 MB, their LLR rows 18 MB more), the messages move mostly
+// through it. The grid is not cut to fit the L2: each cluster cut adds
+// rounds of frames, which cost more than the overflow (PERF.md).
 //   CN phase, the rank's checks in rounds that fit the buffer, block
 //   barriers between the steps (as the cluster kernel):
 //   A. per edge row, one warp, lane l holding exp positions l, l + 32,
@@ -76,38 +78,18 @@
 // separates the CN, VN and syndrome phases. Data the kernel writes to the
 // slice is read and written with .cg accesses (L2, not the SM's L1), so
 // what one rank wrote before a cluster barrier, another reads after it.
+// What this kernel shares with the cluster kernel (the helpers, the
+// syndrome, steps B and C, the frame loop) is in qspa_cluster.cuh.
 
-#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "qspa_cluster.cuh"
 
 namespace {
 
-constexpr float kProbFloor = 1e-12f;
-constexpr unsigned kFull = 0xffffffffu;
-// Warps per block: the cluster kernel's (16 at q = 256, where 128
-// registers a thread hold step A's rows; 24 below).
-template <int Q>
-constexpr int max_warps() { return Q >= 256 ? 16 : 24; }
-constexpr int kMaxDc = 32;
-constexpr int kMaxCluster = 8;
-constexpr int kVnRows = 2;                // variables a warp takes at once in the VN phase
-constexpr size_t kMaxSmem = 232448;       // per-block shared memory, sm_90
+using namespace k0cl;
 
-struct Tables {
-  const int* edge_info;  // [C, cpr*dc] shift << 20 | rank << 16 | posterior row
-                         // of each of the rank's edge slots; -1 on pads
-  const int* row_src;    // [C, nv*dv] rank << 16 | message row of each slot of
-                         // each of the rank's variables; -1 on pads
-  const int* row_var;    // [C, nv] variable of each posterior row; -1 if unused
-  const int* n2e;        // [q] exp-order basis: 0, 1, a, a^2, ...
-  const int* gf_log;     // [q] (log 0 unused)
-  const int* gf_exp;     // [2(q - 1)] a^i, doubled
-};
+constexpr int kVnRows = 2;                // variables a warp takes at once in the VN phase
 
 // Rows of Q + 4 floats in the round buffer: the round's rc dc edge rows,
 // and at least kVnRows a warp (the variable phase's LLR rows).
@@ -130,53 +112,6 @@ __host__ __device__ size_t slice_floats(int C, int nv, int cpr, int dc, int Q, b
   return (size_t)C * cpr * dc * Q + (ps ? 0 : (size_t)C * nv * Q);
 }
 
-__device__ __forceinline__ int rank_of(int loc) { return (loc >> 16) & 0xf; }
-__device__ __forceinline__ int row_of(int loc) { return loc & 0xffff; }
-__device__ __forceinline__ int shift_of(int info) { return info >> 20; }
-
-// Rows are kept in exp order: position 0 holds symbol 0, position i > 0
-// symbol a^(i-1); multiplying by h^-1 rotates positions 1 .. Q - 1 by
-// sh = (Q - 1 - log h) mod (Q - 1).
-template <int Q>
-__device__ __forceinline__ int rot(int i, int sh) {
-  if (i == 0) return 0;
-  const int j = i - 1 + sh;
-  return (j >= Q - 1 ? j - (Q - 1) : j) + 1;
-}
-
-// Unnormalized WHT of the warp's Q-vector, r[k] holding symbol k * 32 +
-// lane: stages h = 1, 2, ..., Q / 2 writing (lo + hi, lo - hi). Across
-// lanes the upper lane forms lo - hi as (-hi) + lo, the same float.
-template <int Q>
-__device__ __forceinline__ void wht_warp(float (&r)[Q / 32], int lane) {
-  constexpr int K = Q / 32;
-#pragma unroll
-  for (int h = 1; h < 32; h <<= 1) {
-    const unsigned neg = (lane & h) ? 0x80000000u : 0u;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const float o = __shfl_xor_sync(kFull, r[k], h);
-      r[k] = __uint_as_float(__float_as_uint(r[k]) ^ neg) + o;
-    }
-  }
-#pragma unroll
-  for (int h = 1; h < K; h <<= 1) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      if (!(k & h)) {
-        const float lo = r[k];
-        const float hi = r[k + h];
-        r[k] = lo + hi;
-        r[k + h] = lo - hi;
-      }
-    }
-  }
-}
-
-// Whole-row moves with 8- or 16-byte accesses: a lane moves V = 2 or 4
-// consecutive floats, positions (kk * 32 + lane) V + c, kk < Q / (32 V).
-template <int Q>
-__host__ __device__ constexpr int vec_width() { return Q / 32 >= 4 ? 4 : 2; }
 // Slice accesses (.cg: through the L2, whichever SM wrote the data).
 __device__ __forceinline__ void ld_cg(const float* p, float (&o)[4]) {
   const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
@@ -195,20 +130,6 @@ __device__ __forceinline__ void st_post(float* p, float v) {
     *p = v;
   else
     __stcg(p, v);
-}
-
-// (max, lowest symbol reaching it) over the warp; every lane gets it.
-__device__ __forceinline__ int warp_argmax(float best, int idx) {
-#pragma unroll
-  for (int h = 16; h >= 1; h >>= 1) {
-    const float ob = __shfl_xor_sync(kFull, best, h);
-    const int oi = __shfl_xor_sync(kFull, idx, h);
-    if (ob > best || (ob == best && oi < idx)) {
-      best = ob;
-      idx = oi;
-    }
-  }
-  return idx;
 }
 
 // The rank's view: shared-memory state, buffers and tables, and its
@@ -237,32 +158,6 @@ __device__ __forceinline__ const float* post_row(const cg::cluster_group& cl, co
                                                  int rank, int row) {
   if (PS) return cl.map_shared_rank(r.post, rank) + row * Q;
   return r.gpost + ((size_t)rank * r.nv + row) * Q;
-}
-
-// 1 when every check of the code is satisfied, the same in every thread of
-// the cluster (the cluster kernel's syndrome_ok): one warp per check of the
-// rank, each rank one flag in flag[slot], ORed after a cluster barrier.
-template <int Q>
-__device__ int syndrome_ok(const cg::cluster_group& cl, const Rank& r, int slot) {
-  const int lane = threadIdx.x & 31;
-  const int W = blockDim.x >> 5;
-  int bad = 0;
-  for (int lm = threadIdx.x >> 5; lm < r.nchk; lm += W) {
-    const int info = lane < r.dc ? r.edge_info[lm * r.dc + lane] : -1;
-    unsigned prod = 0;
-    if (info >= 0) {
-      const int sym = cl.map_shared_rank(r.hard, rank_of(info))[row_of(info)];
-      const int sh = shift_of(info);            // log h = (Q - 1 - sh) mod (Q - 1)
-      if (sym) prod = r.exp[r.log[sym] + (sh ? Q - 1 - sh : 0)];
-    }
-    bad |= __reduce_xor_sync(kFull, prod) != 0;
-  }
-  bad = __syncthreads_or(bad);
-  if (threadIdx.x == 0) r.flag[slot] = bad;
-  cl.sync();
-  const int C = (int)cl.num_blocks();
-  const int any = (int)threadIdx.x < C ? *cl.map_shared_rank(r.flag + slot, threadIdx.x) : 0;
-  return !__syncthreads_or(any);
 }
 
 // Start of a frame: post = llr - max_q llr for the rank's variables, in
@@ -376,37 +271,10 @@ __device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (
     }
     __syncthreads();
     // B: softmax sums, serially in exp order, one thread per row
-    for (int t = threadIdx.x; t < nrow; t += blockDim.x) {
-      if (info[t] < 0) continue;
-      const float4* row = reinterpret_cast<const float4*>(r.buf + t * RS);
-      float s = 0.f;                     // 0 + first entry: the first entry
-#pragma unroll 4
-      for (int k = 0; k < Q / 4; ++k) {
-        const float4 v = row[k];
-        s = s + v.x;
-        s = s + v.y;
-        s = s + v.z;
-        s = s + v.w;
-      }
-      r.sums[t] = s;
-    }
+    softmax_sums<Q>(r.buf, r.sums, info, nrow);
     __syncthreads();
     // C: spectra F = WHT(P), P read in x order, written back in x order
-    for (int t = warp; t < nrow; t += W) {
-      const bool real = info[t] >= 0;
-      float* bt = r.buf + t * RS;
-      const float s = real ? r.sums[t] : 1.f;
-      float f[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int x = k * 32 + lane;
-        f[k] = real ? bt[x ? logx[k] + 1 : 0] / s : (x == 0 ? 1.f : 0.f);
-      }
-      wht_warp<Q>(f, lane);
-      __syncwarp();
-#pragma unroll
-      for (int k = 0; k < K; ++k) bt[k * 32 + lane] = f[k];
-    }
+    spectra<Q>(r.buf, r.sums, info, nrow, logx);
     __syncthreads();
     // D: the leave-one-out products, over the spectra
     const int ncol = nrow / dc * Q;
@@ -551,7 +419,6 @@ qspa_scratch_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
   const cg::cluster_group cl = cg::this_cluster();
   const int C = (int)cl.num_blocks();
   const int rank = (int)cl.block_rank();
-  const int lane = threadIdx.x & 31;
   const int cid = blockIdx.x / C, ncl = gridDim.x / C;
   float* slice = scratch + (size_t)cid * slice_floats(C, nv, cpr, dc, Q, PS);
   Rank r;
@@ -576,81 +443,14 @@ qspa_scratch_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
   r.rc = rc;
   r.dc = dc;
   r.dv = dv;
-  for (int i = threadIdx.x; i < Q; i += blockDim.x) {
-    s_n2e[i] = __ldg(&t.n2e[i]);
-    s_log[i] = __ldg(&t.gf_log[i]);
-  }
-  for (int i = threadIdx.x; i < 2 * (Q - 1); i += blockDim.x) s_exp[i] = __ldg(&t.gf_exp[i]);
-  for (int i = threadIdx.x; i < cpr * dc; i += blockDim.x)
-    r.edge_info[i] = __ldg(&t.edge_info[rank * cpr * dc + i]);
-  for (int i = threadIdx.x; i < nv * dv; i += blockDim.x)
-    r.row_src[i] = __ldg(&t.row_src[rank * nv * dv + i]);
-  for (int i = threadIdx.x; i < nv; i += blockDim.x) r.row_var[i] = __ldg(&t.row_var[rank * nv + i]);
   int logx[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) logx[k] = __ldg(&t.gf_log[k * 32 + lane]);
+  load_tables<Q>(t, rank, cpr, r, s_n2e, s_log, s_exp, logx);
   __syncthreads();
-  // Outputs are final once a frame is done, except in throughput mode,
-  // where the decision is taken after the whole budget.
-  const bool may_stop = early_term || stats_each_iter;
-  int slot = 0;
-
-  for (int b = cid; b < B; b += ncl) {
-    const float* L = llr + (size_t)b * N * Q;
-    init_phase<Q, PS>(L, r);
-    cl.sync();
-    const int done0 = syndrome_ok<Q>(cl, r, slot);
-    slot ^= 1;
-    int done = done0;
-    int iters = 0;
-    for (int it = 0; it < max_iters; ++it) {
-      if (may_stop && done) break;
-      cn_phase<Q, PS>(cl, r, logx, it == 0);
-      cl.sync();
-      vn_phase<Q, PS>(L, r, stats_each_iter || it == max_iters - 1);
-      cl.sync();
-      if (!stats_each_iter) {
-        iters += 1 - done0;
-        continue;
-      }
-      done = syndrome_ok<Q>(cl, r, slot);
-      slot ^= 1;
-      iters += 1;
-    }
-    if (!stats_each_iter) {
-      done = syndrome_ok<Q>(cl, r, slot);
-      slot ^= 1;
-    }
-    for (int i = threadIdx.x; i < nv; i += blockDim.x) {
-      const int v = r.row_var[i];
-      if (v >= 0) hard_out[(size_t)b * N + v] = r.hard[i];
-    }
-    if (rank == 0 && threadIdx.x == 0) {
-      done_out[b] = (uint8_t)done;
-      iters_out[b] = iters;
-    }
-    __syncthreads();          // hard[] is read out before the next frame's init writes it
-  }
-  cl.sync();                  // no rank leaves while another reads its shared memory
-}
-
-template <int Q, bool PS>
-cudaError_t configure_ps(int C, int W, size_t dyn, cudaLaunchConfig_t* cfg,
-                         cudaLaunchAttribute* attr) {
-  cudaError_t err = cudaFuncSetAttribute(qspa_scratch_kernel<Q, PS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-  if (err != cudaSuccess) return err;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = C;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(C);
-  cfg->blockDim = dim3(W * 32);
-  cfg->dynamicSmemBytes = dyn;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
+  run_frames<Q>(
+      cl, r, cid, ncl, B, N, max_iters, early_term, stats_each_iter, hard_out, done_out,
+      iters_out, [&](int b) { init_phase<Q, PS>(llr + (size_t)b * N * Q, r); },
+      [&](int, int it) { cn_phase<Q, PS>(cl, r, logx, it == 0); },
+      [&](int b, bool decide) { vn_phase<Q, PS>(llr + (size_t)b * N * Q, r, decide); });
 }
 
 // The launch configuration of one cluster of C blocks of W warps with
@@ -664,14 +464,12 @@ cudaError_t run(int C, int nv, int cpr, int rc, int W, int smem, int dc, int dv,
                 float* scratch, int grid, int B, int N, int M, const Tables& t, int max_iters,
                 int early_term, int stats_each_iter, cudaStream_t stream) {
   const size_t dyn = dyn_bytes(nv, cpr, rc, dc, dv, W, Q, PS);
-  if (C < 1 || C > kMaxCluster || (C & (C - 1)) || W < 1 || W > max_warps<Q>() || dc < 1 ||
-      dc > kMaxDc || dv < 1 || nv < 1 || cpr < 1 || rc < 1 || rc > cpr || nv > 0xffff ||
-      cpr * dc > 0xffff || dyn + 4 * Q * sizeof(int) != (size_t)smem ||
+  if (!plan_ok<Q>(C, W, dc, dv, nv, cpr, rc) || dyn + 4 * Q * sizeof(int) != (size_t)smem ||
       (size_t)smem > kMaxSmem)
     return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure_ps<Q, PS>(C, W, dyn, &cfg, &attr);
+  cudaError_t err = cluster_config(qspa_scratch_kernel<Q, PS>, C, W, dyn, &cfg, &attr);
   if (err != cudaSuccess) return err;
   if ((err = cudaOccupancyMaxActiveClusters(clusters, qspa_scratch_kernel<Q, PS>, &cfg)) !=
       cudaSuccess)

@@ -52,13 +52,6 @@ K0_MAX_FRAMES = 4
 CLUSTER_SIZES = (1, 2, 4, 8)
 CLUSTER_WARPS = {64: 24, 128: 24, 256: 16}
 CLUSTER_MAX_DC = 32
-# K0-cl's scratch kernel: the part of the H100's 50 MB L2 that the slices
-# of the clusters running at once are meant to fit, and the card's SMs (a
-# grid of clusters of C blocks runs at most CARD_SMS // C at once)
-SCRATCH_L2_BYTES = 40 * 2**20
-CARD_SMS = 132
-# the cluster sizes plan_scratch chooses from
-SCRATCH_SIZES = CLUSTER_SIZES
 
 
 def _round_up(x: int, k: int) -> int:
@@ -211,7 +204,7 @@ class ScratchPlan(ClusterPlan):
 
 def plan_scratch(graph: TannerGraph) -> ScratchPlan | None:
     """The scratch kernel's partition for 32 < q <= 256 and dc <= 32: of
-    the clusters in SCRATCH_SIZES whose ranks hold their share of the
+    the clusters in CLUSTER_SIZES whose ranks hold their share of the
     posterior in shared memory, the one whose ranks run their checks in
     the fewest rounds (every round costs five block barriers and a serial
     sum), the smaller on a tie; where none holds it, clusters of 8 with the
@@ -222,7 +215,7 @@ def plan_scratch(graph: TannerGraph) -> ScratchPlan | None:
     if not K0_MAX_Q < q <= MAX_Q or dc > CLUSTER_MAX_DC:
         return None
     E = m * dc
-    for shared, sizes in ((True, SCRATCH_SIZES), (False, CLUSTER_SIZES[-1:])):
+    for shared, sizes in ((True, CLUSTER_SIZES), (False, CLUSTER_SIZES[-1:])):
         best = None
         for size in sizes:
             checks = math.ceil(m / size)

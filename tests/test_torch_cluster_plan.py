@@ -213,10 +213,11 @@ def test_scratch_plan_fits_shared_memory_and_the_l2(name):
     E_rows = plan.size * plan.checks * g.dc_max
     assert plan.slice_floats == g.q * (E_rows + (0 if plan.post_shared else
                                                  plan.size * plan.rows))
-    # the slices of the clusters the card runs at once fit the L2 budget,
-    # but for the code whose posterior is off chip too
-    grid_bytes = qr.CARD_SMS // plan.size * 4 * plan.slice_floats
-    assert (grid_bytes <= qr.SCRATCH_L2_BYTES) == plan.post_shared
+    # at chip_smoke's OVERSIZE (GF(256), N = 1200) the slices of the 15
+    # clusters of 8 that run at once on the H100 (its occupancy), 37 MB,
+    # fit 40 MiB of its 50 MB L2 (the grid is not capped to the L2: PERF.md)
+    if name == "gf256_n1200":
+        assert plan.size == 8 and 15 * 4 * plan.slice_floats <= 40 * 2**20
 
 
 def _fewest_rounds(g):
@@ -224,7 +225,7 @@ def _fewest_rounds(g):
     shared memory, run their checks in the fewest rounds (the smaller on a
     tie), from the shared-memory formula alone."""
     best = None
-    for size in qr.SCRATCH_SIZES:
+    for size in qr.CLUSTER_SIZES:
         checks = -(-g.m // size)
         rows = qr._place_variables(g.np["vn_edge"], g.m * g.dc_max, g.dc_max, size, checks)[2]
         fits = [c for c in range(1, checks + 1) if qr.scratch_smem_bytes(

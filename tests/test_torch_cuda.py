@@ -339,6 +339,54 @@ def test_resident_cl_scratch_kernel_any_code(cuda_device, code, mode):
                    qr.resident_decode_cl_scratch, direct=True)
 
 
+# Each cluster of K0-cl's persistent grid decodes frame after frame; a
+# frame's outputs must not depend on the cluster that takes it or on the
+# frame that cluster decoded before (both kernels once read a frame's hard
+# decisions out of shared memory while the next frame's init overwrote
+# them, which an agreement >= 0.995 with the plain version let pass)
+RUN_ON_CODES = [("cluster", "gf256_n255_k175", 2.0), ("cluster", "gf64_n576_k480", 3.0),
+                ("scratch", "gf256_n255_k175", 2.0), ("scratch", "gf256_n1200", 2.5),
+                ("scratch", "gf64_n1800", 2.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+@pytest.mark.parametrize("kernel,code,ebn0", RUN_ON_CODES)
+def test_resident_cl_frames_in_a_row_equal_frames_alone(cuda_device, kernel, code, ebn0, mode):
+    """B = 16 x the clusters that run at once, so every cluster decodes 16
+    frames in a row: hard, done and iters equal, bit for bit, those of
+    each frame decoded alone (B = 1, one frame on one cluster)."""
+    g = _scratch_graph(code, cuda_device) if code in SCRATCH_CODES else _graph(code, cuda_device)
+    dec = qr.ResidentQSPA(g, *mode)
+    if kernel == "cluster":
+        fn, at_once = qr.resident_decode_cl, qr.cluster_occupancy(dec, cuda_device)
+    else:
+        fn, at_once = qr.resident_decode_cl_scratch, qr.scratch_occupancy(dec, cuda_device)
+    counter = fn.launches
+    llr = _zero_cw_llrs(g, 16 * at_once, ebn0, cuda_device)
+    together = fn(dec, llr)
+    alone = [fn(dec, llr[b:b + 1].contiguous()) for b in range(llr.shape[0])]
+    assert fn.launches == counter + 1 + llr.shape[0]
+    for got, want in zip(together, (torch.cat(parts) for parts in zip(*alone))):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+@pytest.mark.parametrize("code", ["gf256_n255_k175", "gf64_n576_k480", "gf128_random"])
+def test_resident_cl_two_kernels_agree_bit_for_bit(cuda_device, code, mode):
+    """On codes a cluster holds, K0-cl's cluster kernel and its scratch
+    kernel follow the same association order: equal hard, done and iters
+    for every one of 300 frames."""
+    g = (TannerGraph(random_regular_spec(128, 96, 24, seed=7), device=cuda_device)
+         if code == "gf128_random" else _graph(code, cuda_device))
+    dec = qr.ResidentQSPA(g, *mode)
+    assert dec.cluster_plan is not None
+    llr = _zero_cw_llrs(g, 300, 2.5, cuda_device)
+    for a, b in zip(qr.resident_decode_cl(dec, llr), qr.resident_decode_cl_scratch(dec, llr)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_resident_cl_wrapper_rejects_bad_input(cuda_device):
     g = _graph("gf64_n576_k480", cuda_device)
@@ -650,9 +698,11 @@ def _same_bits(a, b) -> bool:
 def test_micro_rot_softmax_edges_match_plain(cuda_device, Q, layout, TB):
     """P5 with -0.0, +-inf, NaN and overflowing exps in X, an odd M, RB
     with a 0.5 entry (that column blends every iteration) and a -0.0, at
-    TB = 1, 33 (warps across columns of another roll: selects) and 64
-    (warps sharing a roll: the static permutations), and 0, 1 and 200
-    iterations: the plain version's bits, NaN where it has NaN."""
+    TB = 1, 33 and 64 (in the new layout, where a check's frames lie side
+    by side, a warp's columns then span every check, two checks or one,
+    each check with its own roll; every roll is by selects, a value for
+    each bit of r, whatever the warp shares), and 0,
+    1 and 200 iterations: the plain version's bits, NaN where it has NaN."""
     rng = np.random.default_rng(Q + TB)
     DC, M = 3, 5
     shape = (Q, DC, M, TB) if layout == "new" else (Q, DC, TB, M)
