@@ -64,10 +64,27 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 to 2048 per point): QSPA through K0-cl and the EMS half
                 through K2; then GF(256) QSPA at 10 iterations, 2.5 dB,
                 16384 frames, held to its JAX FER record
- 15. bench    - sim-step throughput, kernel paths and plain torch paths,
+ 15. random_cw - random codewords: the encoder on the card against the
+                encoder on the CPU, bit for bit, on every code in codes/
+                and the codes this script makes, at 8192 frames (q <= 32)
+                or 4096, every codeword satisfying H; K0 (flagship, GF(4),
+                GF(32)), K0-cl's cluster kernel (GF(64), GF(256)), its
+                scratch kernel (OVERSIZE) and K3 (GF(16)) against their
+                plain versions on LLRs of random codewords in the modes of
+                phase 4, a frame done exactly when its decision satisfies
+                H, >= 99% of frames done and right at each code's higher
+                Eb/N0; the five paths of phases 10-14 with a FER record
+                (K0, K0-cl, K3, K2, K5) through `cli.main(["run",
+                "--random-codewords", ...])`, each held to that record
+                (K2's: the JAX package's own random-codeword FER,
+                tests/data/fer_random_cw_jax.json: its EMS at nm < q
+                breaks ties toward symbol 0);
+                the flagship bench step in both modes and the encoder
+                alone, timed
+ 16. bench    - sim-step throughput, kernel paths and plain torch paths,
                 QSPA, EMS, T-EMS and config 5's QSPA and EMS halves (EMS
                 with each merge)
- 16. micro    - the probes P1-P7: the two entry points
+ 17. micro    - the probes P1-P7: the two entry points
                 (nbldpc_tpu_torch.benchmarks.micro_kernels and .micro_layout)
                 as a user runs them, counters read around them; then each
                 probe kernel against its plain version at the JAX scripts'
@@ -344,23 +361,36 @@ def _llrs(g, frames_per_snr: int, snrs, device, ebn0: bool = True):
     return llr_init(y, sig, g.q).contiguous()
 
 
+def _done_not_h(g, hard, done) -> int:
+    """Frames whose done flag disagrees with H hard = 0 (the graph's
+    syndrome, from the host's tables): done frames that fail H, and frames
+    not done that satisfy it."""
+    ok = ~(g.syndrome_bl(hard.T) != 0).any(dim=0)
+    return int((ok != done).sum())
+
+
 def _hold_resident(phase: str, code: str, g, modes: dict, timed, mixed=(),
-                   scratch=False) -> dict:
+                   scratch=False, cw=None) -> dict:
     """A resident QSPA kernel (K0 or K0-cl, by q and state size) against the
     plain version on identical LLRs, mode by mode: (llr, max_iters,
     early_term, stats_each_iter). A frame agrees when hard, done and iters
     all equal; one iteration (mode c_one_iter) needs agreement >= 0.999,
-    every other mode >= 0.995 with frame-error counts within |z| < 3. In
-    the modes in `mixed` the plain decode must leave some frames in error
-    and decode the others right. The modes in `timed` are timed plain,
-    kernel, kernel, plain (with `scratch`, K0-cl's scratch kernel twice in
-    the middle); the last of them gives ms, plain_ms and the bound."""
+    every other mode >= 0.995 with frame-error counts (against the
+    codewords cw, the all-zero codeword when None) within |z| < 3; in every
+    mode the kernel marks a frame done exactly when its hard decision
+    satisfies H. In the modes in `mixed` the plain decode must leave some
+    frames in error and decode the others right. The modes in `timed` are
+    timed plain, kernel, kernel, plain (with `scratch`, K0-cl's scratch
+    kernel twice in the middle); the last of them gives ms, plain_ms and
+    the bound. Each mode's record also holds the share of frames the kernel
+    marks done with hard == cw (`done_right`)."""
     import torch
 
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
     worst = 0
-    result = {"agreement_min": 1.0}
+    result = {"agreement_min": 1.0, "done_right": {}}
+    ref = 0 if cw is None else cw
     for name, (llr, iters, et, stats) in modes.items():
         B = llr.shape[0]
         dec = qr.ResidentQSPA(g, iters, et, stats)
@@ -370,12 +400,19 @@ def _hold_resident(phase: str, code: str, g, modes: dict, timed, mixed=(),
         same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
         agree = float(same.float().mean())
         result["agreement_min"] = min(result["agreement_min"], agree)
-        fe_k = int((hk != 0).any(dim=1).sum())
-        fe_p = int((hp != 0).any(dim=1).sum())
+        fe_k = int((hk != ref).any(dim=1).sum())
+        fe_p = int((hp != ref).any(dim=1).sum())
         z = two_prop_z(fe_k, B, fe_p, B)
+        done_right = float((dk & (hk == ref).all(dim=1)).float().mean())
+        result["done_right"][name] = done_right
+        not_h = _done_not_h(g, hk, dk)
         rec = {"phase": phase, "code": code, "mode": name, "frames": B,
                "iters": iters, "agreement": agree, "frame_errors_kernel": fe_k,
-               "frame_errors_plain": fe_p, "z": z}
+               "frame_errors_plain": fe_p, "z": z, "done_right": done_right,
+               "done_not_h": not_h}
+        if not_h:
+            emit(rec)
+            fail(f"{phase} {code} mode {name}: {not_h} frames' done flags disagree with H")
         if name == "c_one_iter":
             worst = max(worst, int((hk - hp).abs().max()), int((ik - ip).abs().max()),
                         int((dk != dp).sum() > 0))
@@ -642,29 +679,23 @@ def phase_cn_ems(device):
     return rows
 
 
-def phase_ems_resident(device):
-    """K3 against its plain version on identical LLRs (gf16_n204_k102,
-    offset 0.3): nm = 16 in the three modes at 2048 frames and at path A's
-    sweep shape (2 x 8192 frames, 1.5 and 2.0 dB, 50 iterations, early
-    termination), nm = 8, then the step of bench row ems_gf16_n204_k102
-    (8192 frames, sigma 0.63, 50 iterations, throughput); agreement must be
-    1.0. Timed in throughput mode, at the sweep shape and at the bench
-    step, whose numbers go to the kernels summary."""
+def _hold_ems(phase: str, code: str, g, modes: dict, timed=(), cw=None) -> dict:
+    """K3 against its plain version (offset 0.3) on identical LLRs, mode by
+    mode: (llr, max_iters, early_term, stats_each_iter, nm). Agreement
+    (hard, done and iters all equal) must be 1.0, and the kernel must mark
+    a frame done exactly when its hard decision satisfies H. Frame errors
+    count against the codewords cw (the all-zero codeword when None). The
+    modes in `timed` are timed plain, kernel, kernel, plain; the last of
+    them gives ms, plain_ms and the bound. Each mode's record also holds
+    the share of frames the kernel marks done with hard == cw
+    (`done_right`)."""
     import torch
 
     from nbldpc_tpu_torch.kernels import ems_resident as er
 
-    g = _graph("gf16_n204_k102", device)
-    small, sweep = _llrs(g, 2048, [1.5], device), _llrs(g, 8192, [1.5, 2.0], device)
-    modes = {"a_early_term": (small, 50, True, True, 16),
-             "b_throughput": (small, 50, False, False, 16),
-             "c_one_iter": (small, 1, False, True, 16),
-             "d_sweep_shape": (sweep, 50, True, True, 16),
-             "e_nm8": (small, 50, True, True, 8),
-             "f_bench_shape": (_bench_llrs("ems_gf16_n204_k102", g, device),
-                               50, False, False, 16)}
     worst = 0
-    result = {}
+    result = {"done_right": {}}
+    ref = 0 if cw is None else cw
     for name, (llr, iters, et, stats, nm) in modes.items():
         B = llr.shape[0]
         dec = er.ResidentEMS(g, iters, nm, 0.3, et, stats)
@@ -675,12 +706,14 @@ def phase_ems_resident(device):
         agree = float(same.float().mean())
         worst = max(worst, int((hk - hp).abs().max()), int((ik - ip).abs().max()),
                     int((dk != dp).any()))
-        fe_k = int((hk != 0).any(dim=1).sum())
-        fe_p = int((hp != 0).any(dim=1).sum())
-        rec = {"phase": "ems_resident", "mode": name, "nm": nm, "frames": B,
-               "agreement": agree, "frame_errors_kernel": fe_k,
-               "frame_errors_plain": fe_p}
-        if name in ("b_throughput", "d_sweep_shape", "f_bench_shape"):
+        done_right = float((dk & (hk == ref).all(dim=1)).float().mean())
+        result["done_right"][name] = done_right
+        not_h = _done_not_h(g, hk, dk)
+        rec = {"phase": phase, "code": code, "mode": name, "nm": nm, "frames": B,
+               "agreement": agree, "frame_errors_kernel": int((hk != ref).any(dim=1).sum()),
+               "frame_errors_plain": int((hp != ref).any(dim=1).sum()),
+               "done_right": done_right, "done_not_h": not_h}
+        if name in timed:
             p1 = cuda_ms(lambda: er.decode_plain(dec, llr), 1)
             k1 = cuda_ms(lambda: er.resident_decode(dec, llr), 5)
             k2 = cuda_ms(lambda: er.resident_decode(dec, llr), 5)
@@ -690,10 +723,33 @@ def phase_ems_resident(device):
                        **resident_ems_bound(g, B, int(ik.sum()), nm))
             result.update({k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
         emit(rec)
-        if agree != 1.0:
-            fail(f"ems_resident mode {name}: agreement {agree} != 1.0")
+        if agree != 1.0 or not_h:
+            fail(f"{phase} {code} mode {name}: agreement {agree} != 1.0 or "
+                 f"{not_h} frames' done flags disagree with H")
     result["max_abs_err"] = worst
     return result
+
+
+def phase_ems_resident(device):
+    """K3 against its plain version on identical LLRs (gf16_n204_k102,
+    offset 0.3): nm = 16 in the three modes at 2048 frames and at path A's
+    sweep shape (2 x 8192 frames, 1.5 and 2.0 dB, 50 iterations, early
+    termination), nm = 8, then the step of bench row ems_gf16_n204_k102
+    (8192 frames, sigma 0.63, 50 iterations, throughput); agreement must be
+    1.0. Timed in throughput mode, at the sweep shape and at the bench
+    step, whose numbers go to the kernels summary. In every mode a frame
+    is done exactly when its hard decision satisfies H."""
+    g = _graph("gf16_n204_k102", device)
+    small, sweep = _llrs(g, 2048, [1.5], device), _llrs(g, 8192, [1.5, 2.0], device)
+    modes = {"a_early_term": (small, 50, True, True, 16),
+             "b_throughput": (small, 50, False, False, 16),
+             "c_one_iter": (small, 1, False, True, 16),
+             "d_sweep_shape": (sweep, 50, True, True, 16),
+             "e_nm8": (small, 50, True, True, 8),
+             "f_bench_shape": (_bench_llrs("ems_gf16_n204_k102", g, device),
+                               50, False, False, 16)}
+    return _hold_ems("ems_resident", "gf16_n204_k102", g, modes,
+                     ("b_throughput", "d_sweep_shape", "f_bench_shape"))
 
 
 def phase_cn_tems(device):
@@ -906,6 +962,16 @@ TEMS_PATHS = [
 ]
 
 
+def fer_records() -> list:
+    """The JAX package's FER records: benchmarks/results/fer_curves_r5.json
+    (all-zero codeword) and tests/data/fer_random_cw_jax.json (random
+    codewords, for the configurations whose reference decoder is not
+    codeword-symmetric; written by tests/fer_random_cw_jax.py)."""
+    return [e for f in ("benchmarks/results/fer_curves_r5.json",
+                        "tests/data/fer_random_cw_jax.json")
+            for e in json.loads((ROOT / f).read_text())]
+
+
 def phase_paths(phase: str, paths):
     """Paths through cli.main, counters zeroed just before each and read
     just after: the path's kernel launched, no plain version ran, FER falls
@@ -916,7 +982,7 @@ def phase_paths(phase: str, paths):
 
     out_dir = ROOT / "build" / "nbldpc_tpu_torch"
     out_dir.mkdir(parents=True, exist_ok=True)
-    records = json.loads((ROOT / "benchmarks/results/fer_curves_r5.json").read_text())
+    records = fer_records()
     launches = {}
     for name, args, kernel, ref_name, snr, frames in paths:
         rep = out_dir / f"smoke_{name}.json"
@@ -1019,6 +1085,176 @@ def phase_cfg5():
     return _sum_counts(launches, phase_paths("main_cfg5", CFG5_FER_PATH))
 
 
+# Phase random_cw. The whole-decode kernels on LLRs of random codewords:
+# (the kernel that must launch, code, iterations, Eb/N0 points, frames a
+# point); at the first point some frames fail, at the second >= 99% must be
+# done and right in the early-termination mode. K0 on the flagship code,
+# GF(4) and the K0_GF32 code, K0-cl's cluster kernel at GF(64) and GF(256),
+# its scratch kernel on OVERSIZE, K3 on GF(16) (nm 16, offset 0.3).
+RANDOM_CW_HOLDS = [
+    ("qspa_resident", "gf16_n204_k102_c8", 50, (1.5, 2.5), 2048),
+    ("qspa_resident", "gf4_n96_k48", 20, (2.5, 4.5), 2048),
+    ("qspa_resident", "gf32_random", 50, (1.5, 3.5), K0_GF32_FRAMES),
+    ("qspa_resident_cl", "gf64_n576_k480", 20, (3.5, 4.0), 1024),
+    ("qspa_resident_cl", "gf256_n255_k175", 20, (2.0, 3.0), 512),
+    ("qspa_resident_cl_scratch", "oversize_gf256_n1200", 20, (2.0, 2.5), OVERSIZE_FRAMES),
+    ("ems_resident", "gf16_n204_k102", 50, (1.5, 3.0), 2048),
+]
+# The paths of phases 10-14 that carry a FER record, in random-codeword
+# mode: the flagship (K0), GF(256) QSPA (K0-cl), GF(16) EMS (K3), GF(256)
+# classic EMS (K2) and config 4's T-EMS (K5). Under channel and decoder
+# symmetry the all-zero-codeword record is the yardstick; where the JAX
+# package's own FER depends on the codeword (EMS with nm < q breaks ties
+# toward the lowest symbol), its random-codeword record is.
+RANDOM_CW_PATHS = [
+    (f"R_{name}", [*args, "--random-codewords"], kernel, ref, snr, frames)
+    for name, args, kernel, ref, snr, frames in (
+        ("gf16_qspa_c8",
+         ["--code", "gf16_n204_k102_c8", "--decoder", "qspa", "--snr", "1.5", "2.0",
+          "--iters", "50", "--set", "sim.frames_per_step=8192",
+          "--set", "sim.max_frames=16384"],
+         "qspa_resident", "gf16_qspa_c8_50it", 1.5, 16384),
+        *CFG5_FER_PATH, *EMS_PATHS[:2], TEMS_PATHS[0])]
+
+
+def _cw_llrs(g, frames: int, ebn0: float, device, seed: int):
+    """(LLRs [frames, N, q], codewords [frames, N]) of random codewords at
+    ebn0 dB: the info symbols and the noise from one generator, the
+    codewords from the port's encoder on the card."""
+    import torch
+
+    from nbldpc_tpu_torch.channel import ebn0_to_sigma, transmit
+    from nbldpc_tpu_torch.encode import Encoder
+    from nbldpc_tpu_torch.sim import step_generator
+
+    gen = step_generator(seed, 0, device)
+    enc = Encoder(g.spec, device)
+    u = torch.randint(0, g.q, (frames, enc.k), generator=gen, device=device, dtype=torch.int32)
+    cw = enc.encode(u)
+    sigma = float(ebn0_to_sigma(ebn0, g.spec.k / g.n))
+    return transmit(gen, cw, sigma, g.q).contiguous(), cw
+
+
+def _smoke_spec(code: str):
+    """A code of this script by name: codes/<name>, or one made from a seed."""
+    from nbldpc_tpu_torch.code import random_regular_spec
+    from nbldpc_tpu_torch.utils.config import CodeConfig
+
+    made = {"gf32_random": lambda: random_regular_spec(*K0_GF32),
+            "gf4_dv3_random": lambda: random_regular_spec(*K0_DV3),
+            "oversize_gf256_n1200": lambda: oversize_spec(256),
+            "oversize_gf64_n1800": lambda: oversize_spec(64)}
+    return made[code]() if code in made else CodeConfig(name=code).load()
+
+
+def encoder_bound(spec, B: int) -> dict:
+    """The encoder's bound: the product (u bits [B, K p] @ G [K p, M p],
+    two operations a term, at the f32 peak), and its bytes: u read, G read,
+    the codewords written (int32)."""
+    p = spec.q.bit_length() - 1
+    k = spec.n - spec.m
+    return bound(2 * B * (k * p) * (spec.m * p), 4 * (B * k + k * p * spec.m * p + B * spec.n))
+
+
+def phase_random_cw(device, card: str):
+    """Random codewords on the card. 1: the encoder on the card equals the
+    encoder on the CPU bit for bit, on every codes/*.alist and the codes
+    this script makes (OVERSIZE, OVERSIZE_GF64, K0_GF32, K0_DV3), at 8192
+    frames for q <= 32 and 4096 above, and H c = 0 for every frame
+    (graph.syndrome_bl on the card). 2: RANDOM_CW_HOLDS, each kernel
+    against its plain version on the same LLRs in the modes of phase 4
+    (K0 and K0-cl to its thresholds, K3 frame for frame), done exactly when
+    H hard = 0, and at the second Eb/N0 >= 99% of frames done with hard ==
+    cw under early termination. 3: RANDOM_CW_PATHS through cli.main, as
+    phase_paths holds them. 4: the flagship bench step (8192 frames x 50
+    iterations, sigma 0.63) in both modes and the encoder alone, by CUDA
+    events. Returns the paths' launches."""
+    import torch
+
+    from nbldpc_tpu_torch import bench
+    from nbldpc_tpu_torch.encode import Encoder
+    from nbldpc_tpu_torch.graph import TannerGraph
+    from nbldpc_tpu_torch.sim import make_sim_step, step_generator
+    from nbldpc_tpu_torch.utils.config import DecoderConfig
+
+    codes = sorted(p.stem for p in (ROOT / "codes").glob("*.alist"))
+    for code in (*codes, "oversize_gf256_n1200", "oversize_gf64_n1800", "gf32_random",
+                 "gf4_dv3_random"):
+        spec = _smoke_spec(code)
+        B = 8192 if spec.q <= 32 else 4096
+        enc = Encoder(spec, device)
+        gen = step_generator(77, 0, device)
+        u = torch.randint(0, spec.q, (B, enc.k), generator=gen, device=device,
+                          dtype=torch.int32)
+        cw = enc.encode(u)
+        same = bool(torch.equal(cw.cpu(), Encoder(spec, "cpu").encode(u.cpu())))
+        g = TannerGraph(spec, device)
+        bad_h = int((g.syndrome_bl(cw.T) != 0).any(dim=0).sum())
+        rec = {"phase": "random_cw", "part": "encoder", "code": code, "frames": B,
+               "equal_to_cpu": same, "frames_failing_h": bad_h,
+               "nonzero_symbols": float((cw != 0).float().mean())}
+        emit(rec)
+        if not same or bad_h:
+            fail(f"random_cw: the encoder on {code}: equal to the CPU's {same}, "
+                 f"{bad_h} codewords fail H")
+
+    for kernel, code, iters, snrs, frames in RANDOM_CW_HOLDS:
+        g = TannerGraph(_smoke_spec(code), device)
+        for i, ebn0 in enumerate(snrs):
+            llr, cw = _cw_llrs(g, frames, ebn0, device, seed=100 + i)
+            modes = {"a_early_term": (llr, iters, True, True),
+                     "b_throughput": (llr, iters, False, False),
+                     "c_one_iter": (llr, 1, False, True)}
+            label = f"{code}@{ebn0}dB"
+            _reset_counters()
+            if kernel == "ems_resident":
+                right = _hold_ems("random_cw", label, g,
+                                  {k: (*v, 16) for k, v in modes.items()}, cw=cw)["done_right"]
+            else:
+                right = _hold_resident("random_cw", label, g, modes, (), cw=cw)["done_right"]
+            counts = _counters()
+            launched = {k: counts[k] for k in ("qspa_resident", "qspa_resident_cl",
+                                               "qspa_resident_cl_scratch", "ems_resident")}
+            if launched[kernel] != len(modes) or sum(launched.values()) != len(modes):
+                fail(f"random_cw {label}: {kernel} did not decode alone: {launched}")
+            if i == 1 and right["a_early_term"] < 0.99:
+                fail(f"random_cw {label}: {right['a_early_term']} of frames done "
+                     f"and right, below 0.99")
+
+    # the random-codeword record where the reference has one (its decoder
+    # is not codeword-symmetric there), else the all-zero record
+    have = {e["config"] for e in fer_records()}
+    launches = phase_paths("random_cw", [
+        (name, args, kernel, f"{ref}_random_cw" if f"{ref}_random_cw" in have else ref,
+         snr, frames) for name, args, kernel, ref, snr, frames in RANDOM_CW_PATHS])
+
+    row = bench.ROWS_BY_NAME["qspa_gf16_n204_k102_c8"]
+    spec = _smoke_spec(row.code)
+    g = TannerGraph(spec, device)
+    dec = DecoderConfig(kind="qspa", max_iters=row.iters, early_term=False,
+                        stats_each_iter=False)
+    enc = Encoder(spec, device)
+    steps = {"zero": make_sim_step(g, dec, row.batch, 1),
+             "random": make_sim_step(g, dec, row.batch, 1, enc)}
+    sig = torch.tensor([row.noise], dtype=torch.float32, device=device)
+    gen = step_generator(0, 0, device)
+    ms = {k: [] for k in steps}
+    for mode in ("zero", "random", "random", "zero"):
+        ms[mode].append(cuda_ms(lambda m=mode: steps[m](gen, sig), 10))
+    u = torch.randint(0, spec.q, (1, row.batch, enc.k), generator=gen, device=device,
+                      dtype=torch.int32)
+    enc_runs = [cuda_ms(lambda: enc.encode(u), 50) for _ in range(2)]
+    step_zero, step_random = (sum(ms[k]) / 2 for k in ("zero", "random"))
+    enc_ms = sum(enc_runs) / 2
+    emit({"phase": "random_cw", "part": "timing", "row": row.name, "card": card,
+          "step_ms_zero_codeword": step_zero, "step_ms_random_codeword": step_random,
+          "random_minus_zero_ms": step_random - step_zero,
+          "step_ms_runs": ms, "encoder_ms": enc_ms, "encoder_ms_runs": enc_runs,
+          "encoder_share_of_random_step": enc_ms / step_random,
+          **{f"encoder_{k}": v for k, v in encoder_bound(spec, row.batch).items()}})
+    return launches
+
+
 def phase_bench(card: str):
     from nbldpc_tpu_torch import bench
 
@@ -1033,7 +1269,7 @@ def phase_bench(card: str):
     return rows
 
 
-# The probe kernels of phase 16: (name, source, the TPU kernels they replace)
+# The probe kernels of phase 17: (name, source, the TPU kernels they replace)
 MICRO_KERNELS = [
     ("micro_flat_gather", "micro_gather.cu", "benchmarks/micro_pallas.py:54"),
     ("micro_row_moves", "micro_gather.cu", "benchmarks/micro_pallas.py:73"),
@@ -1043,9 +1279,9 @@ MICRO_KERNELS = [
     ("micro_route", "micro_layout.cu",
      "benchmarks/micro_layout.py:79, benchmarks/micro_layout.py:145"),
 ]
-# micro_layout's default depth (phase 16 also holds the kernels at 4x it)
+# micro_layout's default depth (phase 17 also holds the kernels at 4x it)
 MICRO_LAYOUT_ITERS = 50
-# the deeper depth at which phase 16 also holds P1 and P2 (10x the entry
+# the deeper depth at which phase 17 also holds P1 and P2 (10x the entry
 # point's 20)
 MICRO_GATHER_DEEP = 200
 
@@ -1258,7 +1494,8 @@ def main() -> int:
     counts = _sum_counts(phase_highq_qspa(device), phase_main(main_b64),
                          phase_paths("main_qspa", BASELINE_QSPA_PATHS),
                          phase_paths("main_ems", EMS_PATHS),
-                         phase_paths("main_tems", TEMS_PATHS), phase_cfg5())
+                         phase_paths("main_tems", TEMS_PATHS), phase_cfg5(),
+                         phase_random_cw(device, card))
     phase_bench(card)
     micro_counts, micro_rows = phase_micro(device, card)
     counts = _sum_counts(counts, micro_counts)

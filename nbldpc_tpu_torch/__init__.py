@@ -8,6 +8,8 @@ names:
   - GF(2^p) tables                                       (gf.py)
   - alist codes and Tanner-graph index tables           (code.py, graph.py)
   - BPSK binary image, AWGN, LLR-vector init            (channel.py)
+  - systematic encoder, PEG / QC code generation        (encode.py, codegen.py)
+  - the host C++ library: GF tables, row reduction, BFS (native.py)
   - QSPA and EMS decoders and their shared loop         (decoders/)
   - CUDA kernels and their plain PyTorch versions       (kernels/, csrc/)
   - Monte-Carlo BER/FER engine, CLI, benchmark          (sim.py, cli.py, bench.py)

@@ -28,8 +28,13 @@ def _bits(q: int, device, dtype) -> torch.Tensor:
 
 
 def modulate(symbols: torch.Tensor, q: int) -> torch.Tensor:
-    """GF(q) symbols [..., N] int -> BPSK [..., N, p] float32 (bit 0 -> +1)."""
-    b = _bits(q, symbols.device, torch.float32)[symbols.long()]
+    """GF(q) symbols [..., N] int -> BPSK [..., N, p] float32 (bit 0 -> +1).
+
+    The bits come by shifts, not by a gather from the [q, p] table: on an
+    H100 that gather was the costliest part of a random-codeword sim step
+    outside the decode."""
+    shifts = torch.arange(q.bit_length() - 1, dtype=symbols.dtype, device=symbols.device)
+    b = ((symbols[..., None] >> shifts) & 1).to(torch.float32)
     return 1.0 - 2.0 * b
 
 

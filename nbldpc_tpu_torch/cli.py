@@ -1,8 +1,11 @@
-"""Command-line entry point: `run` (a Monte-Carlo sweep) and `bench`.
+"""Command-line entry point: `run` (a Monte-Carlo sweep), `gen-codes` and
+`bench`.
 
     python -m nbldpc_tpu_torch run --code gf16_n204_k102_c8 --snr 1.5 2.0 \\
         --iters 50 --set sim.frames_per_step=8192
     python -m nbldpc_tpu_torch run --config configs/gf16_qspa.json --device cpu
+    python -m nbldpc_tpu_torch run --code gf4_n96_k48 --random-codewords --device cpu
+    python -m nbldpc_tpu_torch gen-codes --out DIR     # default: codes/
     python -m nbldpc_tpu_torch bench        # H100 throughput benchmark
     python -m nbldpc_tpu_torch bench --profile qspa_gf256_n255_k175
 
@@ -107,6 +110,24 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_gen_codes(args) -> int:
+    """Write every standard code's alist to args.out (default codes/, whose
+    files it reproduces byte for byte)."""
+    from pathlib import Path
+
+    from nbldpc_tpu_torch.code import save_alist
+    from nbldpc_tpu_torch.codegen import build_standard_code, standard_names
+    from nbldpc_tpu_torch.utils.config import CODES_DIR
+
+    out = Path(args.out) if args.out else CODES_DIR
+    out.mkdir(parents=True, exist_ok=True)
+    for name in standard_names():
+        spec = build_standard_code(name)
+        save_alist(spec, out / f"{name}.alist")
+        print(f"wrote {out / (name + '.alist')}  (n={spec.n} m={spec.m} q={spec.q})")
+    return 0
+
+
 def cmd_bench(args) -> int:
     from nbldpc_tpu_torch import bench
 
@@ -117,12 +138,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="nbldpc_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_run_parser(sub)
+    pg = sub.add_parser("gen-codes", help="regenerate the standard code files")
+    pg.add_argument("--out", help="output directory (default: the repository's codes/)")
     pb = sub.add_parser("bench", help="run the H100 throughput benchmark")
     pb.add_argument("--profile", metavar="ROW",
                     help="device time per kernel of one bench row (bench.ROWS names)")
     args = ap.parse_args(argv)
     if args.cmd == "run":
         return cmd_run(args)
+    if args.cmd == "gen-codes":
+        return cmd_gen_codes(args)
     return cmd_bench(args)
 
 

@@ -74,6 +74,19 @@ class CodeSpec:
             if np.any(cols < 0) or np.any(cols >= self.n):
                 raise ValueError(f"row {mi}: column index out of range")
 
+    @staticmethod
+    def from_dense(H: np.ndarray, q: int) -> "CodeSpec":
+        """The CodeSpec of a dense H [m, n] over GF(q) (nonzeros in column
+        order)."""
+        H = np.asarray(H, dtype=np.int32)
+        m, n = H.shape
+        row_cols, row_vals = [], []
+        for mi in range(m):
+            cols = np.nonzero(H[mi])[0].astype(np.int32)
+            row_cols.append(cols)
+            row_vals.append(H[mi, cols].astype(np.int32))
+        return CodeSpec(q=q, n=n, m=m, row_cols=tuple(row_cols), row_vals=tuple(row_vals))
+
 
 def save_alist(spec: CodeSpec, path) -> None:
     spec.validate()

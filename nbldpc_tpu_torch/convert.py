@@ -2,7 +2,8 @@
 
     spec  = codespec_from_arrays(js.q, js.n, js.m, js.row_cols, js.row_vals)
     t     = graph_tables_from_numpy({"cn_vn": jg.cn_vn_np,
-                                     "down_idx": np.asarray(jg.down_idx), ...})
+                                     "down_idx": np.asarray(jg.down_idx), ...},
+                                    "cpu")
     graph = TannerGraph(spec, "cpu", tables=t)
 
 Checkpoints need no conversion: the port's Checkpointer reads the JAX
@@ -31,7 +32,7 @@ def codespec_from_arrays(q, n, m, row_cols, row_vals) -> CodeSpec:
     return spec
 
 
-def graph_tables_from_numpy(d: dict, device="cpu") -> dict:
+def graph_tables_from_numpy(d: dict, device) -> dict:
     """Graph-table tensors from a JAX TannerGraph's tables as numpy arrays.
 
     Keys are graph.TABLE_NAMES (a missing key raises); values are cast to

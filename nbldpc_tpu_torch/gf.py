@@ -1,6 +1,8 @@
 """GF(2^p) arithmetic as precomputed tables (host-side numpy).
 
-Field math never runs in the decode loop: multiplication by an edge weight
+The host operations (gmul, gdiv, ginv, matmul, matvec) serve one-time set-up:
+the encoder's row reduction and code generation. Field math never runs in
+the decode loop: multiplication by an edge weight
 is folded into int index tables (graph.py) that the decoders gather with.
 Supported fields: GF(2^p) for p = 1..8 (q = 2..256). Addition is XOR;
 multiplication uses exp/log tables over a primitive polynomial.
@@ -66,6 +68,33 @@ class GF:
         self.inv = inv
 
         self.bits = ((a[:, None] >> np.arange(self.p)[None, :]) & 1).astype(np.int32)
+
+    # ---- host-side array operations (encoder elimination, code generation) ----
+
+    def gmul(self, a, b) -> np.ndarray:
+        """Elementwise product of integer arrays or scalars."""
+        return self.mul[np.asarray(a, dtype=np.int64), np.asarray(b, dtype=np.int64)]
+
+    def gdiv(self, a, b) -> np.ndarray:
+        """Elementwise a / b (b nonzero)."""
+        return self.mul[np.asarray(a, dtype=np.int64), self.inv[np.asarray(b, dtype=np.int64)]]
+
+    def ginv(self, a) -> np.ndarray:
+        """Elementwise inverse (inv[0] = 0)."""
+        return self.inv[np.asarray(a, dtype=np.int64)]
+
+    def matmul(self, A, B) -> np.ndarray:
+        """A @ B over GF(q): sums are XOR, products field products."""
+        A = np.asarray(A, dtype=np.int64)
+        B = np.asarray(B, dtype=np.int64)
+        out = np.zeros((A.shape[0], B.shape[1]), dtype=np.int64)
+        for k in range(A.shape[1]):
+            out ^= self.mul[A[:, k][:, None], B[k, :][None, :]]
+        return out.astype(np.int32)
+
+    def matvec(self, A, x) -> np.ndarray:
+        """A @ x over GF(q) for a vector x."""
+        return self.matmul(A, np.asarray(x).reshape(-1, 1)).ravel()
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,6 @@
 """ctypes binding to the repository's native host library, native/nbldpc_host.cpp.
 
-The library is host C++ (GF tables, GF row reduction, PEG BFS), the same
+The library is host C++ (GF tables, GF row reduction, PEG BFS, syndrome), the same
 source the JAX package builds with the same g++ flags. The port builds its
 own copy, build/nbldpc_tpu_torch/libnbldpc_host.so, so it never loads a
 file that another package's build is writing. `build` is safe to call from
@@ -11,6 +11,13 @@ place, so no process ever loads a half-written library.
 
     from nbldpc_tpu_torch import native
     exp, log, inv, mul = native.gf_tables(16)
+    R, rank, pivots = native.gf_row_reduce(H, 16, mul, inv)
+
+Every wrapper checks its arguments' shapes and ranges before it passes a
+pointer, and calls the library or raises: there is no fallback. The numpy
+loops that the library replaces live beside their callers as plain
+versions (encode.gf_row_reduce_plain, codegen.bfs_dist_plain), which the
+tests hold equal to it.
 """
 
 from __future__ import annotations
@@ -61,6 +68,15 @@ def library() -> ctypes.CDLL:
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     lib.nb_gf_tables.argtypes = [ctypes.c_int, ctypes.c_int, i32p, i32p, i32p, i32p]
     lib.nb_gf_tables.restype = ctypes.c_int
+    lib.nb_gf_row_reduce.argtypes = [
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int64, i32p, i32p, i32p, i32p]
+    lib.nb_gf_row_reduce.restype = ctypes.c_int
+    lib.nb_peg_bfs.argtypes = [
+        ctypes.c_int, ctypes.c_int, i32p, i32p, i32p, i32p, ctypes.c_int, i32p]
+    lib.nb_peg_bfs.restype = None
+    lib.nb_syndrome.argtypes = [
+        ctypes.c_int, ctypes.c_int, i32p, i32p, i32p, i32p, i32p, i32p]
+    lib.nb_syndrome.restype = None
     return lib
 
 
@@ -76,3 +92,69 @@ def gf_tables(q: int) -> tuple:
     if library().nb_gf_tables(q, PRIM_POLY[q], exp, log, inv, mul) != 0:
         raise ValueError(f"polynomial {PRIM_POLY[q]:#b} is not primitive for q={q}")
     return exp, log, inv, mul.reshape(q, q)
+
+
+def _symbols(a, q: int, what: str, shape: tuple | None = None) -> np.ndarray:
+    """a as a contiguous int32 array of GF(q) symbols (of `shape` if given),
+    checked before the library indexes its tables with it."""
+    a = np.ascontiguousarray(a, dtype=np.int32)
+    if shape is not None and a.shape != shape:
+        raise ValueError(f"{what}: shape {a.shape}, expected {shape}")
+    if a.size and (a.min() < 0 or a.max() >= q):
+        raise ValueError(f"{what}: values outside GF({q})")
+    return a
+
+
+def gf_row_reduce(H: np.ndarray, q: int, mul: np.ndarray, inv: np.ndarray) -> tuple:
+    """Row reduction of H [m, n] over GF(q), pivoting on the first nonzero
+    row of each column: (R [m, n] int32, rank, pivot columns [rank] int32).
+    R's pivots are 1 with zeros above and below them."""
+    R = _symbols(H, q, "H").copy()
+    if R.ndim != 2:
+        raise ValueError(f"H must be a matrix, got shape {R.shape}")
+    mul, inv = _symbols(mul, q, "mul", (q, q)), _symbols(inv, q, "inv", (q,))
+    m, n = R.shape
+    piv = np.zeros(m, np.int32)
+    rank = library().nb_gf_row_reduce(q, m, n, R.reshape(-1), mul.reshape(-1), inv, piv)
+    return R, int(rank), piv[:rank].copy()
+
+
+def peg_bfs(vn_ptr, vn_adj, cn_ptr, cn_adj, n: int, m: int, v: int) -> np.ndarray:
+    """Distance [m] int32 from variable v to every check over a Tanner graph
+    in CSR form (vn_ptr [n + 1] / vn_adj: each variable's checks, cn_ptr
+    [m + 1] / cn_adj: each check's variables); INT32_MAX where unreachable."""
+    vn_ptr, cn_ptr = (np.ascontiguousarray(a, np.int32) for a in (vn_ptr, cn_ptr))
+    vn_adj, cn_adj = (np.ascontiguousarray(a, np.int32) for a in (vn_adj, cn_adj))
+    for ptr, adj, rows, cols, what in ((vn_ptr, vn_adj, n, m, "vn"),
+                                       (cn_ptr, cn_adj, m, n, "cn")):
+        if (ptr.shape != (rows + 1,) or ptr[0] != 0 or np.any(np.diff(ptr) < 0)
+                or ptr[-1] != adj.size):
+            raise ValueError(f"{what}_ptr is no CSR row pointer of {adj.size} entries")
+        if adj.size and (adj.min() < 0 or adj.max() >= cols):
+            raise ValueError(f"{what}_adj: node ids outside [0, {cols})")
+    if not 0 <= v < n:
+        raise ValueError(f"variable {v} outside [0, {n})")
+    dist = np.zeros(m, np.int32)
+    library().nb_peg_bfs(n, m, vn_ptr, vn_adj, cn_ptr, cn_adj, v, dist)
+    return dist
+
+
+def syndrome(q: int, n: int, row_cols, row_vals, mul: np.ndarray, cw) -> np.ndarray:
+    """H c over GF(q) for H given by its rows (row_cols, row_vals, as
+    CodeSpec holds them) and words cw [..., n]: the syndromes [..., m]
+    int32, 0 where a check is satisfied."""
+    mul = _symbols(mul, q, "mul", (q, q))
+    row_ptr = np.cumsum([0] + [len(c) for c in row_cols]).astype(np.int32)
+    row_col = np.ascontiguousarray(np.concatenate(row_cols), np.int32)
+    row_val = _symbols(np.concatenate(row_vals), q, "row_vals")
+    if row_col.size and (row_col.min() < 0 or row_col.max() >= n):
+        raise ValueError(f"row_cols: columns outside [0, {n})")
+    cw = _symbols(cw, q, "cw")
+    if cw.shape[-1:] != (n,):
+        raise ValueError(f"cw must be [..., {n}], got {cw.shape}")
+    words = cw.reshape(-1, n)
+    out = np.zeros((words.shape[0], len(row_cols)), np.int32)
+    for b in range(words.shape[0]):
+        library().nb_syndrome(q, len(row_cols), row_ptr, row_col, row_val,
+                              mul.reshape(-1), np.ascontiguousarray(words[b]), out[b])
+    return out.reshape(cw.shape[:-1] + (len(row_cols),))

@@ -1,14 +1,15 @@
 """Monte-Carlo BER/SER/FER simulation engine.
 
 One `step` processes [S, B] frames, all SNR points at once (per-SNR sigma
-is data), through noise -> llr_init -> decode -> error counters, on one
-device. The host loop accumulates per-SNR counters until every SNR point
-hits its stop rule (max frames or max frame errors); it fetches the
-counters once per step.
+is data), through (encode -> modulate ->) noise -> llr_init -> decode ->
+error counters, on one device. The host loop accumulates per-SNR counters
+until every SNR point hits its stop rule (max frames or max frame errors);
+it fetches the counters once per step.
 
-Reproducibility: the noise of macro-batch t comes from a torch.Generator
-seeded from (seed, t) through np.random.SeedSequence, so a resumed sweep
-draws exactly the frames an uninterrupted one would.
+Reproducibility: the noise of macro-batch t (and, in random-codeword mode,
+its info symbols) comes from a torch.Generator seeded from (seed, t)
+through np.random.SeedSequence, so a resumed sweep draws exactly the
+frames an uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init
+from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init, modulate
 from nbldpc_tpu_torch.decoders import ems, qspa, tems
+from nbldpc_tpu_torch.encode import Encoder
 from nbldpc_tpu_torch.gf import get_field
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.utils.config import DecoderConfig, RunConfig
@@ -85,31 +87,39 @@ def make_sim_step(
     dec: DecoderConfig,
     batch_per_snr: int,
     n_snr: int,
-    zero_codeword: bool = True,
+    encoder: Optional[Encoder] = None,
     cn_impl: str = "auto",
 ) -> Callable:
     """Build step(gen, sigmas [S] f32 on the graph's device) -> counters
     {name: int64 tensor [S]} on the device.
 
-    The step draws S*B all-zero-codeword frames, adds AWGN from `gen`,
-    computes LLRs, decodes and reduces the error counters over frames."""
-    if not zero_codeword:
-        raise NotImplementedError(
-            "random-codeword mode needs encode.py, which is not ported yet "
-            "(ROADMAP queue 1 item 10)")
+    The step draws the noise of S*B frames from `gen` and, given an
+    `encoder` (random-codeword mode), then their info symbols [S, B, K] in
+    [0, q); it encodes them, modulates, adds the noise, computes LLRs,
+    decodes and counts errors against the codewords. With no encoder every
+    frame is the all-zero codeword and no symbols are drawn, so both modes
+    draw the same noise from the same generator. step.frames(sigmas,
+    noise, u) runs the same step on given draws (u None: the all-zero
+    codeword)."""
     decode_fn = get_decode_fn(dec, cn_impl)
     S, B, N, p, q = n_snr, batch_per_snr, graph.n, graph.gf.p, graph.q
     device = graph.device
 
-    def step(gen: torch.Generator, sigmas: torch.Tensor) -> dict:
+    def frames(sigmas: torch.Tensor, noise: torch.Tensor, u=None) -> dict:
         sig = sigmas.to(torch.float32)[:, None, None, None]            # [S,1,1,1]
-        noise = torch.randn((S, B, N, p), generator=gen, device=device)
-        y = 1.0 + sig * noise                        # BPSK of the zero codeword
+        if u is None:
+            cw = None
+            y = 1.0 + sig * noise                    # BPSK of the zero codeword
+        else:
+            cw = encoder.encode(u)                                     # [S,B,N]
+            y = modulate(cw, q) + sig * noise
         llr = llr_init(y, sig, q)                                      # [S,B,N,q]
         res = decode_fn(graph, llr.reshape(S * B, N, q))
-        hard = res.hard.reshape(S, B, N)
-        sym_err = hard != 0
-        bit_err = sum(((hard >> t) & 1) for t in range(p))
+        diff = res.hard.reshape(S, B, N)
+        if cw is not None:
+            diff = diff ^ cw
+        sym_err = diff != 0
+        bit_err = sum(((diff >> t) & 1) for t in range(p))
         return {
             "frames": torch.full((S,), B, dtype=torch.int64, device=device),
             "frame_errors": sym_err.any(dim=-1).sum(dim=1),
@@ -119,6 +129,13 @@ def make_sim_step(
             "converged": res.done.reshape(S, B).sum(dim=1),
         }
 
+    def step(gen: torch.Generator, sigmas: torch.Tensor) -> dict:
+        noise = torch.randn((S, B, N, p), generator=gen, device=device)
+        u = None if encoder is None else torch.randint(
+            0, q, (S, B, encoder.k), generator=gen, device=device, dtype=torch.int32)
+        return frames(sigmas, noise, u)
+
+    step.frames = frames
     return step
 
 
@@ -190,7 +207,8 @@ def run_sweep(
     S, B = len(snrs), cfg.sim.frames_per_step
     sigma_np = np.asarray([float(ebn0_to_sigma(s, spec.k / spec.n)) for s in snrs],
                           dtype=np.float32)
-    step = make_sim_step(graph, cfg.decoder, B, S, cfg.channel.zero_codeword)
+    encoder = None if cfg.channel.zero_codeword else Encoder(spec, graph.device)
+    step = make_sim_step(graph, cfg.decoder, B, S, encoder)
 
     counters = Counters.zeros(S)
     start_t = 0

@@ -22,17 +22,19 @@ class CodeConfig:
     name: Optional[str] = None      # standard code name: codes/<name>.alist
 
     def load(self):
+        """The code: the alist at `path`, else codes/<name>.alist, else the
+        standard code `name` generated (KeyError for an unknown name)."""
         from nbldpc_tpu_torch.code import load_alist
 
         if self.path:
             return load_alist(self.path)
         if self.name:
             std = CODES_DIR / f"{self.name}.alist"
-            if not std.exists():
-                raise FileNotFoundError(
-                    f"{std} not found; generating codes (codegen.py) is not "
-                    "ported yet (ROADMAP queue 1 item 11)")
-            return load_alist(std)
+            if std.exists():
+                return load_alist(std)
+            from nbldpc_tpu_torch.codegen import build_standard_code
+
+            return build_standard_code(self.name)
         raise ValueError("CodeConfig needs path or name")
 
 

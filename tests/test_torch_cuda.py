@@ -16,9 +16,12 @@ import pytest
 import torch
 
 from nbldpc_tpu_torch.benchmarks import micro_kernels, micro_layout
-from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init
-from nbldpc_tpu_torch.code import random_regular_spec
+from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init, perfect_llr, transmit
+from nbldpc_tpu_torch.code import CodeSpec, random_regular_spec
+from nbldpc_tpu_torch.codegen import make_peg_code
 from nbldpc_tpu_torch.convert import codespec_from_arrays
+from nbldpc_tpu_torch.encode import Encoder
+from nbldpc_tpu_torch.gf import get_field
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems
 from nbldpc_tpu_torch.kernels import ems_resident as er
@@ -113,19 +116,38 @@ def _zero_cw_llrs(g, B, ebn0, device, seed=5):
     return llr_init(y, sigma, g.q).contiguous()
 
 
+def _random_cw_llrs(g, B, ebn0, device, seed=5):
+    """(LLRs [B, N, q] contiguous, codewords [B, N] int32) of B random
+    codewords at ebn0 dB: info symbols and noise from one generator, the
+    codewords from the port's encoder on the card."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    enc = Encoder(g.spec, device)
+    u = torch.randint(0, g.q, (B, enc.k), generator=gen, device=device, dtype=torch.int32)
+    cw = enc.encode(u)
+    sigma = float(ebn0_to_sigma(ebn0, g.spec.k / g.n))
+    return transmit(gen, cw, sigma, g.q).contiguous(), cw
+
+
+def _satisfied(g, hard):
+    """[B] bool: H hard = 0 for hard [B, N], by the graph's syndrome."""
+    return ~(g.syndrome_bl(hard.T) != 0).any(dim=0)
+
+
 # the launch counters of K0, K0-cl's cluster kernel and its scratch kernel
 RESIDENT_COUNTERS = (qr.resident_decode, qr.resident_decode_cl, qr.resident_decode_cl_scratch)
 
 
-def _hold_resident(g, llr, mode, kernel=None, direct=False):
+def _hold_resident(g, llr, mode, kernel=None, direct=False, cw=None):
     """One call of qr.resident_decode (with `direct`, of the wrapper
     `kernel` itself) against the plain resident decode on the same LLRs.
     The call launches `kernel` once (by its counter: K0 for q <= 32, else
     by default K0-cl's cluster kernel, or its scratch kernel for a code
     whose state no cluster holds) and no other. Agreement (hard, done and
     iters all equal) >= 0.999 after one iteration, else >= 0.995 with
-    frame-error counts within |z| < 3: exact but for ulp-level ties of
-    exp/log that a later iteration may amplify."""
+    frame-error counts (against the codewords cw, all-zero when None)
+    within |z| < 3: exact but for ulp-level ties of exp/log that a later
+    iteration may amplify. A frame the kernel marks done satisfies H.
+    Returns the kernel's (hard, done, iters)."""
     dec = qr.ResidentQSPA(g, *mode)
     if kernel is None:
         kernel = qr.resident_decode if g.q <= qr.K0_MAX_Q else qr.resident_decode_cl
@@ -135,18 +157,21 @@ def _hold_resident(g, llr, mode, kernel=None, direct=False):
     hk, dk, ik = (kernel if direct else qr.resident_decode)(dec, llr)
     assert [c.launches for c in RESIDENT_COUNTERS] == [
         n + (c is kernel) for c, n in zip(RESIDENT_COUNTERS, before)]
+    assert bool(_satisfied(g, hk)[dk].all())
     hp, dp, ip = qr.decode_plain(dec, llr)
     same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
     agree = float(same.float().mean())
     if mode[0] == 1:
         assert agree >= 0.999
-        return
+        return hk, dk, ik
     B = llr.shape[0]
-    fe_k, fe_p = int((hk != 0).any(dim=1).sum()), int((hp != 0).any(dim=1).sum())
+    ref = 0 if cw is None else cw
+    fe_k, fe_p = int((hk != ref).any(dim=1).sum()), int((hp != ref).any(dim=1).sum())
     pooled = (fe_k + fe_p) / (2 * B)
     se = math.sqrt(pooled * (1 - pooled) * 2 / B)
     z = 0.0 if se == 0 else (fe_k - fe_p) / B / se
     assert agree >= 0.995 and abs(z) < 3
+    return hk, dk, ik
 
 
 def _irregular_spec(q, seed, n=30, m=12):
@@ -502,6 +527,127 @@ def test_resident_ems_kernel_on_ties(cuda_device, nm, mode):
     hp, dp, ip = er.decode_plain(dec, llr)
     same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
     assert float(same.float().mean()) == 1.0
+
+
+# Random codewords through the whole-decode kernels. With the all-zero
+# codeword every product h * 0 in a kernel's syndrome is 0, so its weight
+# arithmetic never decided a frame; random codewords are also where the
+# tie-breaks (argmax to the lowest symbol, EMS's top-nm stable by index)
+# stop favouring the transmitted symbol. (kernel, code) of each case:
+# K0 on the flagship code, GF(4) and a random GF(32) code, K0-cl's cluster
+# kernel at GF(64) and GF(256), its scratch kernel on a GF(256) code no
+# cluster holds, K3 on GF(16); and an Eb/N0 where some frames fail and one
+# where nearly all decode.
+RANDOM_CW_CASES = [("k0", "gf16_n204_k102_c8", (1.5, 2.5)), ("k0", "gf4_n96_k48", (2.5, 4.5)),
+                   ("k0", "gf32", (1.5, 3.5)), ("cluster", "gf64_n576_k480", (3.5, 4.0)),
+                   ("cluster", "gf256_n255_k175", (2.0, 3.0)),
+                   ("scratch", "gf256_n1200", (2.0, 2.5)), ("k3", "gf16_n204_k102", (1.5, 3.0))]
+RANDOM_CW_KERNELS = {"k0": qr.resident_decode, "cluster": qr.resident_decode_cl,
+                     "scratch": qr.resident_decode_cl_scratch, "k3": er.resident_decode}
+
+
+def _case_graph(code, device):
+    if code == "gf32":
+        return TannerGraph(K0_CODES["gf32"](), device=device)
+    if code in SCRATCH_CODES:
+        return _scratch_graph(code, device)
+    return _graph(code, device)
+
+
+def _decoder(kernel, g, mode):
+    return (er.ResidentEMS(g, mode[0], 16, 0.3, mode[1], mode[2]) if kernel == "k3"
+            else qr.ResidentQSPA(g, *mode))
+
+
+def _decode_both(kernel, dec, llr):
+    """The case's kernel through its public wrapper (resident_decode, which
+    launches it and no other) and the plain version, on the same LLRs:
+    ((hard, done, iters) of the kernel, of the plain version)."""
+    before = RANDOM_CW_KERNELS[kernel].launches
+    out = (er.resident_decode if kernel == "k3" else qr.resident_decode)(dec, llr)
+    assert RANDOM_CW_KERNELS[kernel].launches == before + 1
+    plain = er.decode_plain if kernel == "k3" else qr.decode_plain
+    return out, plain(dec, llr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+@pytest.mark.parametrize("kernel,code,ebn0s", RANDOM_CW_CASES)
+def test_resident_kernels_on_random_codewords(cuda_device, kernel, code, ebn0s, mode):
+    """Each whole-decode kernel against its plain version on LLRs of random
+    codewords, 300 frames at each Eb/N0, in the three modes: K0 and K0-cl
+    to the thresholds of _hold_resident, K3 frame for frame. At the higher
+    Eb/N0 with early termination, >= 99% of frames are done and right."""
+    g = _case_graph(code, cuda_device)
+    for i, ebn0 in enumerate(ebn0s):
+        llr, cw = _random_cw_llrs(g, 300, ebn0, cuda_device, seed=11 + i)
+        assert not torch.equal(cw, torch.zeros_like(cw))
+        if kernel == "k3":
+            (hk, dk, ik), (hp, dp, ip) = _decode_both(kernel, _decoder(kernel, g, mode), llr)
+            assert torch.equal(hk, hp) and torch.equal(dk, dp) and torch.equal(ik, ip)
+        else:
+            hk, dk, _ = _hold_resident(g, llr, mode, RANDOM_CW_KERNELS[kernel], cw=cw)
+        if i == 1 and mode[1]:
+            assert float((dk & (hk == cw).all(dim=1)).float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+@pytest.mark.parametrize("kernel,code,ebn0s", RANDOM_CW_CASES)
+def test_resident_syndrome_done_iff_h_satisfied(cuda_device, kernel, code, ebn0s, mode):
+    """The kernels' own syndrome on random codewords at the lower Eb/N0
+    (frames stop at different iterations, some never): a frame is done
+    exactly when H hard = 0, by the graph's syndrome on the host's tables,
+    in every mode (in throughput mode done is the final decision's)."""
+    g = _case_graph(code, cuda_device)
+    llr, _ = _random_cw_llrs(g, 300, ebn0s[0], cuda_device, seed=3)
+    (hk, dk, ik), _ = _decode_both(kernel, _decoder(kernel, g, mode), llr)
+    assert torch.equal(dk, _satisfied(g, hk))
+    assert 0 < int(dk.sum()) or mode[0] == 1
+
+
+def _inverse_weights(spec):
+    """spec with every weight h replaced by h^-1."""
+    inv = get_field(spec.q).inv
+    return CodeSpec(q=spec.q, n=spec.n, m=spec.m, row_cols=spec.row_cols,
+                    row_vals=tuple(inv[v].astype(np.int32) for v in spec.row_vals))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,code,ebn0s", RANDOM_CW_CASES)
+def test_resident_syndrome_rejects_inverse_weight_words(cuda_device, kernel, code, ebn0s):
+    """Words x with H' x = 0 for H' = H with each weight inverted, and H x
+    != 0, as certain LLRs: a kernel whose syndrome took h^-1 for h (the
+    sign of the log offset in K0-cl's syndrome_ok, or a syn_k table built
+    from perm_down in K0 and K3) would find every such frame done before
+    its first iteration. One iteration, early termination: no frame is done
+    at iteration 0, and the kernel agrees with its plain version."""
+    g = _case_graph(code, cuda_device)
+    enc = Encoder(_inverse_weights(g.spec), cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    x = enc.encode(torch.randint(0, g.q, (64, enc.k), generator=gen, device=cuda_device,
+                                 dtype=torch.int32))
+    assert not bool(_satisfied(g, x).any())
+    llr = perfect_llr(x, g.q).contiguous()
+    mode = (1, True, True)
+    (hk, dk, ik), (hp, dp, ip) = _decode_both(kernel, _decoder(kernel, g, mode), llr)
+    assert bool((ik == 1).all())
+    assert torch.equal(dk, dp) and torch.equal(ik, ip) and torch.equal(hk, hp)
+    assert torch.equal(dk, _satisfied(g, hk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [4, 16, 64, 256])
+def test_encoder_on_card_equals_cpu(cuda_device, q):
+    """The encoder on the card equals the encoder on the CPU bit for bit
+    (PEG codes from make_peg_code), and its codewords satisfy H there."""
+    spec = make_peg_code(60, 30, q, dv=2, seed=q)
+    u = torch.randint(0, q, (3, 257, spec.n - spec.m), dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(q))
+    on_card = Encoder(spec, cuda_device).encode(u.to(cuda_device))
+    assert torch.equal(on_card.cpu(), Encoder(spec, "cpu").encode(u))
+    g = TannerGraph(spec, cuda_device)
+    assert bool(_satisfied(g, on_card.reshape(-1, spec.n)).all())
 
 
 @pytest.mark.cuda

@@ -11,12 +11,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
+import nbldpc_tpu.channel as jch
+import nbldpc_tpu.graph as jgraph
 import nbldpc_tpu.sim as jsim
 import nbldpc_tpu.utils.config as jcfg
 from nbldpc_tpu.codegen import make_peg_code
+from nbldpc_tpu.encode import Encoder as JaxEncoder
 from nbldpc_tpu.utils.report import sweep_report as jax_sweep_report
 
 from nbldpc_tpu_torch import cli, sim
+from nbldpc_tpu_torch.encode import Encoder
 from nbldpc_tpu_torch.code import save_alist
 from nbldpc_tpu_torch.utils import config as tcfg
 
@@ -140,9 +146,10 @@ def test_sim_step_counts_and_generator(small_codes):
     assert {k: v.tolist() for k, v in a.items()} == {k: v.tolist() for k, v in b.items()}
     assert a["frames"].tolist() == [8, 8]
     assert np.all(a["converged"] <= 8) and np.all(a["bit_errors"] >= a["symbol_errors"])
-    with pytest.raises(NotImplementedError, match="encode.py"):
-        sim.make_sim_step(g, dec, 8, 1, zero_codeword=False)
-    t_step = sim.make_sim_step(g, dataclasses.replace(dec, kind="tems", tems_nr=4), 8, 2)
+    r_step = sim.make_sim_step(g, dec, 8, 2, Encoder(g.spec, "cpu"))
+    r = sim.fetch(r_step(sim.step_generator(3, 7, "cpu"), sig))
+    assert r["frames"].tolist() == [8, 8] and np.all(r["converged"] <= 8)
+    t_step =sim.make_sim_step(g, dataclasses.replace(dec, kind="tems", tems_nr=4), 8, 2)
     t = sim.fetch(t_step(sim.step_generator(3, 7, "cpu"), sig))
     assert set(t) == set(a)
     assert all(v.shape == (2,) for v in t.values())
@@ -157,8 +164,10 @@ def test_cli_refusals(tiny_alist):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(base + ["--device", "cuda"])
-    with pytest.raises(FileNotFoundError, match="codegen"):
+    with pytest.raises(KeyError, match="no_such_code"):
         tcfg.CodeConfig(name="no_such_code").load()
+    with pytest.raises(KeyError, match="no_such_code"):
+        jcfg.CodeConfig(name="no_such_code").load()
 
 
 def test_port_imports_no_jax():
@@ -192,3 +201,107 @@ def test_port_save_alist_roundtrip(small_codes, tmp_path):
     save_alist(g.spec, tmp_path / "irr.alist")
     back = load_alist(tmp_path / "irr.alist")
     np.testing.assert_array_equal(back.dense_h(), g.spec.dense_h())
+
+
+def _random_cfg(cfg):
+    return dataclasses.replace(cfg, channel=dataclasses.replace(cfg.channel, zero_codeword=False))
+
+
+# (code, decoder fields, sigmas): QSPA on three conftest codes; classic EMS
+# at GF(256) with nm 16 < q, where the truncated operands' fill values tie
+@pytest.mark.parametrize("code,dec,sigmas", [
+    ("gf4_tiny", {"kind": "qspa"}, (0.95, 0.7)), ("gf16_tiny", {"kind": "qspa"}, (0.95, 0.7)),
+    ("gf16_irr", {"kind": "qspa"}, (0.95, 0.7)),
+    ("gf256_12", {"kind": "ems", "nm": 16, "offset": 0.1}, (0.8, 0.55))])
+def test_random_codeword_step_matches_jax(small_codes, code, dec, sigmas):
+    """One random-codeword step on numpy info symbols and noise equals the
+    JAX composition on the same arrays (Encoder.encode -> modulate -> AWGN
+    -> llr_init -> decode -> counters), counter for counter."""
+    spec = (make_peg_code(12, 6, 256, dv=2, seed=3) if code == "gf256_12"
+            else small_codes[code])
+    g = port_graph(spec)
+    S, B, q, N, p = 2, 24, g.q, g.n, g.gf.p
+    step = sim.make_sim_step(g, tcfg.DecoderConfig(max_iters=6, **dec), B, S,
+                             encoder=Encoder(g.spec, "cpu"))
+    rng = np.random.default_rng(21)
+    k = spec.n - spec.m
+    u = rng.integers(0, q, size=(S, B, k)).astype(np.int32)
+    noise = rng.standard_normal((S, B, N, p)).astype(np.float32)
+    sig = np.asarray(sigmas, np.float32)
+    got = sim.fetch(step.frames(torch.from_numpy(sig), torch.from_numpy(noise),
+                                torch.from_numpy(u)))
+
+    cw = JaxEncoder(spec).encode(jnp.asarray(u))
+    s4 = jnp.asarray(sig)[:, None, None, None]
+    llr = jch.llr_init(jch.modulate(cw, q) + s4 * jnp.asarray(noise), s4, q)
+    res = jsim.get_decode_fn(jcfg.DecoderConfig(max_iters=6, **dec))(
+        jgraph.TannerGraph(spec), llr.reshape(S * B, N, q))
+    diff = np.asarray(res.hard).reshape(S, B, N) ^ np.asarray(cw)
+    want = {"frames": [B] * S,
+            "frame_errors": (diff != 0).any(axis=-1).sum(axis=1),
+            "symbol_errors": (diff != 0).sum(axis=(1, 2)),
+            "bit_errors": sum((diff >> t) & 1 for t in range(p)).sum(axis=(1, 2)),
+            "iter_sum": np.asarray(res.iters).reshape(S, B).sum(axis=1),
+            "converged": np.asarray(res.done).reshape(S, B).sum(axis=1)}
+    assert {k_: v.tolist() for k_, v in got.items()} == {
+        k_: np.asarray(v).tolist() for k_, v in want.items()}
+    assert 0 < got["frame_errors"].sum() < S * B        # some frames fail, some decode
+    assert (np.asarray(cw) != 0).any()
+
+
+def test_random_codeword_sweep_counts_frames(tiny_alist):
+    cfg = _random_cfg(_cfg(tcfg, tiny_alist))
+    res = sim.run_sweep(cfg, device="cpu")
+    assert res.counters.frames.tolist() == [64]
+    assert res.steps == 4
+    zero = sim.run_sweep(_cfg(tcfg, tiny_alist), device="cpu")
+    assert res.counters.asdict() != zero.counters.asdict()
+
+
+def test_random_codeword_kill_and_resume_exact(tiny_alist, tmp_path):
+    ref = sim.run_sweep(_random_cfg(_cfg(tcfg, tiny_alist)), device="cpu")
+    cfg = _random_cfg(_cfg(tcfg, tiny_alist, tmp_path / "sweep.ckpt"))
+
+    def killer(t, counters):
+        if t >= 2:
+            raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        sim.run_sweep(cfg, device="cpu", progress=killer)
+    resumed = sim.run_sweep(cfg, device="cpu")
+    assert resumed.steps < ref.steps
+    assert resumed.counters.asdict() == ref.counters.asdict()
+
+
+def _wilson(k: int, n: int, z: float = 3.29) -> tuple:
+    """The Wilson score interval of k successes in n trials (z 3.29: 99.9%)."""
+    p = k / n
+    mid = (p + z * z / (2 * n)) / (1 + z * z / n)
+    half = z * np.sqrt(p * (1 - p) / n + z * z / (4 * n * n)) / (1 + z * z / n)
+    return mid - half, mid + half
+
+
+def test_random_codeword_fer_agrees_with_zero_codeword(tiny_alist):
+    """Channel and decoder symmetry: on the same code and noise level the
+    two modes' FER agree within Wilson intervals, at two Eb/N0 points."""
+    base = dataclasses.replace(
+        _cfg(tcfg, tiny_alist), channel=tcfg.ChannelConfig(ebn0_db=(1.0, 3.0)),
+        sim=tcfg.SimConfig(frames_per_step=512, max_frames=2048, max_frame_errors=10**9,
+                           seed=4))
+    zero = sim.run_sweep(base, device="cpu").counters
+    rand = sim.run_sweep(_random_cfg(base), device="cpu").counters
+    for i in range(2):
+        lo_z, hi_z = _wilson(int(zero.frame_errors[i]), int(zero.frames[i]))
+        lo_r, hi_r = _wilson(int(rand.frame_errors[i]), int(rand.frames[i]))
+        assert lo_z <= hi_r and lo_r <= hi_z, (i, zero.asdict(), rand.asdict())
+    assert rand.frame_errors[0] > rand.frame_errors[1] > 0
+
+
+def test_cli_run_random_codewords_cpu(tmp_path):
+    rep = tmp_path / "rep.json"
+    rc = cli.main(["run", "--code", "gf4_n96_k48", "--random-codewords", "--snr", "2.0",
+                   "--iters", "5", "--frames", "64", "--set", "sim.frames_per_step=32",
+                   "--device", "cpu", "--report", str(rep)])
+    assert rc == 0
+    got = json.loads(rep.read_text())
+    assert got["frames"] == [64] and got["config"]["channel"]["zero_codeword"] is False

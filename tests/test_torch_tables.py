@@ -66,7 +66,7 @@ def test_graph_tables_equal(code, tmp_path):
 
     # through convert.py: the JAX spec's arrays and the JAX graph's tables
     cs = convert.codespec_from_arrays(js.q, js.n, js.m, js.row_cols, js.row_vals)
-    tg = TannerGraph(cs, "cpu", tables=convert.graph_tables_from_numpy(ref))
+    tg = TannerGraph(cs, "cpu", tables=convert.graph_tables_from_numpy(ref, "cpu"))
     assert_tables_equal(tg, ref)
     assert (tg.has_cn_pads, tg.has_vn_pads) == (
         jgraph.TannerGraph(js).has_cn_pads, jgraph.TannerGraph(js).has_vn_pads)
@@ -79,4 +79,4 @@ def test_graph_tables_equal(code, tmp_path):
 
 def test_convert_rejects_missing_tables():
     with pytest.raises(KeyError, match="missing graph tables"):
-        convert.graph_tables_from_numpy({"cn_vn": np.zeros((1, 1), np.int32)})
+        convert.graph_tables_from_numpy({"cn_vn": np.zeros((1, 1), np.int32)}, "cpu")
