@@ -93,6 +93,19 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 (P5 with its special-function-unit floor beside), P3 also
                 against chained torch.addmm calls (cuBLAS SGEMM, TF32 off)
                 as its library time
+ 18. multi_rank - runs across processes on the one card. A: phase main's
+                flagship sweep on a one-rank NCCL group (sim.run_sweep under
+                a layout), counters equal to no group's, K0 launched; the
+                group's cost a step and the noise draw timed. B: two ranks
+                sharing card 0 over gloo, started by torch.distributed.run
+                with this script as the rank program (--multi-rank-worker):
+                `cli run` on config 5 with --mesh-snr 2 and on the flagship
+                sweep with --mesh-data 2, each rank's counters equal to one
+                process's, K0-cl or K0 launched on each rank and no plain
+                version. C: the edge-sharded decode (decoders/sharded.py)
+                on the two ranks with K1, hard/done/iters equal to decode_bl
+                through K1, both early_term modes. Two ranks time-sharing one
+                card are no scaling measurement
 Then the kernels summary (each kernel's launches on the paths above, its
 worst error against its plain version, its time, its plain version's time,
 the bound of the same work and, for P3, the library call's time), the card
@@ -851,6 +864,13 @@ def phase_highq_qspa(device):
     return total
 
 
+# The flagship sweep (phases main and multi_rank): 2 x 8192 frames, 8192 a
+# step, 50 iterations, early termination
+FLAGSHIP_SWEEP = ["--code", "gf16_n204_k102_c8", "--decoder", "qspa", "--snr", "1.5", "2.0",
+                  "--iters", "50", "--set", "sim.frames_per_step=8192",
+                  "--set", "sim.max_frames=16384", "--set", "sim.max_frame_errors=1000000"]
+
+
 def phase_main(main_b64: int):
     """The user's entry point, flagship config (K0); then a GF(64) QSPA run
     (K0-cl's cluster kernel) and a run on the OVERSIZE code (its scratch
@@ -865,12 +885,7 @@ def phase_main(main_b64: int):
     save_alist(oversize_spec(), big)
     _reset_counters()
     t0 = time.perf_counter()
-    rc16 = cli.main(["run", "--code", "gf16_n204_k102_c8", "--decoder", "qspa",
-                     "--snr", "1.5", "2.0", "--iters", "50",
-                     "--set", "sim.frames_per_step=8192",
-                     "--set", "sim.max_frames=16384",
-                     "--set", "sim.max_frame_errors=1000000",
-                     "--report", str(rep16)])
+    rc16 = cli.main(["run", *FLAGSHIP_SWEEP, "--report", str(rep16)])
     t16 = time.perf_counter() - t0
     rc64 = cli.main(["run", "--code", "gf64_n576_k480", "--decoder", "qspa",
                      "--snr", "3.0", "--iters", "10",
@@ -1467,6 +1482,274 @@ def phase_micro(device, card: str):
     return counts, rows
 
 
+# Phase multi_rank. A: the flagship sweep of phase main (2 x 8192 frames,
+# 8192 a step, 50 iterations, early termination) on a one-rank NCCL group.
+# B and C on two ranks that share card 0 (gloo: NCCL refuses two ranks on
+# one card), launched by torch.distributed.run: B, config 5's file as it
+# stands with --mesh-snr 2 (sim.max_frames cut as in phase main_cfg5), then
+# the flagship sweep with --mesh-data 2 (4096 frames a rank); C, the
+# edge-sharded decode with K1 on config 5's field and check degree (the
+# generator of gf256_n255_k175 at N = 256: N = 255 does not divide by 2),
+# 512 frames, 20 iterations, both early_term modes.
+MULTI_RANK_RUNS = [
+    ("cfg5_mesh_snr2", ["--config", CFG5, "--set", f"sim.max_frames={CFG5_FRAMES}",
+                        "--mesh-snr", "2"], "qspa_resident_cl"),
+    ("flagship_mesh_data2", [*FLAGSHIP_SWEEP, "--mesh-data", "2"], "qspa_resident"),
+]
+SHARDED_CODE = (256, 80, 256, 2, 1)     # make_peg_code(n, m, q, dv, seed)
+SHARDED_FRAMES, SHARDED_ITERS, SHARDED_EBN0 = 512, 20, 2.5
+COUNTER_NAMES = ("frames", "frame_errors", "symbol_errors", "bit_errors", "iter_sum",
+                 "converged")
+
+
+def cli_run(args: list) -> dict:
+    """cli.main(["run", *args]) with every launch counter zeroed just before
+    and read just after: its return code, seconds, launches and the
+    counters of its last step record (the all-reduced counters on a rank)."""
+    import logging
+
+    from nbldpc_tpu_torch import cli
+
+    class Last(logging.Handler):
+        record = None
+
+        def emit(self, record):
+            self.record = json.loads(record.getMessage())
+
+    last = Last()
+    log = logging.getLogger("nbldpc")
+    log.addHandler(last)
+    try:
+        _reset_counters()
+        t0 = time.perf_counter()
+        rc = cli.main(["run", *args])
+        seconds = time.perf_counter() - t0
+        counts = _counters()
+    finally:
+        log.removeHandler(last)
+    return {"rc": rc, "seconds": seconds, "launches": {k: v for k, v in counts.items() if v},
+            "counters": {k: last.record[k] for k in COUNTER_NAMES}}
+
+
+def _sweep_config(args: list):
+    """The RunConfig that `cli run` builds from args."""
+    import argparse
+
+    from nbldpc_tpu_torch import cli
+
+    ap = argparse.ArgumentParser()
+    cli._add_run_parser(ap.add_subparsers(dest="cmd"))
+    return cli.build_config(ap.parse_args(["run", *args]))
+
+
+def _sharded_llrs(device):
+    """LLRs of random codewords of the SHARDED_CODE, the same on every rank."""
+    import torch
+
+    from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init, modulate
+    from nbldpc_tpu_torch.codegen import make_peg_code
+    from nbldpc_tpu_torch.encode import Encoder
+    from nbldpc_tpu_torch.graph import TannerGraph
+
+    n, m, q, dv, seed = SHARDED_CODE
+    spec = make_peg_code(n, m, q, dv=dv, seed=seed)
+    g = TannerGraph(spec, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(15)
+    u = torch.randint(0, q, (SHARDED_FRAMES, spec.n - spec.m), generator=gen,
+                      device=device, dtype=torch.int32)
+    x = modulate(Encoder(spec, device).encode(u), q)
+    sigma = float(ebn0_to_sigma(SHARDED_EBN0, spec.k / spec.n))
+    noise = torch.randn(x.shape, generator=gen, device=device)
+    return g, llr_init(x + sigma * noise, sigma, q)
+
+
+def multi_rank_worker() -> int:
+    """One rank of cases B and C (started by torch.distributed.run from
+    phase_multi_rank): the cli runs of MULTI_RANK_RUNS on card 0 over gloo,
+    then the edge-sharded decode; writes its records to
+    build/nbldpc_tpu_torch/multi_rank/rank<r>.json."""
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from nbldpc_tpu_torch.decoders import qspa, sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    rank = int(os.environ["RANK"])
+    out_dir = ROOT / "build" / "nbldpc_tpu_torch" / "multi_rank"
+    records = {}
+    for name, args, _ in MULTI_RANK_RUNS:
+        rec = cli_run([*args, "--device", "cuda:0", "--backend", "gloo",
+                       "--report", str(out_dir / f"{name}.json")])
+        records[name] = rec
+    g, llr = _sharded_llrs(device)
+    for early in (True, False):
+        _reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sharded.decode_edge_sharded(g, llr, qspa.qspa_cn_update_bl_kernel,
+                                          SHARDED_ITERS, early)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counters()
+        ref = qspa.decode(g, llr, SHARDED_ITERS, early, cn_impl="kernel")
+        records[f"sharded_early{int(early)}"] = {
+            "seconds": seconds, "launches": {k: v for k, v in counts.items() if v},
+            "equal": {k: bool(torch.equal(a, b))
+                      for k, a, b in zip(("hard", "done", "iters"), got, ref)},
+            "converged": int(got.done.sum()), "max_iters": int(got.iters.max())}
+    for name, rec in records.items():
+        emit({"rank": rank, "run": name, "launches": rec["launches"]})
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(records))
+    return 0
+
+
+def phase_multi_rank(device, card: str) -> dict:
+    """Cases A, B and C (above). Returns the launches of their paths, summed
+    over the ranks."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as tdist
+
+    from nbldpc_tpu_torch import sim
+    from nbldpc_tpu_torch.parallel import mesh
+
+    out_dir = ROOT / "build" / "nbldpc_tpu_torch" / "multi_rank"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+
+    # A: one rank over NCCL against no group, in turns
+    cfg = _sweep_config(FLAGSHIP_SWEEP)
+    runs = {}
+    tdist.init_process_group("nccl", init_method=f"file://{out_dir}/store_a", rank=0,
+                             world_size=1)
+    try:
+        layout = mesh.make_layout()
+        # a warm-up sweep each (NCCL's communicator starts at the first
+        # all-reduce), then in turns
+        for label in ("none", "nccl", "none", "nccl", "nccl", "none"):
+            _reset_counters()
+            res = sim.run_sweep(cfg, device, layout=layout if label == "nccl" else None)
+            counts = _counters()
+            runs.setdefault(label, []).append((res, counts))
+        S, B = len(cfg.channel.ebn0_db), cfg.sim.frames_per_step
+        slots = layout.block(S, B)[0]
+        out = torch.ones((6, S), dtype=torch.int64, device=device)
+
+        def group_work():            # what run_sweep adds to a step under a layout
+            full = torch.zeros((6, S), dtype=torch.int64, device=device)
+            full[:, slots] = out
+            tdist.all_reduce(full, group=layout.group)
+
+        group_ms = cuda_ms(group_work, 200)
+        allreduce_ms = cuda_ms(lambda: tdist.all_reduce(out, group=layout.group), 200)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            group_work()
+            torch.cuda.synchronize()
+        group_host_ms = (time.perf_counter() - t0) * 1e3 / 200
+    finally:
+        tdist.destroy_process_group()
+    g = _graph("gf16_n204_k102_c8", device)
+    shape = (S, B, g.n, g.gf.p)
+    draw_ms = cuda_ms(lambda: torch.randn(shape, device=device), 20)
+    half_ms = cuda_ms(lambda: torch.randn((S, B // 2, g.n, g.gf.p), device=device), 20)
+    want = runs["none"][0][0].counters.asdict()
+    rec_a = {"phase": "multi_rank", "case": "A_nccl_world1", "card": card,
+             "sweep": FLAGSHIP_SWEEP, "steps": runs["nccl"][0][0].steps,
+             "counters_equal": all(r.counters.asdict() == want for lab in runs
+                                   for r, _ in runs[lab]),
+             "launches": {k: v for k, v in runs["nccl"][0][1].items() if v},
+             "ms_per_step_warmup_first": {lab: [r.wall_seconds * 1e3 / r.steps
+                                                for r, _ in runs[lab]] for lab in runs},
+             "group_ms_per_step_events": group_ms, "group_ms_per_step_host": group_host_ms,
+             "allreduce_alone_ms_events": allreduce_ms,
+             "noise_draw_ms": {"global": draw_ms, "bytes_global": 4 * math.prod(shape),
+                               "data2_block": half_ms, "redundant": draw_ms - half_ms}}
+    emit(rec_a)
+    counts_a = _sum_counts(*(c for _, c in runs["nccl"]))
+    if not rec_a["counters_equal"]:
+        fail(f"multi_rank A: counters differ from the no-group run: {rec_a}")
+    if counts_a["qspa_resident"] < 1 or _ran_plain(counts_a):
+        fail(f"multi_rank A: K0 did not run alone: {counts_a}")
+
+    # B and C: two ranks on card 0
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.split("\n")[0]
+    if mode.strip() != "Default":
+        fail(f"compute mode {mode!r}: two processes cannot share the card")
+    single = {}
+    for name, args, _ in MULTI_RANK_RUNS:
+        single[name] = cli_run([*args, "--device", "cuda:0",
+                                "--report", str(out_dir / f"{name}_single.json")])
+    t0 = time.perf_counter()
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", "2", str(ROOT / "chip_smoke.py"),
+                           "--multi-rank-worker"], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"multi_rank: torch.distributed.run returned {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    print("\n".join(line for line in proc.stdout.splitlines()
+                    if line.startswith('{"rank"')), flush=True)
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(2)]
+    counts = counts_a
+    for name, _, kernel in MULTI_RANK_RUNS:
+        rep = json.loads((out_dir / f"{name}.json").read_text())
+        one = json.loads((out_dir / f"{name}_single.json").read_text())
+        rec = {"phase": "multi_rank", "case": f"B_{name}", "card": card,
+               "reduced": ({"sim.max_frames": [50000, CFG5_FRAMES]}
+                           if name.startswith("cfg5") else {}),
+               "counters_single": single[name]["counters"],
+               "counters_ranks": [r[name]["counters"] for r in ranks],
+               "launches_ranks": [r[name]["launches"] for r in ranks],
+               "steps": rep["steps"],
+               "ms_per_step_two_ranks_one_card_not_scaling":
+                   rep["wall_seconds"] * 1e3 / rep["steps"],
+               "ms_per_step_single": one["wall_seconds"] * 1e3 / one["steps"],
+               "fer": rep["fer"], "frames": rep["frames"]}
+        emit(rec)
+        for r, got in enumerate(ranks):
+            if got[name]["rc"] != 0 or got[name]["counters"] != single[name]["counters"]:
+                fail(f"multi_rank B {name}: rank {r} differs from one process: {rec}")
+            if got[name]["launches"].get(kernel, 0) < 1 or _ran_plain(got[name]["launches"]):
+                fail(f"multi_rank B {name}: rank {r} did not run {kernel} alone: {rec}")
+            counts = _sum_counts(counts, got[name]["launches"])
+        if rep["frames"] != one["frames"] or rep["fer"] != one["fer"]:
+            fail(f"multi_rank B {name}: report differs from one process")
+    from nbldpc_tpu_torch.decoders import qspa
+
+    g, llr = _sharded_llrs(device)
+    for early in (1, 0):
+        name = f"sharded_early{early}"
+        qspa.decode(g, llr, SHARDED_ITERS, bool(early), cn_impl="kernel")     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qspa.decode(g, llr, SHARDED_ITERS, bool(early), cn_impl="kernel")
+        torch.cuda.synchronize()
+        rec = {"phase": "multi_rank", "case": f"C_{name}", "card": card,
+               "code": "make_peg_code(%d, %d, %d, dv=%d, seed=%d)" % SHARDED_CODE,
+               "frames": SHARDED_FRAMES, "iters": SHARDED_ITERS, "ebn0_db": SHARDED_EBN0,
+               "ranks": [r[name] for r in ranks], "launch_seconds": seconds,
+               "decode_bl_k1_seconds_one_process": time.perf_counter() - t0}
+        emit(rec)
+        for r, got in enumerate(ranks):
+            if not all(got[name]["equal"].values()):
+                fail(f"multi_rank C {name}: rank {r} differs from decode_bl: {rec}")
+            if got[name]["launches"].get("cn_qspa", 0) < 1 or _ran_plain(got[name]["launches"]):
+                fail(f"multi_rank C {name}: rank {r} did not run K1 alone: {rec}")
+            counts = _sum_counts(counts, got[name]["launches"])
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -1498,7 +1781,7 @@ def main() -> int:
                          phase_random_cw(device, card))
     phase_bench(card)
     micro_counts, micro_rows = phase_micro(device, card)
-    counts = _sum_counts(counts, micro_counts)
+    counts = _sum_counts(counts, micro_counts, phase_multi_rank(device, card))
 
     def entry(name, source, replaces, max_abs_err, timed, **extra):
         """One kernel of the summary: `timed` holds its ms, plain_ms and
@@ -1558,4 +1841,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(multi_rank_worker() if sys.argv[1:] == ["--multi-rank-worker"]
+                     else main())

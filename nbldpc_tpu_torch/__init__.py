@@ -13,6 +13,7 @@ names:
   - QSPA and EMS decoders and their shared loop         (decoders/)
   - CUDA kernels and their plain PyTorch versions       (kernels/, csrc/)
   - Monte-Carlo BER/FER engine, CLI, benchmark          (sim.py, cli.py, bench.py)
+  - runs across processes on torch.distributed          (parallel/, decoders/sharded.py)
 """
 
 __version__ = "0.1.0"

@@ -8,8 +8,16 @@
     python -m nbldpc_tpu_torch gen-codes --out DIR     # default: codes/
     python -m nbldpc_tpu_torch bench        # H100 throughput benchmark
     python -m nbldpc_tpu_torch bench --profile qspa_gf256_n255_k175
+    python -m torch.distributed.run --nproc-per-node 2 -m nbldpc_tpu_torch run \
+        --config configs/gf256_sweep_2host.json --mesh-snr 2
 
 `--device cuda` (the default) needs a card and never falls back to the CPU.
+Under torch.distributed.run (or NBLDPC_COORDINATOR / NBLDPC_NUM_PROCS /
+NBLDPC_PROC_ID, parallel/dist.py) `run` joins the process group, and with
+more than one rank (and no --no-mesh) splits each step over a
+--mesh-snr x --mesh-data layout of the ranks; `--device cuda` is then the
+rank's card, cuda:LOCAL_RANK, and `--device cuda:0` puts every rank on card
+0 (with --backend gloo: NCCL refuses two ranks on one card).
 """
 
 from __future__ import annotations
@@ -29,19 +37,26 @@ def _add_run_parser(sub):
     p.add_argument("--iters", type=int)
     p.add_argument("--frames", type=int, help="max frames per SNR")
     p.add_argument("--report", help="write JSON report to this path")
-    p.add_argument("--mesh-snr", type=int, default=1)
-    p.add_argument("--mesh-data", type=int, default=0)
+    p.add_argument("--mesh-snr", type=int, default=1, help="ranks along the SNR axis")
+    p.add_argument("--mesh-data", type=int, default=0,
+                   help="ranks along the frame axis (0: every rank left)")
     p.add_argument("--no-mesh", action="store_true")
     p.add_argument("--profile", help="torch.profiler trace directory")
     p.add_argument("--random-codewords", action="store_true")
-    p.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (a rank's: cuda:LOCAL_RANK), cuda:N or cpu")
+    p.add_argument("--backend", choices=["nccl", "gloo"],
+                   help="process group backend (default: nccl on cuda, gloo on cpu)")
 
 
 def resolve_device(name: str):
-    """A torch.device for `name`; a CUDA device without a card raises."""
+    """A torch.device for `name` ("cuda": the rank's card, cuda:LOCAL_RANK);
+    a CUDA device without a card raises."""
     import torch
 
-    dev = torch.device(name)
+    from nbldpc_tpu_torch.parallel.dist import local_rank
+
+    dev = torch.device(f"cuda:{local_rank()}" if name == "cuda" else name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: no CUDA device is available")
     return dev
@@ -74,16 +89,23 @@ def build_config(args):
 
 
 def cmd_run(args) -> int:
-    if args.mesh_snr > 1 or args.mesh_data > 1:
-        raise NotImplementedError(
-            "multi-GPU runs are not ported yet (ROADMAP queue 1 item 12)")
     cfg = build_config(args)
     device = resolve_device(args.device)
 
     from nbldpc_tpu_torch import sim
+    from nbldpc_tpu_torch.parallel import dist, mesh
     from nbldpc_tpu_torch.utils import report as rep
 
     rep.setup_logging()
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.set_device(device)
+    dist.initialize(device.type, args.backend)
+    rank, world = dist.process_info()
+    layout = None
+    if not args.no_mesh and world > 1:
+        layout = mesh.make_layout(snr=args.mesh_snr, data=args.mesh_data)
 
     def progress(t, counters):
         rep.emit_step_record(t, counters)
@@ -97,11 +119,12 @@ def cmd_run(args) -> int:
         if device.type == "cuda":
             acts.append(tp.ProfilerActivity.CUDA)
         with tp.profile(activities=acts) as prof:
-            result = sim.run_sweep(cfg, device=device, progress=progress)
+            result = sim.run_sweep(cfg, device, progress, layout)
         Path(args.profile).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(args.profile) / "trace.json"))
+        name = "trace.json" if world == 1 else f"trace_rank{rank}.json"
+        prof.export_chrome_trace(str(Path(args.profile) / name))
     else:
-        result = sim.run_sweep(cfg, device=device, progress=progress)
+        result = sim.run_sweep(cfg, device, progress, layout)
 
     print(result.table())
     print(f"throughput: {result.throughput_syms_per_s:.3e} coded symbols/s")

@@ -166,12 +166,18 @@ class TannerGraph:
 
     def syndrome_bl(self, hard: torch.Tensor) -> torch.Tensor:
         """hard [N, B] int32 -> syndrome [M, B] int32 (0 == satisfied)."""
-        sym = hard.index_select(0, self._cn_vn).reshape(
-            self.m, self.dc_max, -1)
-        x = torch.zeros_like(sym)
-        for t in range(self.gf.p):
-            x = x ^ (((sym >> t) & 1) * self.syn_k[:, :, t : t + 1])
-        out = x[:, 0]
-        for j in range(1, self.dc_max):
-            out = out ^ x[:, j]
-        return out
+        return syndrome(hard, self._cn_vn, self.syn_k)
+
+
+def syndrome(hard: torch.Tensor, cn_vn: torch.Tensor, syn_k: torch.Tensor) -> torch.Tensor:
+    """Syndromes of checks given as rows of cn_vn (flat int64 [M' dc]) and
+    syn_k [M', dc, p]: hard [N, B] int32 -> [M', B] int32 (0 == satisfied)."""
+    m, dc, p = syn_k.shape
+    sym = hard.index_select(0, cn_vn).reshape(m, dc, -1)
+    x = torch.zeros_like(sym)
+    for t in range(p):
+        x = x ^ (((sym >> t) & 1) * syn_k[:, :, t : t + 1])
+    out = x[:, 0]
+    for j in range(1, dc):
+        out = out ^ x[:, j]
+    return out

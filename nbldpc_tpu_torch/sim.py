@@ -2,9 +2,15 @@
 
 One `step` processes [S, B] frames, all SNR points at once (per-SNR sigma
 is data), through (encode -> modulate ->) noise -> llr_init -> decode ->
-error counters, on one device. The host loop accumulates per-SNR counters
-until every SNR point hits its stop rule (max frames or max frame errors);
-it fetches the counters once per step.
+error counters. The host loop accumulates per-SNR counters until every
+SNR point hits its stop rule (max frames or max frame errors); it fetches
+the counters once per step.
+
+Across processes (a parallel.mesh.Layout), rank r decodes its block of
+[S/snr] SNR slots x [B/data] frames and the step's counters are
+all-reduced: the only traffic between ranks. Every rank draws the whole
+step's noise and keeps its block, so each frame is decoded on exactly one
+rank and the counters equal a single process's for every layout.
 
 Reproducibility: the noise of macro-batch t (and, in random-codeword mode,
 its info symbols) comes from a torch.Generator seeded from (seed, t)
@@ -20,6 +26,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init, modulate
 from nbldpc_tpu_torch.decoders import ems, qspa, tems
@@ -89,6 +96,7 @@ def make_sim_step(
     n_snr: int,
     encoder: Optional[Encoder] = None,
     cn_impl: str = "auto",
+    block: Optional[tuple] = None,
 ) -> Callable:
     """Build step(gen, sigmas [S] f32 on the graph's device) -> counters
     {name: int64 tensor [S]} on the device.
@@ -98,14 +106,19 @@ def make_sim_step(
     [0, q); it encodes them, modulates, adds the noise, computes LLRs,
     decodes and counts errors against the codewords. With no encoder every
     frame is the all-zero codeword and no symbols are drawn, so both modes
-    draw the same noise from the same generator. step.frames(sigmas,
-    noise, u) runs the same step on given draws (u None: the all-zero
+    draw the same noise from the same generator.
+
+    block: (slots, frames) slices of the [S, B] batch (Layout.block): the
+    step still draws the whole batch, decodes only the block and returns
+    the block's counters [S_r]. step.frames(sigmas, noise, u) runs the
+    same step on given draws of any [S', B'] (u None: the all-zero
     codeword)."""
     decode_fn = get_decode_fn(dec, cn_impl)
     S, B, N, p, q = n_snr, batch_per_snr, graph.n, graph.gf.p, graph.q
     device = graph.device
 
     def frames(sigmas: torch.Tensor, noise: torch.Tensor, u=None) -> dict:
+        S, B = noise.shape[:2]
         sig = sigmas.to(torch.float32)[:, None, None, None]            # [S,1,1,1]
         if u is None:
             cw = None
@@ -133,17 +146,26 @@ def make_sim_step(
         noise = torch.randn((S, B, N, p), generator=gen, device=device)
         u = None if encoder is None else torch.randint(
             0, q, (S, B, encoder.k), generator=gen, device=device, dtype=torch.int32)
+        if block is not None:
+            slots, frame_block = block
+            noise, sigmas = noise[slots, frame_block], sigmas[slots]
+            u = None if u is None else u[slots, frame_block]
         return frames(sigmas, noise, u)
 
     step.frames = frames
     return step
 
 
-def fetch(out: dict) -> dict:
-    """Device counters -> host numpy, in one transfer."""
-    names = [f.name for f in dataclasses.fields(Counters)]
-    host = torch.stack([out[k].to(torch.int64) for k in names]).cpu().numpy()
-    return dict(zip(names, host))
+def stack(out: dict) -> torch.Tensor:
+    """Step counters -> one int64 tensor [6, S'] in Counters' field order."""
+    return torch.stack([out[f.name].to(torch.int64) for f in dataclasses.fields(Counters)])
+
+
+def fetch(out) -> dict:
+    """Device counters (a step's dict, or its stack) -> host numpy, in one
+    transfer."""
+    host = (stack(out) if isinstance(out, dict) else out).cpu().numpy()
+    return dict(zip((f.name for f in dataclasses.fields(Counters)), host))
 
 
 @dataclasses.dataclass
@@ -199,8 +221,13 @@ def run_sweep(
     cfg: RunConfig,
     device,
     progress: Optional[Callable[[int, Counters], None]] = None,
+    layout=None,
 ) -> SweepResult:
-    """Full Monte-Carlo sweep per RunConfig on one device."""
+    """Full Monte-Carlo sweep per RunConfig on one device, or on this rank's
+    block of every step under `layout` (a parallel.mesh.Layout; every rank
+    of its group calls run_sweep with the same cfg). The counters, and so
+    the stop rules, the slot reallocation and the result, are the same on
+    every rank and equal a single process's."""
     spec = cfg.code.load()
     graph = TannerGraph(spec, device=device)
     snrs = list(cfg.channel.ebn0_db)
@@ -208,7 +235,8 @@ def run_sweep(
     sigma_np = np.asarray([float(ebn0_to_sigma(s, spec.k / spec.n)) for s in snrs],
                           dtype=np.float32)
     encoder = None if cfg.channel.zero_codeword else Encoder(spec, graph.device)
-    step = make_sim_step(graph, cfg.decoder, B, S, encoder)
+    block = None if layout is None else layout.block(S, B)
+    step = make_sim_step(graph, cfg.decoder, B, S, encoder, block=block)
 
     counters = Counters.zeros(S)
     start_t = 0
@@ -240,7 +268,13 @@ def run_sweep(
             for k, s in enumerate(np.flatnonzero(done)):
                 slot_point[s] = order[k % len(order)]
         sig = torch.from_numpy(sigma_np[slot_point]).to(graph.device)
-        o = fetch(step(step_generator(cfg.sim.seed, t, graph.device), sig))
+        out = stack(step(step_generator(cfg.sim.seed, t, graph.device), sig))
+        if layout is not None:
+            full = torch.zeros((out.shape[0], S), dtype=torch.int64, device=graph.device)
+            full[:, block[0]] = out
+            tdist.all_reduce(full, group=layout.group)
+            out = full
+        o = fetch(out)
         if n_done:
             remapped = {}
             for name, arr in o.items():

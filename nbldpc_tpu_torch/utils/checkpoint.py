@@ -5,6 +5,14 @@ comes from a generator seeded by (seed, t) alone, so resuming from
 (t, counters) is exact. Writes are atomic (tmp + rename) and stamped with
 the config hash; a hash mismatch refuses to resume. The file format is the
 JAX package's, so either package can resume the other's counters.
+
+Across processes every rank loads and only rank 0 writes: the counters
+are all-reduced each step, so rank 0 holds what every rank holds. No rank
+can finish a step's all-reduce before every rank has entered that step,
+so every load precedes rank 0's first save of the run. (A sweep resumed
+already finished runs no step; rank 0 then rewrites the loaded state, and
+the atomic rename hands a concurrent reader the old or the new file,
+which are the same.)
 """
 
 from __future__ import annotations
@@ -16,6 +24,8 @@ from typing import Optional
 
 import numpy as np
 
+from nbldpc_tpu_torch.parallel.dist import process_info
+
 
 class Checkpointer:
     def __init__(self, path, config_hash: str):
@@ -23,6 +33,8 @@ class Checkpointer:
         self.config_hash = config_hash
 
     def save(self, step: int, counters) -> None:
+        if process_info()[0] != 0:
+            return
         payload = {
             "config_hash": self.config_hash,
             "step": int(step),

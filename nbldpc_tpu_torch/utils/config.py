@@ -60,7 +60,7 @@ class ChannelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    frames_per_step: int = 256      # per SNR point per device step
+    frames_per_step: int = 256      # global per-SNR batch a step, across all ranks
     max_frames: int = 10_000        # stop criterion per SNR point
     max_frame_errors: int = 100     # stop criterion per SNR point
     seed: int = 0

@@ -14,6 +14,8 @@ import sys
 import time
 from pathlib import Path
 
+from nbldpc_tpu_torch.parallel.dist import process_info
+
 logger = logging.getLogger("nbldpc")
 
 
@@ -52,4 +54,8 @@ def sweep_report(result, cfg=None) -> dict:
 
 
 def save_report(result, path, cfg=None) -> None:
+    """Write the report; across processes rank 0 alone writes (every rank
+    holds the same all-reduced counters)."""
+    if process_info()[0] != 0:
+        return
     Path(path).write_text(json.dumps(sweep_report(result, cfg), indent=2, default=list))

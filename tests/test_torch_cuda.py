@@ -1175,3 +1175,61 @@ def test_micro_gather_writes_only_its_output(cuda_device, E, Q, BT):
                      "micro_row_moves")
         assert _guards_intact(buf)
         assert torch.equal(out, micro.row_moves_plain(x, pi, perms, iters))
+
+
+def _one_rank_nccl_group(path):
+    import torch.distributed as tdist
+
+    tdist.init_process_group("nccl", init_method=f"file://{path}/store", rank=0,
+                             world_size=1)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_sweep_equals_no_group(cuda_device, tmp_path):
+    """The data-parallel sweep on a one-rank NCCL group (its counters
+    all-reduced on the card) equals the sweep with no group, through K0."""
+    import torch.distributed as tdist
+
+    from nbldpc_tpu_torch import sim
+    from nbldpc_tpu_torch.parallel import mesh
+    from nbldpc_tpu_torch.utils import config as tcfg
+
+    cfg = tcfg.RunConfig(
+        code=tcfg.CodeConfig(name="gf16_n204_k102_c8"),
+        decoder=tcfg.DecoderConfig(kind="qspa", max_iters=50),
+        channel=tcfg.ChannelConfig(ebn0_db=(1.5, 2.0)),
+        sim=tcfg.SimConfig(frames_per_step=2048, max_frames=4096, max_frame_errors=10**6,
+                           seed=3))
+    base = sim.run_sweep(cfg, cuda_device)
+    _one_rank_nccl_group(tmp_path)
+    try:
+        before = qr.resident_decode.launches
+        got = sim.run_sweep(cfg, cuda_device, layout=mesh.make_layout())
+        assert qr.resident_decode.launches == before + got.steps
+    finally:
+        tdist.destroy_process_group()
+    assert got.counters.asdict() == base.counters.asdict()
+    assert got.counters.frames.tolist() == [4096, 4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early", [True, False])
+def test_sharded_decode_one_rank_k1_equals_decode_bl(cuda_device, tmp_path, early):
+    """The edge-sharded decode with K1 on a one-rank NCCL group equals
+    decode_bl through K1 (qspa.decode, cn_impl="kernel"), exactly."""
+    import torch.distributed as tdist
+
+    from nbldpc_tpu_torch.decoders import qspa, sharded
+
+    g = _graph("gf256_n255_k175", cuda_device)
+    llr = _zero_cw_llrs(g, 64, 2.5, cuda_device)
+    ref = qspa.decode(g, llr, 20, early, cn_impl="kernel")
+    _one_rank_nccl_group(tmp_path)
+    try:
+        before = cn_qspa.cn_update.launches
+        got = sharded.decode_edge_sharded(g, llr, qspa.qspa_cn_update_bl_kernel, 20, early)
+        assert cn_qspa.cn_update.launches > before
+    finally:
+        tdist.destroy_process_group()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)

@@ -157,10 +157,12 @@ def test_sim_step_counts_and_generator(small_codes):
     assert np.all(t["converged"] <= 8) and np.all(t["bit_errors"] >= t["symbol_errors"])
 
 
-def test_cli_refusals(tiny_alist):
+def test_cli_refusals(tiny_alist, monkeypatch):
     base = ["run", "--code", str(tiny_alist), "--frames", "16"]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    monkeypatch.setenv("NBLDPC_NUM_PROCS", "2")      # a group named by half an environment
+    with pytest.raises(ValueError, match="NBLDPC_NUM_PROCS set without"):
         cli.main(base + ["--mesh-snr", "2", "--device", "cpu"])
+    monkeypatch.delenv("NBLDPC_NUM_PROCS")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(base + ["--device", "cuda"])
