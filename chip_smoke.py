@@ -105,7 +105,21 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 version. C: the edge-sharded decode (decoders/sharded.py)
                 on the two ranks with K1, hard/done/iters equal to decode_bl
                 through K1, both early_term modes. Two ranks time-sharing one
-                card are no scaling measurement
+                card are no scaling measurement; and the edge-sharded decode
+                with K2 (classic EMS) and K5 (T-EMS), equal to decode_bl
+                through the same kernel
+ 19. resident_bf16 - bf16 message storage (mm_precision="bf16"): the bf16
+                builds of K0 (flagship, GF(4)), K0-cl's cluster kernel
+                (config 5's code on a cluster of 4, GF(64) (576,480) on 2)
+                and its scratch kernel (OVERSIZE; OVERSIZE_GF64 called
+                directly: a bf16 cluster of 8 holds it) against the bf16
+                plain version in the modes of phase 4, the bench rows'
+                steps and on random codewords, each timed beside its f32
+                build in the same run with both builds' launch plans;
+                the JAX package's bf16 device-test invariants on K0 and on
+                K0-cl; the flagship and GF(256) FER gates in bf16 against
+                the f32 records (|z| < 3.3) and the scratch kernel's path,
+                through cli.main
 Then the kernels summary (each kernel's launches on the paths above, its
 worst error against its plain version, its time, its plain version's time,
 the bound of the same work and, for P3, the library call's time), the card
@@ -214,12 +228,19 @@ def resident_bytes(g, B: int) -> int:
     return 4 * (B * g.n * g.q + tables + B * g.n + B) + B
 
 
-def resident_qspa_bound(g, B: int, frame_iters: int) -> dict:
+def resident_qspa_bound(g, B: int, frame_iters: int, es: int = 4) -> dict:
     """K0 and K0-cl: every frame-iteration the run needed updates each real
     edge and adds each variable's dv messages and prior, then compares for
-    the decision; the start normalizes the prior."""
+    the decision; the start normalizes the prior. The bytes are the
+    decode's inputs and outputs, the same in f32 and bf16 (the LLRs stay
+    f32). Beside it, `state_ms`: the stored state (elements of es bytes:
+    each edge message and posterior row read and written, the prior read)
+    moved once a frame-iteration at the HBM rate, the time a decode whose
+    state left the chip every iteration would need for it alone."""
     per_iter = g.spec.num_edges * qspa_edge_ops(g.q) + g.n * g.q * (g.dv_max + 2)
-    return bound(frame_iters * per_iter + B * 2 * g.n * g.q, resident_bytes(g, B))
+    state = frame_iters * es * g.q * (2 * g.spec.num_edges + 3 * g.n)
+    return {**bound(frame_iters * per_iter + B * 2 * g.n * g.q, resident_bytes(g, B)),
+            "state_ms": state / PEAK_HBM_BYTES * 1e3}
 
 
 def resident_ems_bound(g, B: int, frame_iters: int, nm: int) -> dict:
@@ -383,7 +404,7 @@ def _done_not_h(g, hard, done) -> int:
 
 
 def _hold_resident(phase: str, code: str, g, modes: dict, timed, mixed=(),
-                   scratch=False, cw=None) -> dict:
+                   scratch=False, cw=None, precision: str = "f32", fn=None) -> dict:
     """A resident QSPA kernel (K0 or K0-cl, by q and state size) against the
     plain version on identical LLRs, mode by mode: (llr, max_iters,
     early_term, stats_each_iter). A frame agrees when hard, done and iters
@@ -396,7 +417,11 @@ def _hold_resident(phase: str, code: str, g, modes: dict, timed, mixed=(),
     timed plain, kernel, kernel, plain (with `scratch`, K0-cl's scratch
     kernel twice in the middle); the last of them gives ms, plain_ms and
     the bound. Each mode's record also holds the share of frames the kernel
-    marks done with hard == cw (`done_right`)."""
+    marks done with hard == cw (`done_right`). `precision` is the state's
+    element of kernel and plain version; in bf16 the timed modes time the
+    f32 build beside (f32, bf16, bf16, f32: `f32_ms`) and record both
+    builds' launch plans. `fn` calls one kernel's wrapper in place of
+    qr.resident_decode's choice."""
     import torch
 
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
@@ -404,10 +429,11 @@ def _hold_resident(phase: str, code: str, g, modes: dict, timed, mixed=(),
     worst = 0
     result = {"agreement_min": 1.0, "done_right": {}}
     ref = 0 if cw is None else cw
+    fn = fn or qr.resident_decode
     for name, (llr, iters, et, stats) in modes.items():
         B = llr.shape[0]
-        dec = qr.ResidentQSPA(g, iters, et, stats)
-        hk, dk, ik = qr.resident_decode(dec, llr)
+        dec = qr.ResidentQSPA(g, iters, et, stats, precision)
+        hk, dk, ik = fn(dec, llr)
         hp, dp, ip = qr.decode_plain(dec, llr)
         torch.cuda.synchronize()
         same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
@@ -420,7 +446,8 @@ def _hold_resident(phase: str, code: str, g, modes: dict, timed, mixed=(),
         result["done_right"][name] = done_right
         not_h = _done_not_h(g, hk, dk)
         rec = {"phase": phase, "code": code, "mode": name, "frames": B,
-               "iters": iters, "agreement": agree, "frame_errors_kernel": fe_k,
+               "iters": iters, "precision": precision, "agreement": agree,
+               "frame_errors_kernel": fe_k,
                "frame_errors_plain": fe_p, "z": z, "done_right": done_right,
                "done_not_h": not_h}
         if not_h:
@@ -441,21 +468,51 @@ def _hold_resident(phase: str, code: str, g, modes: dict, timed, mixed=(),
                  f"the mode needs both converged and failed frames")
         if name in timed:
             p1 = cuda_ms(lambda: qr.decode_plain(dec, llr), 1)
-            k1 = cuda_ms(lambda: qr.resident_decode(dec, llr), 5)
+            if precision == "bf16":
+                dec32 = qr.ResidentQSPA(g, iters, et, stats)
+                f1 = cuda_ms(lambda: fn(dec32, llr), 5)
+            k1 = cuda_ms(lambda: fn(dec, llr), 5)
             if scratch:
                 s1 = cuda_ms(lambda: qr.resident_decode_cl_scratch(dec, llr), 5)
                 s2 = cuda_ms(lambda: qr.resident_decode_cl_scratch(dec, llr), 5)
                 rec.update(scratch_ms=(s1 + s2) / 2, scratch_ms_runs=[s1, s2])
-            k2 = cuda_ms(lambda: qr.resident_decode(dec, llr), 5)
+            k2 = cuda_ms(lambda: fn(dec, llr), 5)
+            if precision == "bf16":
+                f2 = cuda_ms(lambda: fn(dec32, llr), 5)
+                rec.update(f32_ms=(f1 + f2) / 2, f32_ms_runs=[f1, f2],
+                           plan=_resident_plans(dec, dec32, fn, B, llr.device))
             p2 = cuda_ms(lambda: qr.decode_plain(dec, llr), 1)
             rec.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                        ms_runs=[k1, k2], plain_ms_runs=[p1, p2],
-                       **resident_qspa_bound(g, B, int(ik.sum())))
+                       **resident_qspa_bound(g, B, int(ik.sum()), dec.es))
             result.update({k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                               "scratch_ms") if k in rec})
+                                               "scratch_ms", "f32_ms", "plan") if k in rec})
         emit(rec)
     result["max_abs_err"] = worst
     return result
+
+
+def _resident_plans(dec, dec32, fn, B: int, device) -> dict:
+    """The launch each build takes for B frames, bf16 and f32: K0's frames
+    and threads a block, blocks an SM and grid; K0-cl's cluster size,
+    warps, checks a round and clusters at once (cluster or scratch kernel,
+    as `fn` runs it)."""
+    from nbldpc_tpu_torch.kernels import qspa_resident as qr
+
+    out = {}
+    for label, d in (("bf16", dec), ("f32", dec32)):
+        if d.graph.q <= qr.K0_MAX_Q:
+            out[label] = qr.k0_plan(d, B, device)
+            continue
+        scratch = fn is qr.resident_decode_cl_scratch or d.cluster_plan is None
+        plan = qr.scratch_layout(d)[0] if scratch else d.cluster_plan
+        out[label] = {"kernel": "scratch" if scratch else "cluster",
+                      "cluster_size": plan.size, "warps": plan.warps,
+                      "checks_per_round": plan.round_checks, "checks_per_rank": plan.checks,
+                      "smem_bytes": plan.smem_bytes,
+                      "clusters_at_once": (qr.scratch_occupancy if scratch
+                                           else qr.cluster_occupancy)(d, device)}
+    return out
 
 
 def _bench_llrs(name: str, g, device):
@@ -620,7 +677,7 @@ def phase_resident_cl(device):
               "cluster_size": plan.size, "warps": plan.warps, "checks_per_rank": plan.checks,
               "checks_per_round": plan.round_checks, "rows_per_rank": plan.rows,
               "post_shared": plan.post_shared, "smem_bytes": plan.smem_bytes,
-              "slice_bytes": 4 * plan.slice_floats,
+              "slice_bytes": dec.es * plan.slice_elems,
               "max_active_clusters": qr.scratch_occupancy(dec, device)})
         llr = _llrs(g, OVERSIZE_FRAMES, [OVERSIZE_EBN0], device)
         modes = {"a_early_term": (llr, 20, True, True),
@@ -790,6 +847,9 @@ def _counted():
     return [("qspa_resident", qr.resident_decode, "launches"),
             ("qspa_resident_cl", qr.resident_decode_cl, "launches"),
             ("qspa_resident_cl_scratch", qr.resident_decode_cl_scratch, "launches"),
+            ("qspa_resident_bf16", qr.resident_decode, "launches_bf16"),
+            ("qspa_resident_cl_bf16", qr.resident_decode_cl, "launches_bf16"),
+            ("qspa_resident_cl_scratch_bf16", qr.resident_decode_cl_scratch, "launches_bf16"),
             ("qspa_resident_plain", qr.decode_plain, "calls"),
             ("cn_qspa", cn_qspa.cn_update, "launches"),
             ("cn_qspa_plain", cn_qspa.cn_update_plain, "calls"),
@@ -1270,6 +1330,161 @@ def phase_random_cw(device, card: str):
     return launches
 
 
+# Phase resident_bf16. bf16 message storage (mm_precision="bf16"): the
+# holds, (label, kernel, code, Eb/N0 points, frames a point, iterations),
+# each in the modes a_early_term, b_throughput (timed beside the f32 build)
+# and c_one_iter: K0 at the flagship and GF(4) (96,48); K0-cl's cluster
+# kernel at config 5's code (a cluster of 4 in bf16) and GF(64) (576,480)
+# (2); its scratch kernel on OVERSIZE (no bf16 cluster holds it) and,
+# called directly, on OVERSIZE_GF64 (a bf16 cluster of 8 holds it).
+BF16_HOLDS = [
+    ("k0_flagship", "qspa_resident", "gf16_n204_k102_c8", [1.5], 2048, 50),
+    ("k0_gf4", "qspa_resident", "gf4_n96_k48", [2.5], 8192, 20),
+    ("k0cl_cfg5", "qspa_resident_cl", "gf256_n255_k175", [2.0, 2.5], 512, 20),
+    ("k0cl_gf64", "qspa_resident_cl", "gf64_n576_k480", [3.0, 3.5], 1024, 20),
+    ("scratch_gf256", "qspa_resident_cl_scratch", "oversize_gf256_n1200", [2.5],
+     OVERSIZE_FRAMES, 20),
+    ("scratch_gf64", "qspa_resident_cl_scratch", "oversize_gf64_n1800", [2.5],
+     OVERSIZE_FRAMES, 20),
+]
+# the bench rows' steps of the two bf16 rows, held and timed as well
+BF16_BENCH = {"k0_flagship": "qspa_gf16_n204_k102_c8_bf16",
+              "k0cl_cfg5": "qspa_gf256_n255_k175_bf16"}
+# random codewords: (label, code, Eb/N0, frames, iterations)
+BF16_RANDOM_CW = [("k0_flagship", "gf16_n204_k102_c8", 2.0, 2048, 50),
+                  ("k0cl_cfg5", "gf256_n255_k175", 2.5, 512, 20),
+                  ("scratch_gf256", "oversize_gf256_n1200", 2.5, OVERSIZE_FRAMES, 20)]
+# tests/test_pallas.py:test_resident_kernel_bf16_device (the JAX package's
+# device test of its bf16 mode): make_peg_code(204, 102, 16, dv=2,
+# seed=1), 256 random codewords at 2.0 dB, 20 iterations, throughput; on
+# K0 there, on K0-cl at config 5's code (2.0 dB: ~20% of frames fail
+# within 10 iterations)
+BF16_INVARIANTS = [("k0", (204, 102, 16, 2, 1), 2.0), ("k0cl", "gf256_n255_k175", 2.0)]
+# the FER gates of phases main and main_cfg5 with the state in bf16,
+# against the same JAX records (|z| < 3.3), and the scratch kernel's path
+BF16_PATHS = [
+    ("H_flagship_bf16", [*FLAGSHIP_SWEEP, "--set", "decoder.mm_precision=bf16"],
+     "qspa_resident_bf16", "gf16_qspa_c8_50it", 1.5, 16384),
+    ("I_gf256_qspa_10it_bf16", [*CFG5_FER_PATH[0][1], "--set", "decoder.mm_precision=bf16"],
+     "qspa_resident_cl_bf16", "gf256_qspa_10it", 2.5, 16384),
+]
+
+
+def _bf16_invariants(label, g, llr, cw, fn) -> dict:
+    """JAX's device-test invariants of bf16 against f32 on one kernel: more
+    than 128 frames converge under both; the frames converged under both
+    agree on > 99.9% of symbols; the converged counts differ by at most
+    max(8, 3 sigma); fe16 <= fe32 + max(6, 0.15 fe32) frame errors against
+    the codewords."""
+    from nbldpc_tpu_torch.kernels import qspa_resident as qr
+
+    out = {}
+    for p in ("f32", "bf16"):
+        out[p] = fn(qr.ResidentQSPA(g, 20, False, False, p), llr)
+    (h32, d32, _), (h16, d16, _) = out["f32"], out["bf16"]
+    both = d32 & d16
+    nfr = d32.shape[0]
+    p32 = float(d32.sum()) / nfr
+    sigma = math.sqrt(max(p32 * (1 - p32), 0.02) * nfr)
+    fe32 = int((h32 != cw).any(dim=1).sum())
+    fe16 = int((h16 != cw).any(dim=1).sum())
+    agree = float((h32[both] == h16[both]).float().mean()) if int(both.sum()) else 0.0
+    rec = {"phase": "resident_bf16", "part": "jax_device_invariants", "kernel": label,
+           "frames": nfr, "converged_both": int(both.sum()),
+           "converged_f32": int(d32.sum()), "converged_bf16": int(d16.sum()),
+           "symbol_agreement_converged": agree,
+           "converged_diff_limit": max(8, int(3 * sigma)),
+           "frame_errors_f32": fe32, "frame_errors_bf16": fe16,
+           "frame_errors_limit": fe32 + max(6, int(0.15 * fe32))}
+    rec["held"] = bool(rec["converged_both"] > 128 and agree > 0.999
+                       and abs(rec["converged_f32"] - rec["converged_bf16"])
+                       <= rec["converged_diff_limit"]
+                       and fe16 <= rec["frame_errors_limit"])
+    emit(rec)
+    if not rec["held"]:
+        fail(f"resident_bf16: JAX's bf16 device invariants fail on {label}: {rec}")
+    return rec
+
+
+def phase_resident_bf16(device, card: str):
+    """bf16 message storage. A: each bf16 kernel against its bf16 plain
+    version (BF16_HOLDS, the bench rows' steps, BF16_RANDOM_CW), as
+    _hold_resident holds the f32 builds, timed beside its f32 build with
+    both builds' plans. B: JAX's device-test invariants (BF16_INVARIANTS).
+    C: the FER gates (BF16_PATHS) and the scratch kernel's path (the
+    OVERSIZE code) through cli.main, counters zeroed before each and read
+    after. Returns (the kernels summary records by label, the paths'
+    launches)."""
+    from nbldpc_tpu_torch import bench, cli
+    from nbldpc_tpu_torch.code import save_alist
+    from nbldpc_tpu_torch.codegen import make_peg_code
+    from nbldpc_tpu_torch.graph import TannerGraph
+    from nbldpc_tpu_torch.kernels import qspa_resident as qr
+
+    fns = {"qspa_resident": qr.resident_decode, "qspa_resident_cl": qr.resident_decode_cl,
+           "qspa_resident_cl_scratch": qr.resident_decode_cl_scratch}
+    summary = {}
+    for label, kernel, code, snrs, frames, iters in BF16_HOLDS:
+        g = TannerGraph(_smoke_spec(code), device)
+        llr = _llrs(g, frames, snrs, device)
+        modes = {"a_early_term": (llr, iters, True, True),
+                 "b_throughput": (llr, iters, False, False),
+                 "c_one_iter": (llr, 1, False, True)}
+        timed = ("b_throughput",)
+        if label in BF16_BENCH:
+            row = bench.ROWS_BY_NAME[BF16_BENCH[label]]
+            modes["d_bench_shape"] = (_llrs(g, row.batch, [row.noise], device, row.ebn0),
+                                      row.iters, False, False)
+            timed = ("d_bench_shape",)
+        fn = fns[kernel]
+        _reset_counters()
+        res = _hold_resident("resident_bf16", code, g, modes, timed, precision="bf16", fn=fn)
+        counts = _counters()
+        # (the f32 build's launches: its timing beside)
+        if counts[f"{kernel}_bf16"] < len(modes) or any(
+                counts[f"{k}_bf16"] for k in fns if k != kernel):
+            fail(f"resident_bf16 {label}: {kernel}'s bf16 build did not decode alone: {counts}")
+        for _, _, ebn0_cw, f_cw, it_cw in [c for c in BF16_RANDOM_CW if c[0] == label]:
+            llr_cw, cw = _cw_llrs(g, f_cw, ebn0_cw, device, seed=300)
+            r = _hold_resident("resident_bf16", f"{code}@{ebn0_cw}dB_random_cw", g,
+                               {"a_early_term": (llr_cw, it_cw, True, True),
+                                "b_throughput": (llr_cw, it_cw, False, False)}, (),
+                               cw=cw, precision="bf16", fn=fn)
+            res["agreement_min"] = min(res["agreement_min"], r["agreement_min"])
+            res["max_abs_err"] = max(res["max_abs_err"], r["max_abs_err"])
+        summary[label] = res
+
+    for label, code, ebn0 in BF16_INVARIANTS:
+        if label == "k0":
+            n, m, q, dv, seed = code
+            g = TannerGraph(make_peg_code(n, m, q, dv=dv, seed=seed), device)
+            fn = qr.resident_decode
+        else:
+            g = _graph(code, device)
+            fn = qr.resident_decode_cl
+        llr, cw = _cw_llrs(g, 256, ebn0, device, seed=5)
+        _bf16_invariants(label, g, llr, cw, fn)
+
+    launches = phase_paths("resident_bf16", BF16_PATHS)
+    out_dir = ROOT / "build" / "nbldpc_tpu_torch"
+    big, rep = out_dir / "oversize_gf256_n1200.alist", out_dir / "smoke_oversize_bf16.json"
+    save_alist(oversize_spec(), big)
+    _reset_counters()
+    rc = cli.main(["run", "--code", str(big), "--decoder", "qspa", "--snr", str(OVERSIZE_EBN0),
+                   "--iters", "10", "--set", f"sim.frames_per_step={OVERSIZE_FRAMES}",
+                   "--set", f"sim.max_frames={OVERSIZE_FRAMES}",
+                   "--set", "decoder.mm_precision=bf16", "--report", str(rep)])
+    counts = _counters()
+    r = json.loads(rep.read_text())
+    emit({"phase": "resident_bf16", "path": "J_oversize_bf16", "launches": counts,
+          "fer": r["fer"], "frames": r["frames"]})
+    if (rc != 0 or counts["qspa_resident_cl_scratch_bf16"] < 1 or _ran_plain(counts)
+            or counts["qspa_resident_cl_scratch"] or counts["qspa_resident_cl_bf16"]
+            or r["frames"][0] != OVERSIZE_FRAMES or not 0.0 <= r["fer"][0] <= 1.0):
+        fail(f"resident_bf16: the scratch kernel's bf16 path: rc {rc}, {counts}, {r}")
+    return summary, _sum_counts(launches, counts)
+
+
 def phase_bench(card: str):
     from nbldpc_tpu_torch import bench
 
@@ -1498,6 +1713,12 @@ MULTI_RANK_RUNS = [
 ]
 SHARDED_CODE = (256, 80, 256, 2, 1)     # make_peg_code(n, m, q, dv, seed)
 SHARDED_FRAMES, SHARDED_ITERS, SHARDED_EBN0 = 512, 20, 2.5
+# case C with the other check-node kernels, early termination: (record,
+# the kernel's counter, decoder, its options) - K2 at config 5's EMS
+# decoder (nm 16, offset 0.1), K5 at config 4's T-EMS decoder (n_r 8,
+# offset 2.0)
+SHARDED_OTHER = [("sharded_k2_early1", "cn_ems", "ems", {"nm": 16, "offset": 0.1}),
+                 ("sharded_k5_early1", "cn_tems", "tems", {"n_r": 8, "offset": 2.0})]
 COUNTER_NAMES = ("frames", "frame_errors", "symbol_errors", "bit_errors", "iter_sum",
                  "converged")
 
@@ -1598,6 +1819,26 @@ def multi_rank_worker() -> int:
         counts = _counters()
         ref = qspa.decode(g, llr, SHARDED_ITERS, early, cn_impl="kernel")
         records[f"sharded_early{int(early)}"] = {
+            "seconds": seconds, "launches": {k: v for k, v in counts.items() if v},
+            "equal": {k: bool(torch.equal(a, b))
+                      for k, a, b in zip(("hard", "done", "iters"), got, ref)},
+            "converged": int(got.done.sum()), "max_iters": int(got.iters.max())}
+    from nbldpc_tpu_torch.decoders import ems, tems
+    from nbldpc_tpu_torch.kernels import cn_ems, cn_tems
+
+    kernels = {"ems": lambda o: lambda U, _g: cn_ems.cn_update(U, o["nm"], o["offset"]),
+               "tems": lambda o: lambda U, _g: cn_tems.cn_update(U, o["offset"], o["n_r"])}
+    for name, _, kind, opts in SHARDED_OTHER:
+        _reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sharded.decode_edge_sharded(g, llr, kernels[kind](opts), SHARDED_ITERS, True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counters()
+        ref = {"ems": ems, "tems": tems}[kind].decode(g, llr, SHARDED_ITERS, early_term=True,
+                                                      cn_impl="kernel", **opts)
+        records[name] = {
             "seconds": seconds, "launches": {k: v for k, v in counts.items() if v},
             "equal": {k: bool(torch.equal(a, b))
                       for k, a, b in zip(("hard", "done", "iters"), got, ref)},
@@ -1747,6 +1988,18 @@ def phase_multi_rank(device, card: str) -> dict:
             if got[name]["launches"].get("cn_qspa", 0) < 1 or _ran_plain(got[name]["launches"]):
                 fail(f"multi_rank C {name}: rank {r} did not run K1 alone: {rec}")
             counts = _sum_counts(counts, got[name]["launches"])
+    for name, kernel, kind, opts in SHARDED_OTHER:
+        rec = {"phase": "multi_rank", "case": f"C_{name}", "card": card, "decoder": kind,
+               **opts, "code": "make_peg_code(%d, %d, %d, dv=%d, seed=%d)" % SHARDED_CODE,
+               "frames": SHARDED_FRAMES, "iters": SHARDED_ITERS, "ebn0_db": SHARDED_EBN0,
+               "ranks": [r[name] for r in ranks]}
+        emit(rec)
+        for r, got in enumerate(ranks):
+            if not all(got[name]["equal"].values()):
+                fail(f"multi_rank C {name}: rank {r} differs from decode_bl: {rec}")
+            if got[name]["launches"].get(kernel, 0) < 1 or _ran_plain(got[name]["launches"]):
+                fail(f"multi_rank C {name}: rank {r} did not run {kernel} alone: {rec}")
+            counts = _sum_counts(counts, got[name]["launches"])
     return counts
 
 
@@ -1782,6 +2035,8 @@ def main() -> int:
     phase_bench(card)
     micro_counts, micro_rows = phase_micro(device, card)
     counts = _sum_counts(counts, micro_counts, phase_multi_rank(device, card))
+    bf16, bf16_counts = phase_resident_bf16(device, card)
+    counts = _sum_counts(counts, bf16_counts)
 
     def entry(name, source, replaces, max_abs_err, timed, **extra):
         """One kernel of the summary: `timed` holds its ms, plain_ms and
@@ -1823,6 +2078,20 @@ def main() -> int:
         # BASELINE config 4's check-node shape and n_r, the main path's
         entry("cn_tems", "cn_tems.cu", "nbldpc_tpu/kernels/cn_tems.py:33",
               max(r["max_abs_err"] for r in tems_rows), tems_rows[2]),
+        # the bf16 builds (mm_precision="bf16") at their bench rows' steps
+        # (the scratch kernel at OVERSIZE, OVERSIZE_GF64's times beside),
+        # each with its f32 build's time in the same run and both plans
+        *(entry(f"{name}_bf16", source, "nbldpc_tpu/kernels/qspa_resident.py:" + line,
+                bf16[label]["max_abs_err"], bf16[label],
+                agreement_min=bf16[label]["agreement_min"], f32_ms=bf16[label]["f32_ms"],
+                plan=bf16[label]["plan"],
+                **({f"gf64_{k}": bf16["scratch_gf64"][k] for k in ("ms", "f32_ms", "plain_ms",
+                                                                  "bound_ms")}
+                   if label == "scratch_gf256" else {}))
+          for name, source, line, label in (
+              ("qspa_resident", "qspa_resident.cu", "677", "k0_flagship"),
+              ("qspa_resident_cl", "qspa_cluster.cu", "192", "k0cl_cfg5"),
+              ("qspa_resident_cl_scratch", "qspa_resident_cl.cu", "192", "scratch_gf256"))),
         # the probes at the JAX scripts' full shapes; micro_rot_softmax and
         # micro_route timed in the "new" layout at 50 iterations
         *(entry(name, source, replaces, micro_rows[name]["max_abs_err"], micro_rows[name],

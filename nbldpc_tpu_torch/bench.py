@@ -2,7 +2,8 @@
 
 The timed unit is the full sim step (noise -> llr_init -> decode -> error
 counters) at a fixed iteration budget in throughput mode
-(early_term=False, stats_each_iter=False), f32, all-zero codeword. Steps run
+(early_term=False, stats_each_iter=False), all-zero codeword, messages in
+f32 unless a row's config says mm_precision="bf16". Steps run
 back to back after warm-up and are timed with CUDA events. Each row of
 ROWS has its own code, batch, budget and noise:
   qspa_gf16_n204_k102_c8, qspa_gf16_n204_k102 - QSPA, B = 8192,
@@ -20,14 +21,20 @@ ROWS has its own code, batch, budget and noise:
          path only: the plain path takes ~16 s per step there);
   ems_bubble_gf256_n255_k175 - the same step through the bubble merge (nm
          = 16, offset 0.0, the JAX package's gf256_ems_bubble record): the
-         bubble check-node kernel inside decode_bl (kernel path only).
+         bubble check-node kernel inside decode_bl (kernel path only);
+  qspa_gf16_n204_k102_c8_bf16, qspa_gf256_n255_k175_bf16 - the first and
+         the fifth row with bf16 message storage (mm_precision="bf16": K0
+         and K0-cl's cluster kernel built for bf16 state; the "torch" path
+         ignores the mode and decodes in f32).
 
     python -m nbldpc_tpu_torch bench
+    python -m nbldpc_tpu_torch bench --row qspa_gf16_n204_k102_c8_bf16
     python -m nbldpc_tpu_torch bench --profile qspa_gf256_n255_k175
 
 prints the card's name and power limit, then one JSON line per (row,
-implementation); with --profile, the device time per kernel of a few
-steps of one row, per implementation (torch.profiler).
+implementation), of every row or of the --row ones; with --profile, the
+device time per kernel of a few steps of one row, per implementation
+(torch.profiler).
 """
 
 from __future__ import annotations
@@ -75,6 +82,10 @@ ROWS = [
     Row("ems_bubble_gf256_n255_k175", "gf256_n255_k175", "ems", ("kernel",),
         4096, 20, 3.0, ebn0=True,
         config=(("nm", 16), ("offset", 0.0), ("ems_merge", "bubble"))),
+    Row("qspa_gf16_n204_k102_c8_bf16", "gf16_n204_k102_c8", "qspa", ("resident", "torch"),
+        8192, 50, 0.63, config=(("mm_precision", "bf16"),)),
+    Row("qspa_gf256_n255_k175_bf16", "gf256_n255_k175", "qspa", ("resident",),
+        4096, 20, 3.0, ebn0=True, config=(("mm_precision", "bf16"),)),
 ]
 ROWS_BY_NAME = {r.name: r for r in ROWS}
 
@@ -95,8 +106,9 @@ def _step(row: Row, cn_impl: str):
     spec = CodeConfig(name=row.code).load()
     graph = TannerGraph(spec, device=device)
     sigma = float(ebn0_to_sigma(row.noise, spec.k / spec.n)) if row.ebn0 else row.noise
+    config = {"mm_precision": "f32", **dict(row.config)}
     dec = DecoderConfig(kind=row.kind, max_iters=row.iters, early_term=False,
-                        stats_each_iter=False, mm_precision="f32", **dict(row.config))
+                        stats_each_iter=False, **config)
     step = make_sim_step(graph, dec, row.batch, 1, cn_impl=cn_impl)
     sig = torch.tensor([sigma], dtype=torch.float32, device=device)
     return step, sig, device, spec
@@ -123,6 +135,7 @@ def measure(row: Row, cn_impl: str, reps: int = 10) -> dict:
         "code": row.code,
         "decoder": row.kind,
         "cn_impl": cn_impl,
+        "mm_precision": dict(row.config).get("mm_precision", "f32"),
         "batch": row.batch,
         "iters": row.iters,
         "sigma": float(sig[0]),
@@ -165,7 +178,7 @@ def profile(row: Row, cn_impl: str, steps: int = 3, top: int = 12) -> dict:
             "device": torch.cuda.get_device_name(device)}
 
 
-def main(profile_row: str | None = None) -> int:
+def main(profile_row: str | None = None, rows: list | None = None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("the benchmark needs a CUDA device")
     print(card_info(), flush=True)
@@ -174,7 +187,10 @@ def main(profile_row: str | None = None) -> int:
         for impl in row.impls:
             print(json.dumps(profile(row, impl)), flush=True)
         return 0
-    for row in ROWS:
+    unknown = [r for r in rows or () if r not in ROWS_BY_NAME]
+    if unknown:
+        raise ValueError(f"unknown bench rows {unknown}; rows: {list(ROWS_BY_NAME)}")
+    for row in [ROWS_BY_NAME[r] for r in rows] if rows else ROWS:
         for impl in row.impls:
             print(json.dumps(measure(row, impl)), flush=True)
     return 0

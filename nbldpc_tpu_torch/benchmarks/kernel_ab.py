@@ -344,11 +344,12 @@ BUILDS = {
     # holds them; wrong outputs: the time without device-memory traffic for
     # the messages), or the grid capped at 13 clusters (GF(256), N = 1200:
     # their slices and LLR rows, 48 MB, fit the 50 MB L2)
-    "k0clx_no_cn": ("qspa_resident_cl.cu", [("cn_phase<Q, PS>(cl, r, logx, it == 0);",
-                                             "if (false) cn_phase<Q, PS>(cl, r, logx, it == 0);")]),
-    "k0clx_no_vn": ("qspa_resident_cl.cu", [("{ vn_phase<Q, PS>(", "{ if (false) vn_phase<Q, PS>(")]),
-    "k0clx_l2": ("qspa_resident_cl.cu", [("float* slice = scratch + (size_t)cid * slice_floats(",
-                                          "float* slice = scratch + (size_t)(cid % 4) * slice_floats(")]),
+    "k0clx_no_cn": ("qspa_resident_cl.cu", [("cn_phase<Q, PS, T>(cl, r, logx, it == 0);",
+                                             "if (false) cn_phase<Q, PS, T>(cl, r, logx, it == 0);")]),
+    "k0clx_no_vn": ("qspa_resident_cl.cu", [("{ vn_phase<Q, PS, T>(",
+                                             "{ if (false) vn_phase<Q, PS, T>(")]),
+    "k0clx_l2": ("qspa_resident_cl.cu", [("T* slice = scratch + (size_t)cid * slice_floats(",
+                                          "T* slice = scratch + (size_t)(cid % 4) * slice_floats(")]),
     "k0clx_grid13": ("qspa_resident_cl.cu", [("cfg.gridDim = dim3(grid * C);",
                                               "cfg.gridDim = dim3((grid < 13 ? grid : 13) * C);")]),
     "k5_warps16": ("cn_tems.cu", [("smem_bytes<Q>(dc, warps) > kMaxSmem / 3",

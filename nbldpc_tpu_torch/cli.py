@@ -7,6 +7,7 @@
     python -m nbldpc_tpu_torch run --code gf4_n96_k48 --random-codewords --device cpu
     python -m nbldpc_tpu_torch gen-codes --out DIR     # default: codes/
     python -m nbldpc_tpu_torch bench        # H100 throughput benchmark
+    python -m nbldpc_tpu_torch bench --row qspa_gf16_n204_k102_c8_bf16
     python -m nbldpc_tpu_torch bench --profile qspa_gf256_n255_k175
     python -m torch.distributed.run --nproc-per-node 2 -m nbldpc_tpu_torch run \
         --config configs/gf256_sweep_2host.json --mesh-snr 2
@@ -17,7 +18,9 @@ NBLDPC_PROC_ID, parallel/dist.py) `run` joins the process group, and with
 more than one rank (and no --no-mesh) splits each step over a
 --mesh-snr x --mesh-data layout of the ranks; `--device cuda` is then the
 rank's card, cuda:LOCAL_RANK, and `--device cuda:0` puts every rank on card
-0 (with --backend gloo: NCCL refuses two ranks on one card).
+0 (with --backend gloo: NCCL refuses two ranks on one card). Ranks started
+through NBLDPC_NUM_PROCS > 1 need LOCAL_RANK set for `--device cuda`, or
+each names its card with `--device cuda:N`.
 """
 
 from __future__ import annotations
@@ -51,11 +54,20 @@ def _add_run_parser(sub):
 
 def resolve_device(name: str):
     """A torch.device for `name` ("cuda": the rank's card, cuda:LOCAL_RANK);
-    a CUDA device without a card raises."""
+    a CUDA device without a card raises, and so does "cuda" for the ranks
+    of an NBLDPC_* group of more than one process without LOCAL_RANK,
+    which would all take card 0 (NCCL refuses two ranks on one card)."""
+    import os
+
     import torch
 
     from nbldpc_tpu_torch.parallel.dist import local_rank
 
+    if (name == "cuda" and int(os.environ.get("NBLDPC_NUM_PROCS", "1")) > 1
+            and "LOCAL_RANK" not in os.environ):
+        raise ValueError(
+            "--device cuda under NBLDPC_NUM_PROCS > 1 needs LOCAL_RANK, each rank's "
+            "card on its host; set LOCAL_RANK or name the card with --device cuda:N")
     dev = torch.device(f"cuda:{local_rank()}" if name == "cuda" else name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: no CUDA device is available")
@@ -154,7 +166,7 @@ def cmd_gen_codes(args) -> int:
 def cmd_bench(args) -> int:
     from nbldpc_tpu_torch import bench
 
-    return bench.main(args.profile)
+    return bench.main(args.profile, args.row)
 
 
 def main(argv=None) -> int:
@@ -166,6 +178,9 @@ def main(argv=None) -> int:
     pb = sub.add_parser("bench", help="run the H100 throughput benchmark")
     pb.add_argument("--profile", metavar="ROW",
                     help="device time per kernel of one bench row (bench.ROWS names)")
+    pb.add_argument("--row", action="append",
+                    help="run only this bench row (bench.ROWS names; repeatable; "
+                         "default: every row)")
     args = ap.parse_args(argv)
     if args.cmd == "run":
         return cmd_run(args)

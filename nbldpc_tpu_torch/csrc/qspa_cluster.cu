@@ -76,6 +76,15 @@
 // rank's shared memory goes away while another reads it. What this kernel
 // shares with the scratch kernel (the helpers, the syndrome, steps B and
 // C, the frame loop) is in qspa_cluster.cuh.
+//
+// bf16 (mm_precision="bf16", T = __nv_bfloat16): prior, posterior and
+// message rows are stored in bf16, rounded where the plain version rounds
+// them (U before the exp, each log as it is stored, the posterior sum
+// and the posterior); the buffer and all arithmetic stay f32. Half the
+// state bytes take half the ranks (config 5's GF(256) code: a cluster of
+// 4 in place of 8). The message rows then leave no room for step D's f32
+// products: it runs over the spectra in the buffer, in place (the scratch
+// kernel's step D), and step E reads G_j there.
 
 #include "qspa_cluster.cuh"
 
@@ -84,38 +93,24 @@ namespace {
 using namespace k0cl;
 
 // Dynamic shared memory of a block, in the order the kernel lays it out:
-// prior and posterior [nv, Q], messages [cpr dc, Q], the round's rc dc
-// rows of Q + 4 floats and their sums, hard [nv], two syndrome flags, and
-// the rank's tables (edge_info [cpr dc], row_src [nv dv], row_var [nv]).
-// kernels/qspa_resident.py:cluster_smem_bytes mirrors it and adds the
-// static tables (n2e [Q], log [Q] and exp [2Q] ints).
-size_t dyn_bytes(int nv, int cpr, int rc, int dc, int dv, int Q) {
-  return ((size_t)2 * nv * Q + (size_t)cpr * dc * Q + (size_t)rc * dc * (Q + 5) + nv + 2 +
-          (size_t)cpr * dc + (size_t)nv * dv + nv) *
-         sizeof(float);
+// prior and posterior [nv, Q] and messages [cpr dc, Q] (elements of es
+// bytes), the round's rc dc rows of Q + 4 floats and their sums, hard
+// [nv], two syndrome flags, and the rank's tables (edge_info [cpr dc],
+// row_src [nv dv], row_var [nv]). kernels/qspa_resident.py:
+// cluster_smem_bytes mirrors it and adds the static tables (n2e [Q], log
+// [Q] and exp [2Q] ints).
+size_t dyn_bytes(int nv, int cpr, int rc, int dc, int dv, int Q, int es) {
+  return ((size_t)2 * nv * Q + (size_t)cpr * dc * Q) * es +
+         ((size_t)rc * dc * (Q + 5) + nv + 2 + (size_t)cpr * dc + (size_t)nv * dv + nv) *
+             sizeof(float);
 }
 
-// Whole-row moves with 8- or 16-byte accesses (vec_width).
-__device__ __forceinline__ void ld_vec(const float* p, float (&o)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-__device__ __forceinline__ void ld_vec(const float* p, float (&o)[2]) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  o[0] = v.x; o[1] = v.y;
-}
-__device__ __forceinline__ void st_vec(float* p, const float (&o)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
-}
-__device__ __forceinline__ void st_vec(float* p, const float (&o)[2]) {
-  *reinterpret_cast<float2*>(p) = make_float2(o[0], o[1]);
-}
-
-// The rank's shared-memory view: state, buffers and tables.
+// The rank's shared-memory view: state (elements T), buffers and tables.
+template <class T>
 struct Rank {
-  float* prior;      // [nv, Q]
-  float* post;       // [nv, Q]
-  float* lc;         // [cpr dc, Q] c-domain messages of the rank's checks
+  T* prior;          // [nv, Q]
+  T* post;           // [nv, Q]
+  T* lc;             // [cpr dc, Q] c-domain messages of the rank's checks
   float* buf;        // [rc dc, Q + 4] the round's edge rows
   float* sums;       // [rc dc]
   int* hard;         // [nv]
@@ -131,8 +126,8 @@ struct Rank {
 
 // Start of a frame: prior = post = llr - max_q llr for the rank's
 // variables, hard = argmax of the prior, the rank's messages = 0.
-template <int Q>
-__device__ void init_phase(const float* L, const Rank& r) {
+template <int Q, class T>
+__device__ void init_phase(const float* L, const Rank<T>& r) {
   constexpr int K = Q / 32;
   const int lane = threadIdx.x & 31;
   const int W = blockDim.x >> 5;
@@ -153,9 +148,9 @@ __device__ void init_phase(const float* L, const Rank& r) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int a = k * 32 + lane;
-      const float p = x[k] - m;
-      r.prior[i * Q + a] = p;
-      r.post[i * Q + a] = p;
+      const float p = state::rnd<T>(x[k] - m);
+      r.prior[i * Q + a] = state::put<T>(p);
+      r.post[i * Q + a] = state::put<T>(p);
       const int sym = r.n2e[a];
       if (p > best || (p == best && sym < idx)) {
         best = p;
@@ -165,13 +160,111 @@ __device__ void init_phase(const float* L, const Rank& r) {
     idx = warp_argmax(best, idx);
     if (lane == 0) r.hard[i] = idx;
   }
-  for (int i = threadIdx.x; i < r.nchk * r.dc * Q; i += blockDim.x) r.lc[i] = 0.f;
+  for (int i = threadIdx.x; i < r.nchk * r.dc * Q; i += blockDim.x) r.lc[i] = state::put<T>(0.f);
+}
+
+// Steps D and E of the f32 build: per (check, symbol) the suffix products
+// suf(j) into message row j, then G_j = prefix * suf(j) over them, two
+// columns per thread at a time; per row, one warp: inverse WHT, floor,
+// log, permuted up in place.
+template <int Q>
+__device__ __forceinline__ void loo_log_in_rows(const Rank<float>& r, float* rows,
+                                                const int* info, int nrow,
+                                                const int (&logx)[Q / 32]) {
+  constexpr int K = Q / 32;
+  constexpr int RS = Q + 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int dc = r.dc;
+  // D: per (check, symbol) the suffix products suf(j) into message row
+  // j, then G_j = prefix * suf(j) over them; two columns per thread at
+  // a time
+  const int ncol = nrow / dc * Q;
+  for (int i0 = threadIdx.x; i0 < ncol; i0 += 2 * blockDim.x) {
+    float* mr[2];
+    const float* fr[2];
+    float acc[2] = {1.f, 1.f};
+    const int i1 = i0 + (int)blockDim.x < ncol ? i0 + (int)blockDim.x : i0;  // i0 twice
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int i = n ? i1 : i0;
+      mr[n] = rows + (i / Q) * dc * Q + i % Q;
+      fr[n] = r.buf + (i / Q) * dc * RS + i % Q;
+    }
+    for (int j = dc - 1; j >= 0; --j) {
+      const float f0 = fr[0][j * RS], f1 = fr[1][j * RS];
+      mr[0][j * Q] = acc[0];
+      mr[1][j * Q] = acc[1];
+      acc[0] = acc[0] * f0;
+      acc[1] = acc[1] * f1;
+    }
+    acc[0] = acc[1] = 1.f;
+    for (int j = 0; j < dc; ++j) {
+      const float f0 = fr[0][j * RS], f1 = fr[1][j * RS];
+      const float s0 = mr[0][j * Q], s1 = mr[1][j * Q];
+      mr[0][j * Q] = acc[0] * s0;
+      mr[1][j * Q] = acc[1] * s1;
+      acc[0] = acc[0] * f0;
+      acc[1] = acc[1] * f1;
+    }
+  }
+  __syncthreads();
+  // E: inverse WHT, floor, log, permuted up in place, one warp per row
+  for (int t = warp; t < nrow; t += W) {
+    float* mt = rows + t * Q;
+    float g[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) g[k] = mt[k * 32 + lane];
+    wht_warp<Q>(g, lane);
+    __syncwarp();                       // the row is read before it is overwritten
+    const int loc = info[t];
+    const int sh = loc < 0 ? 0 : shift_of(loc);   // pads: weight 1
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int x = k * 32 + lane;            // to h^-1 x, in exp order
+      mt[x ? rot<Q>(logx[k] + 1, sh) : 0] = logf(fmaxf(g[k] * (1.0f / Q), kProbFloor));
+    }
+  }
+}
+
+// Steps D and E of the bf16 build, where the message rows hold no f32: D
+// over the spectra in the buffer (loo_products), then per row, one warp:
+// inverse WHT of G_j read there, floor, log, rounded to bf16, to the
+// message row at the exp-order position of h^-1 x.
+template <int Q, class T>
+__device__ __forceinline__ void loo_log_from_buf(const Rank<T>& r, T* rows, const int* info,
+                                                 int nrow, const int (&logx)[Q / 32]) {
+  constexpr int K = Q / 32;
+  constexpr int RS = Q + 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  loo_products_round<Q>(r, nrow);
+  __syncthreads();
+  for (int t = warp; t < nrow; t += W) {
+    const float* bt = r.buf + t * RS;
+    float g[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) g[k] = bt[k * 32 + lane];
+    wht_warp<Q>(g, lane);
+    const int loc = info[t];
+    const int sh = loc < 0 ? 0 : shift_of(loc);   // pads: weight 1
+    T* mt = rows + t * Q;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int x = k * 32 + lane;            // to h^-1 x, in exp order
+      mt[x ? rot<Q>(logx[k] + 1, sh) : 0] =
+          state::put<T>(logf(fmaxf(g[k] * (1.0f / Q), kProbFloor)));
+    }
+  }
 }
 
 // Check-node phase over the rank's checks, rc at a time, steps A-E of
 // the header; logx[k] = log(k * 32 + lane).
-template <int Q>
-__device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (&logx)[Q / 32]) {
+template <int Q, class T>
+__device__ void cn_phase(const cg::cluster_group& cl, const Rank<T>& r,
+                         const int (&logx)[Q / 32]) {
   constexpr int K = Q / 32;
   constexpr int RS = Q + 4;                   // buffer row stride: 16-byte rows
   constexpr int G = K >= 16 ? 1 : 16 / K;     // posterior rows in flight per warp
@@ -182,7 +275,7 @@ __device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (
   for (int c0 = 0; c0 < r.nchk; c0 += r.rc) {
     const int nrow = min(r.rc, r.nchk - c0) * dc;
     const int* info = r.edge_info + c0 * dc;   // the round's rows t = (c - c0) dc + j
-    float* rows = r.lc + c0 * dc * Q;          // the round's messages
+    T* rows = r.lc + c0 * dc * Q;              // the round's messages
     // A: exp(U) of every real edge row, in exp order: a rotation of the
     // posterior and message rows, G rows in flight
     for (int t0 = warp * G; t0 < nrow; t0 += W * G) {
@@ -191,14 +284,14 @@ __device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (
       for (int g = 0; g < G; ++g) {
         const int loc = t0 + g < nrow ? info[t0 + g] : -1;
         if (loc < 0) continue;
-        const float* pv = cl.map_shared_rank(r.post, rank_of(loc)) + row_of(loc) * Q;
-        const float* lr = rows + (t0 + g) * Q;
+        const T* pv = cl.map_shared_rank(r.post, rank_of(loc)) + row_of(loc) * Q;
+        const T* lr = rows + (t0 + g) * Q;
         const int sh = shift_of(loc);
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           const int i = k * 32 + lane;
           const int src = rot<Q>(i, sh);
-          u[g][k] = pv[src] - lr[src];
+          u[g][k] = state::rnd<T>(state::get(pv[src]) - state::get(lr[src]));
         }
       }
 #pragma unroll
@@ -216,65 +309,22 @@ __device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (
     // C: spectra F = WHT(P), P read in x order, written back in x order
     spectra<Q>(r.buf, r.sums, info, nrow, logx);
     __syncthreads();
-    // D: per (check, symbol) the suffix products suf(j) into message row
-    // j, then G_j = prefix * suf(j) over them; two columns per thread at
-    // a time
-    const int ncol = nrow / dc * Q;
-    for (int i0 = threadIdx.x; i0 < ncol; i0 += 2 * blockDim.x) {
-      float* mr[2];
-      const float* fr[2];
-      float acc[2] = {1.f, 1.f};
-      const int i1 = i0 + (int)blockDim.x < ncol ? i0 + (int)blockDim.x : i0;  // i0 twice
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const int i = n ? i1 : i0;
-        mr[n] = rows + (i / Q) * dc * Q + i % Q;
-        fr[n] = r.buf + (i / Q) * dc * RS + i % Q;
-      }
-      for (int j = dc - 1; j >= 0; --j) {
-        const float f0 = fr[0][j * RS], f1 = fr[1][j * RS];
-        mr[0][j * Q] = acc[0];
-        mr[1][j * Q] = acc[1];
-        acc[0] = acc[0] * f0;
-        acc[1] = acc[1] * f1;
-      }
-      acc[0] = acc[1] = 1.f;
-      for (int j = 0; j < dc; ++j) {
-        const float f0 = fr[0][j * RS], f1 = fr[1][j * RS];
-        const float s0 = mr[0][j * Q], s1 = mr[1][j * Q];
-        mr[0][j * Q] = acc[0] * s0;
-        mr[1][j * Q] = acc[1] * s1;
-        acc[0] = acc[0] * f0;
-        acc[1] = acc[1] * f1;
-      }
-    }
-    __syncthreads();
-    // E: inverse WHT, floor, log, permuted up in place, one warp per row
-    for (int t = warp; t < nrow; t += W) {
-      float* mt = rows + t * Q;
-      float g[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) g[k] = mt[k * 32 + lane];
-      wht_warp<Q>(g, lane);
-      __syncwarp();                       // the row is read before it is overwritten
-      const int loc = info[t];
-      const int sh = loc < 0 ? 0 : shift_of(loc);   // pads: weight 1
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int x = k * 32 + lane;            // to h^-1 x, in exp order
-        mt[x ? rot<Q>(logx[k] + 1, sh) : 0] = logf(fmaxf(g[k] * (1.0f / Q), kProbFloor));
-      }
-    }
+    // D and E
+    if constexpr (sizeof(T) == 4)
+      loo_log_in_rows<Q>(r, rows, info, nrow, logx);
+    else
+      loo_log_from_buf<Q>(r, rows, info, nrow, logx);
     __syncthreads();                      // the buffer is the next round's
   }
 }
 
 // Variable-node phase over the rank's variables, one warp per variable,
 // two at a time: post = prior + the sum of the variable's message rows in
-// slot order, wherever they live, a lane moving V consecutive floats;
-// with `decide`, hard = argmax.
-template <int Q>
-__device__ void vn_phase(const cg::cluster_group& cl, const Rank& r, bool decide) {
+// slot order (rounded to T before the prior is added, and after),
+// wherever they live, a lane moving V consecutive elements; with
+// `decide`, hard = argmax.
+template <int Q, class T>
+__device__ void vn_phase(const cg::cluster_group& cl, const Rank<T>& r, bool decide) {
   constexpr int V = vec_width<Q>();
   constexpr int NV = Q / 32 / V;
   constexpr int NR = 2;
@@ -294,11 +344,11 @@ __device__ void vn_phase(const cg::cluster_group& cl, const Rank& r, bool decide
         const int i = i0 + n * W;
         const int src = i < r.nv ? r.row_src[i * r.dv + s] : -1;
         if (src < 0) continue;
-        const float* row = cl.map_shared_rank(r.lc, rank_of(src)) + row_of(src) * Q;
+        const T* row = cl.map_shared_rank(r.lc, rank_of(src)) + row_of(src) * Q;
 #pragma unroll
         for (int kk = 0; kk < NV; ++kk) {
           float v[V];
-          ld_vec(row + (kk * 32 + lane) * V, v);
+          state::load<V>(row + (kk * 32 + lane) * V, v);
 #pragma unroll
           for (int c = 0; c < V; ++c) acc[n][kk][c] += v[c];
         }
@@ -314,17 +364,17 @@ __device__ void vn_phase(const cg::cluster_group& cl, const Rank& r, bool decide
       for (int kk = 0; kk < NV; ++kk) {
         const int a0 = (kk * 32 + lane) * V;
         float p[V];
-        ld_vec(r.prior + i * Q + a0, p);
+        state::load<V>(r.prior + i * Q + a0, p);
 #pragma unroll
         for (int c = 0; c < V; ++c) {
-          p[c] = p[c] + acc[n][kk][c];
+          p[c] = state::rnd<T>(p[c] + state::rnd<T>(acc[n][kk][c]));
           const int sym = r.n2e[a0 + c];
           if (p[c] > best || (p[c] == best && sym < idx)) {
             best = p[c];
             idx = sym;
           }
         }
-        st_vec(r.post + i * Q + a0, p);
+        state::store<V>(r.post + i * Q + a0, p);
       }
       if (decide) {
         idx = warp_argmax(best, idx);
@@ -334,7 +384,7 @@ __device__ void vn_phase(const cg::cluster_group& cl, const Rank& r, bool decide
   }
 }
 
-template <int Q>
+template <int Q, class T>
 __global__ void __launch_bounds__(max_warps<Q>() * 32, 1)
 qspa_cluster_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
                     uint8_t* __restrict__ done_out, int* __restrict__ iters_out, int B,
@@ -347,11 +397,11 @@ qspa_cluster_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
   const cg::cluster_group cl = cg::this_cluster();
   const int C = (int)cl.num_blocks();
   const int rank = (int)cl.block_rank();
-  Rank r;
-  r.prior = smem;
+  Rank<T> r;
+  r.prior = reinterpret_cast<T*>(smem);
   r.post = r.prior + nv * Q;
   r.lc = r.post + nv * Q;
-  r.buf = r.lc + cpr * dc * Q;
+  r.buf = reinterpret_cast<float*>(r.lc + cpr * dc * Q);
   r.sums = r.buf + rc * dc * (Q + 4);
   r.hard = reinterpret_cast<int*>(r.sums + rc * dc);
   r.flag = r.hard + nv;
@@ -372,54 +422,85 @@ qspa_cluster_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
   run_frames<Q>(
       cl, r, blockIdx.x / C, gridDim.x / C, B, N, max_iters, early_term, stats_each_iter,
       hard_out, done_out, iters_out,
-      [&](int b) { init_phase<Q>(llr + (size_t)b * N * Q, r); },
-      [&](int, int) { cn_phase<Q>(cl, r, logx); },
-      [&](int, bool decide) { vn_phase<Q>(cl, r, decide); });
+      [&](int b) { init_phase<Q, T>(llr + (size_t)b * N * Q, r); },
+      [&](int, int) { cn_phase<Q, T>(cl, r, logx); },
+      [&](int, bool decide) { vn_phase<Q, T>(cl, r, decide); });
 }
 
 // The launch configuration of a cluster of C blocks of W warps, each
 // with `smem` bytes of shared memory in all (the static tables included;
 // grid: one cluster), after checking it against the layout and the
 // kernel's limits and setting the attribute.
-template <int Q>
+template <int Q, class T>
 cudaError_t configure(int dc, int dv, int C, int nv, int cpr, int rc, int W, int smem,
                       cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  const size_t dyn = dyn_bytes(nv, cpr, rc, dc, dv, Q);
+  const size_t dyn = dyn_bytes(nv, cpr, rc, dc, dv, Q, sizeof(T));
   if (!plan_ok<Q>(C, W, dc, dv, nv, cpr, rc) || dyn + 4 * Q * sizeof(int) != (size_t)smem ||
       (size_t)smem > kMaxSmem)
     return cudaErrorInvalidValue;
-  return cluster_config(qspa_cluster_kernel<Q>, C, W, dyn, cfg, attr);
+  return cluster_config(qspa_cluster_kernel<Q, T>, C, W, dyn, cfg, attr);
 }
 
-template <int Q>
+template <int Q, class T>
 cudaError_t max_clusters(int dc, int dv, int C, int nv, int cpr, int rc, int W, int smem,
                          int* clusters) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<Q>(dc, dv, C, nv, cpr, rc, W, smem, &cfg, &attr);
+  cudaError_t err = configure<Q, T>(dc, dv, C, nv, cpr, rc, W, smem, &cfg, &attr);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(clusters, qspa_cluster_kernel<Q>, &cfg);
+  return cudaOccupancyMaxActiveClusters(clusters, qspa_cluster_kernel<Q, T>, &cfg);
 }
 
-template <int Q>
+template <int Q, class T>
 cudaError_t launch(const float* llr, int* hard, uint8_t* done, int* iters, int B, int N,
                    int M, int dc, int dv, int C, int nv, int cpr, int rc, int W, int smem,
                    const Tables& t, int max_iters, int early_term, int stats_each_iter,
                    cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<Q>(dc, dv, C, nv, cpr, rc, W, smem, &cfg, &attr);
+  cudaError_t err = configure<Q, T>(dc, dv, C, nv, cpr, rc, W, smem, &cfg, &attr);
   if (err != cudaSuccess) return err;
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, qspa_cluster_kernel<Q>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, qspa_cluster_kernel<Q, T>, &cfg);
   if (err != cudaSuccess) return err;
   if (clusters < 1) return cudaErrorInvalidConfiguration;
   cfg.gridDim = dim3((B < clusters ? B : clusters) * C);
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, qspa_cluster_kernel<Q>, llr, hard, done, iters, B, N, M,
+  err = cudaLaunchKernelEx(&cfg, qspa_cluster_kernel<Q, T>, llr, hard, done, iters, B, N, M,
                            dc, dv, nv, cpr, rc, t, max_iters, early_term, stats_each_iter);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <class T>
+int occupancy(int q, int dc, int dv, int C, int nv, int cpr, int rc, int W, int smem,
+              int* clusters) {
+  switch (q) {
+    case 64: return max_clusters<64, T>(dc, dv, C, nv, cpr, rc, W, smem, clusters);
+    case 128: return max_clusters<128, T>(dc, dv, C, nv, cpr, rc, W, smem, clusters);
+    case 256: return max_clusters<256, T>(dc, dv, C, nv, cpr, rc, W, smem, clusters);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <class T>
+int decode(const float* llr, int* hard, uint8_t* done, int* iters, int B, int N, int M, int dc,
+           int dv, int q, int C, int nv, int cpr, int rc, int W, int smem, const Tables& t,
+           int max_iters, int early_term, int stats_each_iter, cudaStream_t s) {
+  if (B == 0) return cudaSuccess;
+  switch (q) {
+    case 64:
+      return launch<64, T>(llr, hard, done, iters, B, N, M, dc, dv, C, nv, cpr, rc, W, smem,
+                           t, max_iters, early_term, stats_each_iter, s);
+    case 128:
+      return launch<128, T>(llr, hard, done, iters, B, N, M, dc, dv, C, nv, cpr, rc, W, smem,
+                            t, max_iters, early_term, stats_each_iter, s);
+    case 256:
+      return launch<256, T>(llr, hard, done, iters, B, N, M, dc, dv, C, nv, cpr, rc, W, smem,
+                            t, max_iters, early_term, stats_each_iter, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -428,38 +509,40 @@ cudaError_t launch(const float* llr, int* hard, uint8_t* done, int* iters, int B
 // clusters run at once, the persistent grid of qspa_cluster_decode.
 extern "C" int qspa_cluster_occupancy(int q, int dc, int dv, int C, int nv, int cpr, int rc,
                                       int W, int smem, int* clusters) {
-  switch (q) {
-    case 64: return max_clusters<64>(dc, dv, C, nv, cpr, rc, W, smem, clusters);
-    case 128: return max_clusters<128>(dc, dv, C, nv, cpr, rc, W, smem, clusters);
-    case 256: return max_clusters<256>(dc, dv, C, nv, cpr, rc, W, smem, clusters);
-    default: return cudaErrorInvalidValue;
-  }
+  return occupancy<float>(q, dc, dv, C, nv, cpr, rc, W, smem, clusters);
+}
+
+// The same for the bf16 build (the plan's smem laid out with 2-byte state).
+extern "C" int qspa_cluster_occupancy_bf16(int q, int dc, int dv, int C, int nv, int cpr,
+                                           int rc, int W, int smem, int* clusters) {
+  return occupancy<state::bf16>(q, dc, dv, C, nv, cpr, rc, W, smem, clusters);
 }
 
 // The decode of B frames under a plan from kernels/qspa_resident.py:
 // clusters of C blocks of W warps, nv posterior rows and cpr checks per
-// rank (rc checks per round of the CN phase), `smem` bytes of shared memory per block in all (checked against
-// the layout above). Returns cudaErrorInvalidValue for a plan or q the
-// kernel does not take.
+// rank (rc checks per round of the CN phase), `smem` bytes of shared
+// memory per block in all (checked against the layout above). Returns
+// cudaErrorInvalidValue for a plan or q the kernel does not take.
 extern "C" int qspa_cluster_decode(
     const float* llr, int* hard, uint8_t* done, int* iters, int B, int N, int M, int dc,
     int dv, int q, int C, int nv, int cpr, int rc, int W, int smem, const int* edge_info,
     const int* row_src, const int* row_var, const int* n2e, const int* gf_log,
     const int* gf_exp, int max_iters, int early_term, int stats_each_iter, void* stream) {
   const Tables t{edge_info, row_src, row_var, n2e, gf_log, gf_exp};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 0) return cudaSuccess;
-  switch (q) {
-    case 64:
-      return launch<64>(llr, hard, done, iters, B, N, M, dc, dv, C, nv, cpr, rc, W, smem, t,
-                        max_iters, early_term, stats_each_iter, s);
-    case 128:
-      return launch<128>(llr, hard, done, iters, B, N, M, dc, dv, C, nv, cpr, rc, W, smem, t,
-                         max_iters, early_term, stats_each_iter, s);
-    case 256:
-      return launch<256>(llr, hard, done, iters, B, N, M, dc, dv, C, nv, cpr, rc, W, smem, t,
-                         max_iters, early_term, stats_each_iter, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return decode<float>(llr, hard, done, iters, B, N, M, dc, dv, q, C, nv, cpr, rc, W, smem, t,
+                       max_iters, early_term, stats_each_iter,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The same with the prior, posterior and messages stored in bf16
+// (mm_precision="bf16"), under a plan made for 2-byte state.
+extern "C" int qspa_cluster_decode_bf16(
+    const float* llr, int* hard, uint8_t* done, int* iters, int B, int N, int M, int dc,
+    int dv, int q, int C, int nv, int cpr, int rc, int W, int smem, const int* edge_info,
+    const int* row_src, const int* row_var, const int* n2e, const int* gf_log,
+    const int* gf_exp, int max_iters, int early_term, int stats_each_iter, void* stream) {
+  const Tables t{edge_info, row_src, row_var, n2e, gf_log, gf_exp};
+  return decode<state::bf16>(llr, hard, done, iters, B, N, M, dc, dv, q, C, nv, cpr, rc, W,
+                             smem, t, max_iters, early_term, stats_each_iter,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -6,10 +6,13 @@
 // plan_scratch), in the plain version's association order. Here: the
 // plan's limits and tables, the exp-order rotation, the warp's WHT and
 // argmax, the syndrome check, the check phase's steps B (softmax sums) and
-// C (spectra), the tables' copy into shared memory and the frame loop with
+// C (spectra), the scratch kernel's step D (the leave-one-out products
+// over the spectra in the buffer, which the cluster kernel's bf16 build
+// runs too), the tables' copy into shared memory and the frame loop with
 // its outputs. What differs (where the posterior and the messages live:
 // the frame's init, steps A, D and E, the variable phase) stays in each
-// kernel's source.
+// kernel's source. Both are built with the state's element T = float and
+// T = bf16 (state.cuh).
 
 #pragma once
 
@@ -17,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "state.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -220,6 +225,49 @@ __device__ __forceinline__ void spectra(float* buf, const float* sums, const int
 #pragma unroll
     for (int k = 0; k < K; ++k) bt[k * 32 + lane] = f[k];
   }
+}
+
+// Step D over the round's spectra in `buf` (rows Q + 4 floats apart), one
+// thread per column (check, symbol): the suffix products in registers (at
+// most DC of them, DC >= dc), then G_j = prefix * suf(j) written over F_j,
+// which the prefix has already taken: the plain version's products.
+template <int Q, int DC, class R>
+__device__ void loo_products(const R& r, int ncol) {
+  constexpr int RS = Q + 4;
+  const int dc = r.dc;
+  for (int i = threadIdx.x; i < ncol; i += blockDim.x) {
+    float* col = r.buf + (i / Q) * dc * RS + i % Q;
+    float suf[DC];
+    float acc = 1.f;
+#pragma unroll
+    for (int j = DC - 1; j >= 0; --j) {
+      if (j < dc) {
+        suf[j] = acc;
+        acc = acc * col[j * RS];
+      }
+    }
+    acc = 1.f;
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      if (j < dc) {
+        const float f = col[j * RS];
+        col[j * RS] = acc * suf[j];
+        acc = acc * f;
+      }
+    }
+  }
+}
+
+// loo_products for the round's nrow rows with the smallest DC that holds dc
+template <int Q, class R>
+__device__ __forceinline__ void loo_products_round(const R& r, int nrow) {
+  const int ncol = nrow / r.dc * Q;
+  if (r.dc <= 8)
+    loo_products<Q, 8>(r, ncol);
+  else if (r.dc <= 16)
+    loo_products<Q, 16>(r, ncol);
+  else
+    loo_products<Q, kMaxDc>(r, ncol);
 }
 
 // The frames b = first, first + step, ... < B of one cluster of a

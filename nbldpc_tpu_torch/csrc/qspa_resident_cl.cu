@@ -79,7 +79,14 @@
 // slice is read and written with .cg accesses (L2, not the SM's L1), so
 // what one rank wrote before a cluster barrier, another reads after it.
 // What this kernel shares with the cluster kernel (the helpers, the
-// syndrome, steps B and C, the frame loop) is in qspa_cluster.cuh.
+// syndrome, steps B, C and D, the frame loop) is in qspa_cluster.cuh.
+//
+// bf16 (mm_precision="bf16", T = __nv_bfloat16): the posterior (shared
+// memory or slice) and the slice's messages are bf16, and so is the prior
+// as the variable phase forms it from the staged LLR row, each rounded
+// where the plain version rounds it (U before the exp, each log as step E
+// stores the row, the posterior sum and the posterior); the buffer and
+// the arithmetic stay f32. A slice is half the bytes.
 
 #include <cuda_pipeline.h>
 
@@ -96,18 +103,19 @@ constexpr int kVnRows = 2;                // variables a warp takes at once in t
 __host__ __device__ int buf_rows(int rc, int dc, int W) { return max(rc * dc, kVnRows * W); }
 
 // Dynamic shared memory of a block, in the order the kernel lays it out:
-// the posterior [nv, Q] (when PS), the round buffer and the rc dc sums,
-// max_q llr [nv], hard [nv], two syndrome flags, and the rank's tables
-// (edge_info [cpr dc], row_src [nv dv], row_var [nv]).
+// the posterior [nv, Q] (when PS; elements of es bytes), the round buffer
+// and the rc dc sums, max_q llr [nv], hard [nv], two syndrome flags, and
+// the rank's tables (edge_info [cpr dc], row_src [nv dv], row_var [nv]).
 // kernels/qspa_resident.py:scratch_smem_bytes mirrors it and adds the
 // static tables (n2e [Q], log [Q] and exp [2Q] ints).
-size_t dyn_bytes(int nv, int cpr, int rc, int dc, int dv, int W, int Q, bool ps) {
-  return ((ps ? (size_t)nv * Q : 0) + (size_t)buf_rows(rc, dc, W) * (Q + 4) + (size_t)rc * dc +
-          2 * (size_t)nv + 2 + (size_t)cpr * dc + (size_t)nv * dv + nv) *
-         sizeof(float);
+size_t dyn_bytes(int nv, int cpr, int rc, int dc, int dv, int W, int Q, bool ps, int es) {
+  return (ps ? (size_t)nv * Q * es : 0) +
+         ((size_t)buf_rows(rc, dc, W) * (Q + 4) + (size_t)rc * dc + 2 * (size_t)nv + 2 +
+          (size_t)cpr * dc + (size_t)nv * dv + nv) *
+             sizeof(float);
 }
 
-// Floats of one cluster's slice: the messages, then the posterior if !ps.
+// Elements of one cluster's slice: the messages, then the posterior if !ps.
 __host__ __device__ size_t slice_floats(int C, int nv, int cpr, int dc, int Q, bool ps) {
   return (size_t)C * cpr * dc * Q + (ps ? 0 : (size_t)C * nv * Q);
 }
@@ -121,21 +129,38 @@ __device__ __forceinline__ void ld_cg(const float* p, float (&o)[2]) {
   const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
   o[0] = v.x; o[1] = v.y;
 }
-// A posterior row: shared memory (any rank's) when PS, else the slice.
-template <bool PS>
-__device__ __forceinline__ float ld_post(const float* p) { return PS ? *p : __ldcg(p); }
-template <bool PS>
-__device__ __forceinline__ void st_post(float* p, float v) {
+__device__ __forceinline__ void ld_cg(const state::bf16* p, float (&o)[4]) {
+  const uint2 v = __ldcg(reinterpret_cast<const uint2*>(p));
+  state::unpack2(v.x, o[0], o[1]);
+  state::unpack2(v.y, o[2], o[3]);
+}
+__device__ __forceinline__ void ld_cg(const state::bf16* p, float (&o)[2]) {
+  state::unpack2(__ldcg(reinterpret_cast<const unsigned*>(p)), o[0], o[1]);
+}
+__device__ __forceinline__ float ld_cg1(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float ld_cg1(const state::bf16* p) {
+  return __uint_as_float((unsigned)__ldcg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ void st_cg1(float* p, float v) { __stcg(p, v); }
+__device__ __forceinline__ void st_cg1(state::bf16* p, float v) {
+  __stcg(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+// A posterior element: shared memory (any rank's) when PS, else the slice.
+template <bool PS, class T>
+__device__ __forceinline__ float ld_post(const T* p) { return PS ? state::get(*p) : ld_cg1(p); }
+template <bool PS, class T>
+__device__ __forceinline__ void st_post(T* p, float v) {
   if (PS)
-    *p = v;
+    *p = state::put<T>(v);
   else
-    __stcg(p, v);
+    st_cg1(p, v);
 }
 
 // The rank's view: shared-memory state, buffers and tables, and its
-// cluster's slice.
+// cluster's slice (elements T).
+template <class T>
 struct Rank {
-  float* post;       // [nv, Q] shared (PS) or the rank's rows of the slice
+  T* post;           // [nv, Q] shared (PS) or the rank's rows of the slice
   float* buf;        // [rc dc, Q + 4] the round's edge rows
   float* sums;       // [rc dc]
   float* mx;         // [nv] max_q llr of each posterior row's variable
@@ -147,23 +172,23 @@ struct Rank {
   const int* n2e;    // [Q]
   const int* log;    // [Q]
   const int* exp;    // [2Q]
-  float* msg;        // the slice's messages [C cpr dc, Q]
-  float* gpost;      // the slice's posterior [C nv, Q] (unused when PS)
+  T* msg;            // the slice's messages [C cpr dc, Q]
+  T* gpost;          // the slice's posterior [C nv, Q] (unused when PS)
   int rank, nv, cpr, nchk, rc, dc, dv;
 };
 
 // Posterior row `row` of rank `rank`.
-template <int Q, bool PS>
-__device__ __forceinline__ const float* post_row(const cg::cluster_group& cl, const Rank& r,
-                                                 int rank, int row) {
+template <int Q, bool PS, class T>
+__device__ __forceinline__ const T* post_row(const cg::cluster_group& cl, const Rank<T>& r,
+                                             int rank, int row) {
   if (PS) return cl.map_shared_rank(r.post, rank) + row * Q;
   return r.gpost + ((size_t)rank * r.nv + row) * Q;
 }
 
 // Start of a frame: post = llr - max_q llr for the rank's variables, in
-// exp order, mx = that max, hard = argmax.
-template <int Q, bool PS>
-__device__ void init_phase(const float* L, const Rank& r) {
+// exp order (rounded to T), mx = that max, hard = argmax.
+template <int Q, bool PS, class T>
+__device__ void init_phase(const float* L, const Rank<T>& r) {
   constexpr int K = Q / 32;
   const int lane = threadIdx.x & 31;
   const int W = blockDim.x >> 5;
@@ -184,7 +209,7 @@ __device__ void init_phase(const float* L, const Rank& r) {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int a = k * 32 + lane;
-      const float p = x[k] - m;
+      const float p = state::rnd<T>(x[k] - m);
       st_post<PS>(r.post + i * Q + a, p);
       const int sym = r.n2e[a];
       if (p > best || (p == best && sym < idx)) {
@@ -200,40 +225,11 @@ __device__ void init_phase(const float* L, const Rank& r) {
   }
 }
 
-// Step D for the round's columns (check, symbol): the suffix products in
-// registers, then G_j = prefix * suf(j) over F_j; DC >= dc.
-template <int Q, int DC>
-__device__ void loo_products(const Rank& r, int ncol) {
-  constexpr int RS = Q + 4;
-  const int dc = r.dc;
-  for (int i = threadIdx.x; i < ncol; i += blockDim.x) {
-    float* col = r.buf + (i / Q) * dc * RS + i % Q;
-    float suf[DC];
-    float acc = 1.f;
-#pragma unroll
-    for (int j = DC - 1; j >= 0; --j) {
-      if (j < dc) {
-        suf[j] = acc;
-        acc = acc * col[j * RS];
-      }
-    }
-    acc = 1.f;
-#pragma unroll
-    for (int j = 0; j < DC; ++j) {
-      if (j < dc) {
-        const float f = col[j * RS];
-        col[j * RS] = acc * suf[j];
-        acc = acc * f;
-      }
-    }
-  }
-}
-
 // Check-node phase over the rank's checks, rc at a time, steps A-E of the
 // header; logx[k] = log(k * 32 + lane); `first`: the messages are 0.
-template <int Q, bool PS>
-__device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (&logx)[Q / 32],
-                         bool first) {
+template <int Q, bool PS, class T>
+__device__ void cn_phase(const cg::cluster_group& cl, const Rank<T>& r,
+                         const int (&logx)[Q / 32], bool first) {
   constexpr int K = Q / 32;
   constexpr int RS = Q + 4;                   // buffer row stride: 16-byte rows
   constexpr int G = K >= 8 ? 1 : 8 / K;       // rows in flight per warp (more spill)
@@ -244,7 +240,7 @@ __device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (
   for (int c0 = 0; c0 < r.nchk; c0 += r.rc) {
     const int nrow = min(r.rc, r.nchk - c0) * dc;
     const int* info = r.edge_info + c0 * dc;   // the round's rows t = (c - c0) dc + j
-    float* rows = r.msg + ((size_t)r.rank * r.cpr + c0) * dc * Q;   // their messages
+    T* rows = r.msg + ((size_t)r.rank * r.cpr + c0) * dc * Q;       // their messages
     // A: exp(U) of every real edge row, in exp order, G rows in flight
     for (int t0 = warp * G; t0 < nrow; t0 += W * G) {
       float u[G][K];
@@ -252,13 +248,14 @@ __device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (
       for (int g = 0; g < G; ++g) {
         const int loc = t0 + g < nrow ? info[t0 + g] : -1;
         if (loc < 0) continue;
-        const float* pv = post_row<Q, PS>(cl, r, rank_of(loc), row_of(loc));
-        const float* lr = rows + (size_t)(t0 + g) * Q;
+        const T* pv = post_row<Q, PS>(cl, r, rank_of(loc), row_of(loc));
+        const T* lr = rows + (size_t)(t0 + g) * Q;
         const int sh = shift_of(loc);
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           const int src = rot<Q>(k * 32 + lane, sh);
-          u[g][k] = first ? ld_post<PS>(pv + src) : ld_post<PS>(pv + src) - __ldcg(lr + src);
+          u[g][k] = first ? ld_post<PS>(pv + src)
+                          : state::rnd<T>(ld_post<PS>(pv + src) - ld_cg1(lr + src));
         }
       }
 #pragma unroll
@@ -277,13 +274,7 @@ __device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (
     spectra<Q>(r.buf, r.sums, info, nrow, logx);
     __syncthreads();
     // D: the leave-one-out products, over the spectra
-    const int ncol = nrow / dc * Q;
-    if (dc <= 8)
-      loo_products<Q, 8>(r, ncol);
-    else if (dc <= 16)
-      loo_products<Q, 16>(r, ncol);
-    else
-      loo_products<Q, kMaxDc>(r, ncol);
+    loo_products_round<Q>(r, nrow);
     __syncthreads();
     // E: inverse WHT, floor, log, permuted up in the buffer, then the row
     // to the slice
@@ -303,9 +294,19 @@ __device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (
         bt[x ? rot<Q>(logx[k] + 1, sh) : 0] = logf(fmaxf(g[k] * (1.0f / Q), kProbFloor));
       }
       __syncwarp();
-      float4* dst = reinterpret_cast<float4*>(rows + (size_t)t * Q);
-      const float4* srcv = reinterpret_cast<const float4*>(bt);
-      for (int k = lane; k < Q / 4; k += 32) __stcg(dst + k, srcv[k]);
+      if constexpr (sizeof(T) == 4) {
+        float4* dst = reinterpret_cast<float4*>(rows + (size_t)t * Q);
+        const float4* srcv = reinterpret_cast<const float4*>(bt);
+        for (int k = lane; k < Q / 4; k += 32) __stcg(dst + k, srcv[k]);
+      } else {                            // 8 floats to 8 bf16 a store
+        uint4* dst = reinterpret_cast<uint4*>(rows + (size_t)t * Q);
+        const float4* srcv = reinterpret_cast<const float4*>(bt);
+        for (int k = lane; k < Q / 8; k += 32) {
+          const float4 a = srcv[2 * k], b = srcv[2 * k + 1];
+          __stcg(dst + k, make_uint4(state::pack2(a.x, a.y), state::pack2(a.z, a.w),
+                                     state::pack2(b.x, b.y), state::pack2(b.z, b.w)));
+        }
+      }
     }
     __syncthreads();                      // the buffer is the next round's
   }
@@ -313,12 +314,13 @@ __device__ void cn_phase(const cg::cluster_group& cl, const Rank& r, const int (
 
 // Variable-node phase over the rank's variables, one warp per variable,
 // two at a time: post = prior + the sum of the variable's message rows in
-// slot order, a lane moving V consecutive floats; the prior llr - max
-// formed again from the LLR row, copied asynchronously into the warp's
-// rows of the round buffer (free in this phase) and gathered there in exp
-// order; with `decide`, hard = argmax.
-template <int Q, bool PS>
-__device__ void vn_phase(const float* L, const Rank& r, bool decide) {
+// slot order (in bf16: the prior, the sum and the posterior each rounded),
+// a lane moving V consecutive elements; the prior llr - max formed again
+// from the LLR row, copied asynchronously into the warp's rows of the
+// round buffer (free in this phase) and gathered there in exp order; with
+// `decide`, hard = argmax.
+template <int Q, bool PS, class T>
+__device__ void vn_phase(const float* L, const Rank<T>& r, bool decide) {
   constexpr int V = vec_width<Q>();
   constexpr int NV = Q / 32 / V;
   constexpr int NR = kVnRows;
@@ -362,7 +364,7 @@ __device__ void vn_phase(const float* L, const Rank& r, bool decide) {
         const int i = i0 + n * W;
         const int src = i < r.nv ? r.row_src[i * r.dv + s] : -1;
         if (src < 0) continue;
-        const float* row = r.msg + ((size_t)rank_of(src) * cdq + row_of(src)) * Q;
+        const T* row = r.msg + ((size_t)rank_of(src) * cdq + row_of(src)) * Q;
 #pragma unroll
         for (int kk = 0; kk < NV; ++kk) {
           float v[V];
@@ -390,7 +392,8 @@ __device__ void vn_phase(const float* L, const Rank& r, bool decide) {
 #pragma unroll
         for (int c = 0; c < V; ++c) {
           const int sym = r.n2e[a0 + c];
-          const float p = (lv[sym] - m) + acc[n][kk][c];
+          const float p =
+              state::rnd<T>(state::rnd<T>(lv[sym] - m) + state::rnd<T>(acc[n][kk][c]));
           st_post<PS>(r.post + i * Q + a0 + c, p);
           if (p > best || (p == best && sym < idx)) {
             best = p;
@@ -407,11 +410,11 @@ __device__ void vn_phase(const float* L, const Rank& r, bool decide) {
   }
 }
 
-template <int Q, bool PS>
+template <int Q, bool PS, class T>
 __global__ void __launch_bounds__(max_warps<Q>() * 32, 1)
 qspa_scratch_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
                     uint8_t* __restrict__ done_out, int* __restrict__ iters_out,
-                    float* scratch, int B, int N, int M, int dc, int dv, int nv, int cpr,
+                    T* scratch, int B, int N, int M, int dc, int dv, int nv, int cpr,
                     int rc, Tables t, int max_iters, int early_term, int stats_each_iter) {
   constexpr int K = Q / 32;
   extern __shared__ float smem[];
@@ -420,12 +423,12 @@ qspa_scratch_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
   const int C = (int)cl.num_blocks();
   const int rank = (int)cl.block_rank();
   const int cid = blockIdx.x / C, ncl = gridDim.x / C;
-  float* slice = scratch + (size_t)cid * slice_floats(C, nv, cpr, dc, Q, PS);
-  Rank r;
+  T* slice = scratch + (size_t)cid * slice_floats(C, nv, cpr, dc, Q, PS);
+  Rank<T> r;
   r.msg = slice;
   r.gpost = slice + (size_t)C * cpr * dc * Q;
-  r.post = PS ? smem : r.gpost + (size_t)rank * nv * Q;
-  r.buf = smem + (PS ? nv * Q : 0);
+  r.post = PS ? reinterpret_cast<T*>(smem) : r.gpost + (size_t)rank * nv * Q;
+  r.buf = reinterpret_cast<float*>(reinterpret_cast<T*>(smem) + (PS ? nv * Q : 0));
   r.sums = r.buf + buf_rows(rc, dc, (int)(blockDim.x >> 5)) * (Q + 4);
   r.mx = r.sums + rc * dc;
   r.hard = reinterpret_cast<int*>(r.mx + nv);
@@ -448,9 +451,9 @@ qspa_scratch_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
   __syncthreads();
   run_frames<Q>(
       cl, r, cid, ncl, B, N, max_iters, early_term, stats_each_iter, hard_out, done_out,
-      iters_out, [&](int b) { init_phase<Q, PS>(llr + (size_t)b * N * Q, r); },
-      [&](int, int it) { cn_phase<Q, PS>(cl, r, logx, it == 0); },
-      [&](int b, bool decide) { vn_phase<Q, PS>(llr + (size_t)b * N * Q, r, decide); });
+      iters_out, [&](int b) { init_phase<Q, PS, T>(llr + (size_t)b * N * Q, r); },
+      [&](int, int it) { cn_phase<Q, PS, T>(cl, r, logx, it == 0); },
+      [&](int b, bool decide) { vn_phase<Q, PS, T>(llr + (size_t)b * N * Q, r, decide); });
 }
 
 // The launch configuration of one cluster of C blocks of W warps with
@@ -458,20 +461,20 @@ qspa_scratch_kernel(const float* __restrict__ llr, int* __restrict__ hard_out,
 // after checking it against the layout and the kernel's limits; then the
 // clusters that run at once (*clusters), and, with `launch`, the decode on
 // a grid of `grid` clusters.
-template <int Q, bool PS>
+template <int Q, bool PS, class T>
 cudaError_t run(int C, int nv, int cpr, int rc, int W, int smem, int dc, int dv, int* clusters,
                 bool launch, const float* llr, int* hard, uint8_t* done, int* iters,
-                float* scratch, int grid, int B, int N, int M, const Tables& t, int max_iters,
+                void* scratch, int grid, int B, int N, int M, const Tables& t, int max_iters,
                 int early_term, int stats_each_iter, cudaStream_t stream) {
-  const size_t dyn = dyn_bytes(nv, cpr, rc, dc, dv, W, Q, PS);
+  const size_t dyn = dyn_bytes(nv, cpr, rc, dc, dv, W, Q, PS, sizeof(T));
   if (!plan_ok<Q>(C, W, dc, dv, nv, cpr, rc) || dyn + 4 * Q * sizeof(int) != (size_t)smem ||
       (size_t)smem > kMaxSmem)
     return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config(qspa_scratch_kernel<Q, PS>, C, W, dyn, &cfg, &attr);
+  cudaError_t err = cluster_config(qspa_scratch_kernel<Q, PS, T>, C, W, dyn, &cfg, &attr);
   if (err != cudaSuccess) return err;
-  if ((err = cudaOccupancyMaxActiveClusters(clusters, qspa_scratch_kernel<Q, PS>, &cfg)) !=
+  if ((err = cudaOccupancyMaxActiveClusters(clusters, qspa_scratch_kernel<Q, PS, T>, &cfg)) !=
       cudaSuccess)
     return err;
   if (*clusters < 1) return cudaErrorInvalidConfiguration;
@@ -480,21 +483,22 @@ cudaError_t run(int C, int nv, int cpr, int rc, int W, int smem, int dc, int dv,
     return cudaErrorInvalidValue;
   cfg.gridDim = dim3(grid * C);
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, qspa_scratch_kernel<Q, PS>, llr, hard, done, iters, scratch,
-                           B, N, M, dc, dv, nv, cpr, rc, t, max_iters, early_term,
-                           stats_each_iter);
+  err = cudaLaunchKernelEx(&cfg, qspa_scratch_kernel<Q, PS, T>, llr, hard, done, iters,
+                           static_cast<T*>(scratch), B, N, M, dc, dv, nv, cpr, rc, t,
+                           max_iters, early_term, stats_each_iter);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+template <class T>
 cudaError_t dispatch(int q, int ps, int C, int nv, int cpr, int rc, int W, int smem, int dc,
                      int dv, int* clusters, bool launch, const float* llr, int* hard,
-                     uint8_t* done, int* iters, float* scratch, int grid, int B, int N, int M,
+                     uint8_t* done, int* iters, void* scratch, int grid, int B, int N, int M,
                      const Tables& t, int max_iters, int early_term, int stats_each_iter,
                      cudaStream_t s) {
-#define NBLDPC_SCRATCH_RUN(QQ, PP)                                                        \
-  run<QQ, PP>(C, nv, cpr, rc, W, smem, dc, dv, clusters, launch, llr, hard, done, iters, \
-              scratch, grid, B, N, M, t, max_iters, early_term, stats_each_iter, s)
+#define NBLDPC_SCRATCH_RUN(QQ, PP)                                                           \
+  run<QQ, PP, T>(C, nv, cpr, rc, W, smem, dc, dv, clusters, launch, llr, hard, done, iters, \
+                 scratch, grid, B, N, M, t, max_iters, early_term, stats_each_iter, s)
   switch (q) {
     case 64: return ps ? NBLDPC_SCRATCH_RUN(64, true) : NBLDPC_SCRATCH_RUN(64, false);
     case 128: return ps ? NBLDPC_SCRATCH_RUN(128, true) : NBLDPC_SCRATCH_RUN(128, false);
@@ -511,8 +515,19 @@ cudaError_t dispatch(int q, int ps, int C, int nv, int cpr, int rc, int W, int s
 extern "C" int qspa_scratch_occupancy(int q, int dc, int dv, int C, int nv, int cpr, int rc,
                                       int W, int smem, int post_shared, int* clusters) {
   const Tables t{};
-  return dispatch(q, post_shared, C, nv, cpr, rc, W, smem, dc, dv, clusters, false, nullptr,
-                  nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, t, 0, 0, 0, nullptr);
+  return dispatch<float>(q, post_shared, C, nv, cpr, rc, W, smem, dc, dv, clusters, false,
+                         nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, t, 0, 0, 0,
+                         nullptr);
+}
+
+// The same for the bf16 build, at a plan made for 2-byte state.
+extern "C" int qspa_scratch_occupancy_bf16(int q, int dc, int dv, int C, int nv, int cpr,
+                                           int rc, int W, int smem, int post_shared,
+                                           int* clusters) {
+  const Tables t{};
+  return dispatch<state::bf16>(q, post_shared, C, nv, cpr, rc, W, smem, dc, dv, clusters, false,
+                               nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, t, 0, 0,
+                               0, nullptr);
 }
 
 // The decode of B frames under a plan: clusters of C blocks of W warps,
@@ -531,7 +546,24 @@ extern "C" int qspa_resident_cl_decode(
   const Tables t{edge_info, row_src, row_var, n2e, gf_log, gf_exp};
   if (B == 0) return cudaSuccess;
   int clusters = 0;
-  return dispatch(q, post_shared, C, nv, cpr, rc, W, smem, dc, dv, &clusters, true, llr, hard,
-                  done, iters, scratch, grid, B, N, M, t, max_iters, early_term,
-                  stats_each_iter, static_cast<cudaStream_t>(stream));
+  return dispatch<float>(q, post_shared, C, nv, cpr, rc, W, smem, dc, dv, &clusters, true, llr,
+                         hard, done, iters, scratch, grid, B, N, M, t, max_iters, early_term,
+                         stats_each_iter, static_cast<cudaStream_t>(stream));
+}
+
+// The same with the posterior, the prior and the messages stored in bf16
+// (mm_precision="bf16"): scratch holds grid x (C cpr dc + (post_shared ? 0
+// : C nv)) x q bf16, at a plan made for 2-byte state.
+extern "C" int qspa_resident_cl_decode_bf16(
+    const float* llr, int* hard, uint8_t* done, int* iters, void* scratch, int grid, int B,
+    int N, int M, int dc, int dv, int q, int C, int nv, int cpr, int rc, int W, int smem,
+    int post_shared, const int* edge_info, const int* row_src, const int* row_var,
+    const int* n2e, const int* gf_log, const int* gf_exp, int max_iters, int early_term,
+    int stats_each_iter, void* stream) {
+  const Tables t{edge_info, row_src, row_var, n2e, gf_log, gf_exp};
+  if (B == 0) return cudaSuccess;
+  int clusters = 0;
+  return dispatch<state::bf16>(q, post_shared, C, nv, cpr, rc, W, smem, dc, dv, &clusters, true,
+                               llr, hard, done, iters, scratch, grid, B, N, M, t, max_iters,
+                               early_term, stats_each_iter, static_cast<cudaStream_t>(stream));
 }

@@ -18,6 +18,14 @@ Three implementations (`cn_impl`):
                kernels take any batch, so the JAX package's tile rule has
                no counterpart), "torch" for a CPU tensor.
 The resident path can differ from the log-domain paths in rare fp ties.
+
+`mm_precision` ("f32" or "bf16", as the JAX package's DecoderConfig) is the
+element of the resident path's stored state: "bf16" keeps the prior, the
+posterior and the edge messages in bf16 with the probability-domain
+stretch in f32 (kernels/qspa_resident.py). Only the resident path has the
+mode, as in the JAX package: "kernel" and "torch" (and so "auto" on a CPU
+tensor) decode in f32 whatever it says, and so do EMS and T-EMS, which
+never see it. Any other value raises ValueError.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from nbldpc_tpu_torch.kernels import cn_qspa
 from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
 CN_IMPLS = ("auto", "resident", "kernel", "torch")
+MM_PRECISIONS = tuple(qr.PRECISIONS)
 
 
 def qspa_cn_update_bl(U: torch.Tensor, graph: TannerGraph) -> torch.Tensor:
@@ -64,14 +73,12 @@ def decode(
     stats_each_iter: bool = True,
 ) -> common.DecodeResult:
     """QSPA decode of a batch: llr [B, N, q] f32 -> DecodeResult."""
-    if mm_precision != "f32":
-        raise NotImplementedError(
-            f"mm_precision={mm_precision!r}: only f32 is ported; bf16 message "
-            "storage is ROADMAP queue 1 item 6 (port only if an H100 "
-            "measurement justifies it)")
+    if mm_precision not in MM_PRECISIONS:
+        raise ValueError(f"mm_precision={mm_precision!r}; expected one of {MM_PRECISIONS}")
     impl = pick_impl(cn_impl, graph, llr)
     if impl == "resident":
-        dec = qr.get_resident_decoder(graph, max_iters, early_term, stats_each_iter)
+        dec = qr.get_resident_decoder(graph, max_iters, early_term, stats_each_iter,
+                                      mm_precision)
         hard, done, iters = qr.resident_decode(dec, llr)
         return common.DecodeResult(hard=hard, done=done, iters=iters)
     cn = qspa_cn_update_bl_kernel if impl == "kernel" else qspa_cn_update_bl

@@ -45,6 +45,9 @@ SIGNATURES = {
                              _I, _I, _I, _I, _I, _I,    # B N M dc dv q
                              _P, _P, _P, _P, _P,        # tables
                              _I, _I, _I, _P],           # iters, modes, stream
+    # B N M dc dv q bf16, out [5]: K0's frames and threads a block, blocks
+    # an SM, grid and shared bytes a block for B frames
+    "qspa_resident_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
     # q, out: K0's compiled exp-order basis of GF(q) [q]
     "qspa_resident_field": [_I, _P],
     # out (device), stream: positive normal floats where K0's log differs from logf
@@ -82,6 +85,11 @@ SIGNATURES = {
     "micro_route": [_P, _P, _P, _P, _I, _I, _I, _I, _I,              # vn nbr; Q N TB E D
                     _I, _I, _I, _I, _P],                             # sq sn sb
 }
+
+# the bf16 builds of K0 and K0-cl (mm_precision="bf16"): the same arguments
+SIGNATURES.update({f"{name}_bf16": SIGNATURES[name] for name in (
+    "qspa_resident_decode", "qspa_resident_cl_decode", "qspa_scratch_occupancy",
+    "qspa_cluster_decode", "qspa_cluster_occupancy")})
 
 # the field sizes the check-node kernels (cn_ems, cn_tems) take, and their
 # largest check degree (32-bit column masks, 32-entry column tables)
@@ -195,16 +203,16 @@ def check_cn_input(name: str, U, min_dc: int) -> tuple:
     return M, dc, q, B
 
 
-def launch(wrapper, name: str, device, *args) -> None:
+def launch(wrapper, name: str, device, *args, counter: str = "launches") -> None:
     """Call the C entry point `name`(*args, stream) on `device`'s current
     stream, raise on a CUDA error and count the launch on
-    `wrapper.launches`."""
+    `wrapper.<counter>`."""
     import torch
 
     with torch.cuda.device(device):
         rc = getattr(library(), name)(*args, stream_ptr(device))
     check(rc, name)
-    wrapper.launches += 1
+    setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
 def launch_cn(wrapper, name: str, U, *args):

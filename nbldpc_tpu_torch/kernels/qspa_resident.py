@@ -22,6 +22,15 @@ else csrc/qspa_resident_cl.cu (a frame a cluster too, as `plan_scratch`
 lays it out, its edge messages in a global slice a cluster). All take
 llr [B, N, q] and return (hard [B, N] int32, done [B] bool, iters [B]
 int32).
+
+mm_precision="bf16" (the JAX package's mm_dtype=bfloat16) stores the
+log-domain state in bf16: the prior, the posterior, the edge messages and
+the variable-to-check values, each rounded to nearest even from f32 where
+the JAX kernels cast it (see `ResidentQSPA._round`); the probability-domain
+stretch (softmax, WHT, leave-one-out products, inverse WHT, log) and every
+sum stay f32. The bf16 kernels are the same sources built with a 2-byte
+state element: their own C entry points (`*_bf16`), layouts and launch
+counters (`launches_bf16` on each wrapper).
 """
 
 from __future__ import annotations
@@ -52,37 +61,41 @@ K0_MAX_FRAMES = 4
 CLUSTER_SIZES = (1, 2, 4, 8)
 CLUSTER_WARPS = {64: 24, 128: 24, 256: 16}
 CLUSTER_MAX_DC = 32
+# bytes of one element of the stored state by mm_precision
+PRECISIONS = {"f32": 4, "bf16": 2}
 
 
 def _round_up(x: int, k: int) -> int:
     return -(-x // k) * k
 
 
-def k0_smem_layout(n: int, m: int, dc: int, dv: int, q: int) -> tuple:
+def k0_smem_layout(n: int, m: int, dc: int, dv: int, q: int, es: int = 4) -> tuple:
     """(frames per block, shared bytes per block) of K0's launch for a large
-    batch, which csrc/qspa_resident.cu computes the same in `layout` and
-    `block_bytes`: the routing tables as bytes and 16-bit words (each
-    check's perm_down rows padded to an odd number of its load units of
-    min(q, 16) bytes, at least 4; edge variables [E]; the variables' lc
-    offsets [N dv]; syn_k [E p]), then per frame prior and posterior [N,
-    q], each check's dc lc rows padded so that consecutive checks start 4
-    (mod 8) floats apart (2 (mod 4) at q = 2), and the hard decisions as
-    bytes. Checks of degree 4 at q <= 16 (two threads a check) take one
-    frame a block; other codes as many frames as fit in MAX_SMEM_BYTES, up
-    to K0_MAX_FRAMES (one frame when none fits: the wrapper then refuses
-    the code), and a batch of B < 2 x K0_MAX_FRAMES x SMs frames gets
-    max(1, B // (2 SMs)) frames a block."""
-    E, p, vec = m * dc, q.bit_length() - 1, min(q, 4)
+    batch with state elements of `es` bytes (4: f32, 2: bf16), which
+    csrc/qspa_resident.cu computes the same in `layout` and `block_bytes`:
+    the routing tables as bytes and 16-bit words (each check's perm_down
+    rows padded to an odd number of its load units of min(q, 16) bytes, at
+    least 4; edge variables [E]; the variables' lc offsets [N dv]; syn_k [E
+    p]), then per frame prior and posterior [N, q], each check's dc lc rows
+    padded so that consecutive checks start 16 (mod 32) bytes apart (f32
+    at q = 2: 8 (mod 16)), and the hard decisions as bytes, each part a
+    multiple of 16 bytes. Checks of degree 4 at q <= 16 (two threads a
+    check) take one frame a block; other codes as many frames as fit in
+    MAX_SMEM_BYTES, up to K0_MAX_FRAMES (one frame when none fits: the
+    wrapper then refuses the code), and a batch of B < 2 x K0_MAX_FRAMES x
+    SMs frames gets max(1, B // (2 SMs)) frames a block."""
+    E, p = m * dc, q.bit_length() - 1
+    vec, al = (min(q, 4), 4) if es == 4 else (8, 8)
     unit = min(max(q, 4), 16)
     ps = _round_up(dc * q, unit)
     ps += 0 if (ps // unit) % 2 else unit
     cs = dc * q + (vec - dc * q % (2 * vec)) % (2 * vec)
-    frame = 2 * _round_up(n * q, 4) + m * cs + _round_up(-(-n // 4), 4)
+    frame = 2 * _round_up(n * q, al) + m * cs + _round_up(-(-n // es), al)
     tables = _round_up(m * ps + 2 * E + 2 * n * dv + E * p, 16)
     frames = 1 if q <= 16 and dc == 4 else K0_MAX_FRAMES
-    while frames > 1 and tables + 4 * frames * frame > MAX_SMEM_BYTES:
+    while frames > 1 and tables + es * frames * frame > MAX_SMEM_BYTES:
         frames -= 1
-    return frames, tables + 4 * frames * frame
+    return frames, tables + es * frames * frame
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,6 +107,21 @@ def compiled_field(q: int) -> tuple:
     out = (ctypes.c_int * q)()
     _build.check(_build.library().qspa_resident_field(q, out), "qspa_resident_field")
     return tuple(out)
+
+
+def k0_plan(dec: ResidentQSPA, B: int, device) -> dict:
+    """K0's launch for B frames at dec's precision, as the kernel computes
+    it on `device`: frames and threads a block, blocks an SM, grid, shared
+    bytes a block."""
+    from nbldpc_tpu_torch.kernels import _build
+
+    g = dec.graph
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        _build.check(_build.library().qspa_resident_plan(
+            B, g.n, g.m, g.dc_max, g.dv_max, g.q, int(dec.es == 2), out), "qspa_resident_plan")
+    return dict(zip(("frames_per_block", "threads", "blocks_per_sm", "grid", "smem_bytes"),
+                    out))
 
 
 def log_mismatches(device) -> int:
@@ -110,14 +138,15 @@ def log_mismatches(device) -> int:
 
 
 def cluster_smem_bytes(q: int, dc: int, dv: int, rows: int, checks: int,
-                       round_checks: int) -> int:
+                       round_checks: int, es: int = 4) -> int:
     """Shared memory of one block of the cluster kernel: prior and posterior
-    rows, the checks' message rows, a round's edge rows of q + 4 floats and
-    their sums, hard decisions, two flags and the rank's tables (csrc/
-    qspa_cluster.cu, dyn_bytes), plus its static n2e [q], log [q] and exp
-    [2q] int tables."""
-    return 4 * (2 * rows * q + checks * dc * q + round_checks * dc * (q + 5) + rows + 2
-                + checks * dc + rows * dv + rows) + 16 * q
+    rows and the checks' message rows (elements of `es` bytes), a round's
+    edge rows of q + 4 floats and their sums, hard decisions, two flags and
+    the rank's tables (csrc/qspa_cluster.cu, dyn_bytes), plus its static
+    n2e [q], log [q] and exp [2q] int tables."""
+    return (es * (2 * rows * q + checks * dc * q)
+            + 4 * (round_checks * dc * (q + 5) + rows + 2 + checks * dc + rows * dv + rows)
+            + 16 * q)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -155,12 +184,13 @@ def _place_variables(vn_edge: np.ndarray, E: int, dc: int, size: int, checks: in
     return rank, row, int(count.max())
 
 
-def plan_cluster(graph: TannerGraph) -> ClusterPlan | None:
-    """The cluster kernel's partition of a frame for 32 < q <= 256: the
-    smallest cluster size whose share of the state (prior, posterior and
-    messages) and working buffers fit a block's shared memory, its check
-    rounds as few as fit. None when no size fits (or dc exceeds the
-    kernel's limit): K0-cl then runs the scratch kernel."""
+def plan_cluster(graph: TannerGraph, es: int = 4) -> ClusterPlan | None:
+    """The cluster kernel's partition of a frame for 32 < q <= 256, state
+    elements of `es` bytes: the smallest cluster size whose share of the
+    state (prior, posterior and messages) and working buffers fit a
+    block's shared memory, its check rounds as few as fit. None when no
+    size fits (or dc exceeds the kernel's limit): K0-cl then runs the
+    scratch kernel."""
     g = graph
     q, m, dc = g.q, g.m, g.dc_max
     if not K0_MAX_Q < q <= MAX_Q or dc > CLUSTER_MAX_DC:
@@ -171,7 +201,7 @@ def plan_cluster(graph: TannerGraph) -> ClusterPlan | None:
         rank, row, rows = _place_variables(g.np["vn_edge"], E, dc, size, checks)
         for rounds in range(1, checks + 1):
             round_checks = math.ceil(checks / rounds)
-            smem = cluster_smem_bytes(q, dc, g.dv_max, rows, checks, round_checks)
+            smem = cluster_smem_bytes(q, dc, g.dv_max, rows, checks, round_checks, es)
             if smem <= MAX_SMEM_BYTES:
                 return ClusterPlan(size, CLUSTER_WARPS[q], checks, rows, round_checks,
                                    rank, row, smem)
@@ -179,31 +209,34 @@ def plan_cluster(graph: TannerGraph) -> ClusterPlan | None:
 
 
 def scratch_smem_bytes(q: int, dc: int, dv: int, rows: int, checks: int,
-                       round_checks: int, post_shared: bool) -> int:
+                       round_checks: int, post_shared: bool, es: int = 4) -> int:
     """Shared memory of one block of K0-cl's scratch kernel: the posterior
-    rows (when they stay on chip), the round buffer (a round's edge rows
-    of q + 4 floats, at least two a warp: the variable phase stages its
-    LLR rows there) and the round's sums, max_q llr and the hard decision
-    of each row, two flags and the rank's tables (csrc/qspa_resident_cl.cu,
-    dyn_bytes), plus its static n2e [q], log [q] and exp [2q] int tables."""
+    rows (when they stay on chip; elements of `es` bytes), the round
+    buffer (a round's edge rows of q + 4 floats, at least two a warp: the
+    variable phase stages its LLR rows there) and the round's sums, max_q
+    llr and the hard decision of each row, two flags and the rank's tables
+    (csrc/qspa_resident_cl.cu, dyn_bytes), plus its static n2e [q], log [q]
+    and exp [2q] int tables."""
     buf_rows = max(round_checks * dc, 2 * CLUSTER_WARPS[q])
-    return 4 * ((rows * q if post_shared else 0) + buf_rows * (q + 4) + round_checks * dc
-                + 2 * rows + 2 + checks * dc + rows * dv + rows) + 16 * q
+    return (es * (rows * q if post_shared else 0)
+            + 4 * (buf_rows * (q + 4) + round_checks * dc + 2 * rows + 2 + checks * dc
+                   + rows * dv + rows) + 16 * q)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ScratchPlan(ClusterPlan):
     """The scratch kernel's partition of a frame over a cluster (the fields
     of ClusterPlan), whether the posterior rows stay in shared memory
-    (`post_shared`), and the floats of one cluster's slice of the global
-    scratch: the edge messages [size * checks * dc, q], then, unless
-    post_shared, the posterior [size * rows, q]."""
+    (`post_shared`), and the state elements (f32 or bf16) of one cluster's
+    slice of the global scratch: the edge messages [size * checks * dc,
+    q], then, unless post_shared, the posterior [size * rows, q]."""
     post_shared: bool
-    slice_floats: int
+    slice_elems: int
 
 
-def plan_scratch(graph: TannerGraph) -> ScratchPlan | None:
-    """The scratch kernel's partition for 32 < q <= 256 and dc <= 32: of
+def plan_scratch(graph: TannerGraph, es: int = 4) -> ScratchPlan | None:
+    """The scratch kernel's partition for 32 < q <= 256 and dc <= 32, state
+    elements of `es` bytes: of
     the clusters in CLUSTER_SIZES whose ranks hold their share of the
     posterior in shared memory, the one whose ranks run their checks in
     the fewest rounds (every round costs five block barriers and a serial
@@ -222,7 +255,7 @@ def plan_scratch(graph: TannerGraph) -> ScratchPlan | None:
             rank, row, rows = _place_variables(g.np["vn_edge"], E, dc, size, checks)
             most = 0
             while most < checks and scratch_smem_bytes(q, dc, dv, rows, checks, most + 1,
-                                                       shared) <= MAX_SMEM_BYTES:
+                                                       shared, es) <= MAX_SMEM_BYTES:
                 most += 1
             if most < 1 or rows > 0xFFFF or checks * dc > 0xFFFF:
                 continue
@@ -231,7 +264,7 @@ def plan_scratch(graph: TannerGraph) -> ScratchPlan | None:
                 round_checks = math.ceil(checks / rounds)
                 best = (rounds, ScratchPlan(
                     size, CLUSTER_WARPS[q], checks, rows, round_checks, rank, row,
-                    scratch_smem_bytes(q, dc, dv, rows, checks, round_checks, shared),
+                    scratch_smem_bytes(q, dc, dv, rows, checks, round_checks, shared, es),
                     shared, size * (checks * dc + (0 if shared else rows)) * q))
         if best is not None:
             return best[1]
@@ -274,12 +307,18 @@ def cn_shift(graph: TannerGraph) -> np.ndarray:
 
 
 class ResidentQSPA:
-    """Tables and options of one resident decode configuration."""
+    """Tables and options of one resident decode configuration;
+    mm_precision "f32" or "bf16", the element of the stored state."""
 
     def __init__(self, graph: TannerGraph, max_iters: int, early_term: bool = True,
-                 stats_each_iter: bool = True):
+                 stats_each_iter: bool = True, mm_precision: str = "f32"):
         if graph.q > MAX_Q:
             raise ValueError(f"the resident decoder supports q <= {MAX_Q}")
+        if mm_precision not in PRECISIONS:
+            raise ValueError(f"mm_precision={mm_precision!r}; expected one of "
+                             f"{tuple(PRECISIONS)}")
+        self.mm_precision = mm_precision
+        self.es = es = PRECISIONS[mm_precision]
         self.graph = graph
         self.max_iters = int(max_iters)
         self.early_term = bool(early_term)
@@ -290,7 +329,7 @@ class ResidentQSPA:
         E = m * dc
         # K0's block (K0-cl's layout is the kernel's own)
         self.frames_per_block, self.smem_bytes = (
-            k0_smem_layout(g.n, m, dc, g.dv_max, q) if q <= K0_MAX_Q else (0, 0))
+            k0_smem_layout(g.n, m, dc, g.dv_max, q, es) if q <= K0_MAX_Q else (0, 0))
 
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
@@ -321,31 +360,39 @@ class ResidentQSPA:
 
         # K0-cl's cluster kernel: its partition (None: the scratch kernel,
         # whose partition and tables `scratch_layout` makes when first asked)
-        self.cluster_plan = plan_cluster(g) if q > K0_MAX_Q else None
+        self.cluster_plan = plan_cluster(g, es) if q > K0_MAX_Q else None
         if self.cluster_plan is not None:
             self.cluster = {k: t(v) for k, v in cluster_tables(g, self.cluster_plan).items()}
             self.cluster.update(gf_log=t(gf.log), gf_exp=t(gf.exp))
 
     # ---- plain version ----------------------------------------------------
 
+    def _round(self, x):
+        """x as the stored state holds it: itself in f32; in bf16 rounded to
+        nearest even, kept in an f32 tensor (the arithmetic stays f32)."""
+        return x.to(torch.bfloat16).to(torch.float32) if self.es == 2 else x
+
     def _down(self, post, lc):
-        """x-domain edge inputs [E, q, B]: post[v](h^-1 x) - lc[e](h^-1 x)."""
+        """x-domain edge inputs [E, q, B]: post[v](h^-1 x) - lc[e](h^-1 x),
+        rounded to the state's element."""
         B = post.shape[-1]
-        return (post.reshape(-1, B).index_select(0, self._idx_post)
-                - lc.reshape(-1, B).index_select(0, self._idx_lc)).view(-1, self.graph.q, B)
+        return self._round(post.reshape(-1, B).index_select(0, self._idx_post)
+                           - lc.reshape(-1, B).index_select(0, self._idx_lc)
+                           ).view(-1, self.graph.q, B)
 
     def _up(self, prior, lcx):
-        """x-domain edge outputs [E * q, B] -> (post, c-domain lc): post sums
-        each variable's messages in vn_edge slot order."""
+        """x-domain edge outputs [E * q, B] -> (post, c-domain lc), each
+        rounded to the state's element: post sums each variable's messages
+        in vn_edge slot order (in f32), then adds the prior."""
         g = self.graph
-        lc = lcx.index_select(0, self._idx_up).view(g.m * g.dc_max, g.q, -1)
+        lc = self._round(lcx).index_select(0, self._idx_up).view(g.m * g.dc_max, g.q, -1)
         acc = None
         for s in range(g.dv_max):
             vals = lc.index_select(0, self._vn_edge[:, s])
             if g.has_vn_pads:
                 vals = torch.where(g.vn_mask[:, s, None, None], vals, 0.0)
             acc = vals if acc is None else acc + vals
-        return prior + acc, lc
+        return self._round(prior + self._round(acc)), lc
 
     def _iteration(self, prior, post, lc):
         """One BP iteration on [rows, q, B] tensors; returns (post, lc)."""
@@ -384,7 +431,7 @@ def run_plain(dec, llr: torch.Tensor):
     g = dec.graph
     B = llr.shape[0]
     prior = llr.permute(1, 2, 0).to(torch.float32)
-    prior = prior - prior.amax(dim=1, keepdim=True)
+    prior = dec._round(prior - prior.amax(dim=1, keepdim=True))
     post = prior
     lc = torch.zeros(g.m * g.dc_max, g.q, B, dtype=torch.float32, device=llr.device)
     hard = argmax_q(post)
@@ -437,9 +484,16 @@ def checked_outputs(dec, llr: torch.Tensor, name: str, smem_bytes: int = 0):
             torch.empty(B, dtype=torch.int32, device=llr.device))
 
 
+def _entry(dec: ResidentQSPA, name: str) -> tuple:
+    """(C entry point, launch counter) of kernel `name` at dec's precision:
+    the f32 build counts on `launches`, the bf16 build on `launches_bf16`."""
+    return (name, "launches") if dec.es == 4 else (f"{name}_bf16", "launches_bf16")
+
+
 def resident_decode(dec: ResidentQSPA, llr: torch.Tensor):
     """Resident decode of llr [B, N, q] f32: the plain version for a CPU
-    tensor; for a CUDA tensor K0 (q <= 32) or K0-cl (32 < q <= 256)."""
+    tensor; for a CUDA tensor K0 (q <= 32) or K0-cl (32 < q <= 256), each
+    built for dec's precision."""
     if llr.device.type == "cpu":
         return decode_plain(dec, llr)
     if dec.graph.q > K0_MAX_Q:
@@ -448,8 +502,8 @@ def resident_decode(dec: ResidentQSPA, llr: torch.Tensor):
 
 
 def _launch(dec: ResidentQSPA, llr: torch.Tensor):
-    """Check llr and launch K0, counting the launch on resident_decode;
-    raises ValueError on anything it does not take: a code whose block
+    """Check llr and launch K0, counting the launch on resident_decode
+    (launches, or launches_bf16 in bf16); raises ValueError on anything it does not take: a code whose block
     needs more than MAX_SMEM_BYTES of shared memory (before any device
     check), a tensor off the card, a bad shape or dtype, or a field whose
     exp table differs from the one K0 was compiled with."""
@@ -466,16 +520,19 @@ def _launch(dec: ResidentQSPA, llr: torch.Tensor):
 
     # the persistent grid's frame counter (zeroed by the launch)
     scratch = torch.empty(1, dtype=torch.int32, device=llr.device)
-    _build.launch(resident_decode, "qspa_resident_decode", llr.device,
+    name, counter = _entry(dec, "qspa_resident_decode")
+    _build.launch(resident_decode, name, llr.device,
                   llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
                   scratch.data_ptr(), llr.shape[0], g.n, g.m, g.dc_max, g.dv_max, g.q,
                   dec.cn_vn.data_ptr(), dec.cn_real.data_ptr(), dec.perm_down.data_ptr(),
                   dec.vn_edge.data_ptr(), dec.syn_k.data_ptr(),
-                  dec.max_iters, int(dec.early_term), int(dec.stats_each_iter))
+                  dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),
+                  counter=counter)
     return hard, done, iters
 
 
 resident_decode.launches = 0
+resident_decode.launches_bf16 = 0
 
 
 def resident_decode_cl(dec: ResidentQSPA, llr: torch.Tensor):
@@ -490,7 +547,7 @@ def resident_decode_cl(dec: ResidentQSPA, llr: torch.Tensor):
     if plan is None:
         return resident_decode_cl_scratch(dec, llr)
     g = dec.graph
-    name = "qspa_cluster_decode"
+    name, counter = _entry(dec, "qspa_cluster_decode")
     if llr.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {llr.device}")
     hard, done, iters = checked_outputs(dec, llr, name)
@@ -506,11 +563,13 @@ def resident_decode_cl(dec: ResidentQSPA, llr: torch.Tensor):
                   plan.smem_bytes, c["edge_info"].data_ptr(), c["row_src"].data_ptr(),
                   c["row_var"].data_ptr(), dec.n2e.data_ptr(), c["gf_log"].data_ptr(),
                   c["gf_exp"].data_ptr(),
-                  dec.max_iters, int(dec.early_term), int(dec.stats_each_iter))
+                  dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),
+                  counter=counter)
     return hard, done, iters
 
 
 resident_decode_cl.launches = 0
+resident_decode_cl.launches_bf16 = 0
 
 
 def cluster_occupancy(dec: ResidentQSPA, device) -> int:
@@ -521,10 +580,10 @@ def cluster_occupancy(dec: ResidentQSPA, device) -> int:
     g, plan = dec.graph, dec.cluster_plan
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        _build.check(_build.library().qspa_cluster_occupancy(
+        name = _entry(dec, "qspa_cluster_occupancy")[0]
+        _build.check(getattr(_build.library(), name)(
             g.q, g.dc_max, g.dv_max, plan.size, plan.rows, plan.checks,
-            plan.round_checks, plan.warps, plan.smem_bytes, ctypes.byref(out)),
-            "qspa_cluster_occupancy")
+            plan.round_checks, plan.warps, plan.smem_bytes, ctypes.byref(out)), name)
     return out.value
 
 
@@ -534,7 +593,7 @@ def scratch_layout(dec: ResidentQSPA) -> tuple:
     the plan is None where no partition fits."""
     if "_scratch" not in dec.__dict__:
         g = dec.graph
-        plan = plan_scratch(g) if g.q > K0_MAX_Q else None
+        plan = plan_scratch(g, dec.es) if g.q > K0_MAX_Q else None
         tables = {}
         if plan is not None:
             host = dict(cluster_tables(g, plan), gf_log=g.gf.log, gf_exp=g.gf.exp)
@@ -558,9 +617,9 @@ def scratch_occupancy(dec: ResidentQSPA, device) -> int:
     g, (plan, _) = dec.graph, scratch_layout(dec)
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        _build.check(_build.library().qspa_scratch_occupancy(
-            g.q, g.dc_max, g.dv_max, *_plan_args(plan), ctypes.byref(out)),
-            "qspa_scratch_occupancy")
+        name = _entry(dec, "qspa_scratch_occupancy")[0]
+        _build.check(getattr(_build.library(), name)(
+            g.q, g.dc_max, g.dv_max, *_plan_args(plan), ctypes.byref(out)), name)
     return out.value
 
 
@@ -570,11 +629,11 @@ def resident_decode_cl_scratch(dec: ResidentQSPA, llr: torch.Tensor):
     cluster holds: a persistent grid of min(B, occupancy) clusters, a frame
     a cluster as `plan_scratch` lays it out, each cluster's edge messages
     (and, for the largest codes, its posterior) in its own slice of a
-    scratch of grid x plan.slice_floats floats. Raises ValueError on a
+    scratch of grid x plan.slice_elems state elements. Raises ValueError on a
     tensor it does not take, a CPU tensor included, or a code no plan fits;
     the kernel's own check of the plan raises RuntimeError."""
     g = dec.graph
-    name = "qspa_resident_cl_decode"
+    name, counter = _entry(dec, "qspa_resident_cl_decode")
     if llr.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {llr.device}")
     hard, done, iters = checked_outputs(dec, llr, name)
@@ -588,25 +647,30 @@ def resident_decode_cl_scratch(dec: ResidentQSPA, llr: torch.Tensor):
     from nbldpc_tpu_torch.kernels import _build
 
     grid = min(B, scratch_occupancy(dec, llr.device))
-    scratch = torch.empty(grid * plan.slice_floats, dtype=torch.float32, device=llr.device)
+    scratch = torch.empty(grid * plan.slice_elems, device=llr.device,
+                          dtype=torch.float32 if dec.es == 4 else torch.bfloat16)
     _build.launch(resident_decode_cl_scratch, name, llr.device,
                   llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
                   scratch.data_ptr(), grid, B, g.n, g.m, g.dc_max, g.dv_max, g.q,
                   *_plan_args(plan), c["edge_info"].data_ptr(),
                   c["row_src"].data_ptr(), c["row_var"].data_ptr(), dec.n2e.data_ptr(),
                   c["gf_log"].data_ptr(), c["gf_exp"].data_ptr(),
-                  dec.max_iters, int(dec.early_term), int(dec.stats_each_iter))
+                  dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),
+                  counter=counter)
     return hard, done, iters
 
 
 resident_decode_cl_scratch.launches = 0
+resident_decode_cl_scratch.launches_bf16 = 0
 
 
 def get_resident_decoder(graph: TannerGraph, max_iters: int, early_term: bool,
-                         stats_each_iter: bool = True) -> ResidentQSPA:
+                         stats_each_iter: bool = True,
+                         mm_precision: str = "f32") -> ResidentQSPA:
     """A ResidentQSPA for this configuration, cached on the graph."""
-    key = (int(max_iters), bool(early_term), bool(stats_each_iter))
+    key = (int(max_iters), bool(early_term), bool(stats_each_iter), mm_precision)
     cache = graph.__dict__.setdefault("_resident_cache", {})
     if key not in cache:
-        cache[key] = ResidentQSPA(graph, max_iters, early_term, stats_each_iter)
+        cache[key] = ResidentQSPA(graph, max_iters, early_term, stats_each_iter,
+                                  mm_precision)
     return cache[key]

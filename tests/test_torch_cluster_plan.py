@@ -211,13 +211,13 @@ def test_scratch_plan_fits_shared_memory_and_the_l2(name):
                                      plan.post_shared) > qr.MAX_SMEM_BYTES
     # a slice: every rank's message rows, and the posterior if it is off chip
     E_rows = plan.size * plan.checks * g.dc_max
-    assert plan.slice_floats == g.q * (E_rows + (0 if plan.post_shared else
+    assert plan.slice_elems == g.q * (E_rows + (0 if plan.post_shared else
                                                  plan.size * plan.rows))
     # at chip_smoke's OVERSIZE (GF(256), N = 1200) the slices of the 15
     # clusters of 8 that run at once on the H100 (its occupancy), 37 MB,
     # fit 40 MiB of its 50 MB L2 (the grid is not capped to the L2: PERF.md)
     if name == "gf256_n1200":
-        assert plan.size == 8 and 15 * 4 * plan.slice_floats <= 40 * 2**20
+        assert plan.size == 8 and 15 * 4 * plan.slice_elems <= 40 * 2**20
 
 
 def _fewest_rounds(g):

@@ -137,26 +137,29 @@ def _satisfied(g, hard):
 RESIDENT_COUNTERS = (qr.resident_decode, qr.resident_decode_cl, qr.resident_decode_cl_scratch)
 
 
-def _hold_resident(g, llr, mode, kernel=None, direct=False, cw=None):
+def _hold_resident(g, llr, mode, kernel=None, direct=False, cw=None, precision="f32"):
     """One call of qr.resident_decode (with `direct`, of the wrapper
-    `kernel` itself) against the plain resident decode on the same LLRs.
-    The call launches `kernel` once (by its counter: K0 for q <= 32, else
-    by default K0-cl's cluster kernel, or its scratch kernel for a code
-    whose state no cluster holds) and no other. Agreement (hard, done and
+    `kernel` itself) against the plain resident decode on the same LLRs,
+    both with state elements of `precision`. The call launches `kernel`
+    once (by its counter of that precision: K0 for q <= 32, else by
+    default K0-cl's cluster kernel, or its scratch kernel for a code whose
+    state no cluster holds) and no other. Agreement (hard, done and
     iters all equal) >= 0.999 after one iteration, else >= 0.995 with
     frame-error counts (against the codewords cw, all-zero when None)
     within |z| < 3: exact but for ulp-level ties of exp/log that a later
     iteration may amplify. A frame the kernel marks done satisfies H.
     Returns the kernel's (hard, done, iters)."""
-    dec = qr.ResidentQSPA(g, *mode)
+    dec = qr.ResidentQSPA(g, *mode, mm_precision=precision)
     if kernel is None:
         kernel = qr.resident_decode if g.q <= qr.K0_MAX_Q else qr.resident_decode_cl
     if g.q > qr.K0_MAX_Q and not direct:
         assert (dec.cluster_plan is None) == (kernel is qr.resident_decode_cl_scratch)
-    before = [c.launches for c in RESIDENT_COUNTERS]
+    counters = [(c, a) for c in RESIDENT_COUNTERS for a in ("launches", "launches_bf16")]
+    mine = "launches" if precision == "f32" else "launches_bf16"
+    before = [getattr(c, a) for c, a in counters]
     hk, dk, ik = (kernel if direct else qr.resident_decode)(dec, llr)
-    assert [c.launches for c in RESIDENT_COUNTERS] == [
-        n + (c is kernel) for c, n in zip(RESIDENT_COUNTERS, before)]
+    assert [getattr(c, a) for c, a in counters] == [
+        n + (c is kernel and a == mine) for (c, a), n in zip(counters, before)]
     assert bool(_satisfied(g, hk)[dk].all())
     hp, dp, ip = qr.decode_plain(dec, llr)
     same = (hk == hp).all(dim=1) & (dk == dp) & (ik == ip)
@@ -1066,6 +1069,101 @@ def test_micro_gather_shared_memory_limit(cuda_device, probe):
             assert wrapper.launches == before
 
 
+# bf16 message storage (mm_precision="bf16"): each kernel's bf16 build
+# against the bf16 plain version, at the thresholds of the f32 builds;
+# (kernel, code, Eb/N0): K0 with two threads a check (the flagship, GF(4))
+# and a thread a check (a random GF(32) code, a dv = 3 GF(4) code, whose
+# bf16 build forms its spectra again), K0-cl's cluster kernel on the codes
+# a cluster holds (in bf16 config 5's on 4 blocks, GF(64) on 2), its
+# scratch kernel on codes no bf16 cluster holds (GF(256), N = 1200; GF(64)
+# from about N = 3600) and, called directly, on the GF(64) N = 1800 code,
+# which a bf16 cluster of 8 holds
+BF16_SCRATCH_CODES = {"gf64_n3600": (64, 3600, 1200)}
+BF16_CASES = [("k0", "gf16_n204_k102_c8", 1.5), ("k0", "gf4_n96_k48", 1.5),
+              ("k0", "gf32_random", 2.0), ("k0", "dv3_gf4", 1.5),
+              ("cluster", "gf256_n255_k175", 2.0), ("cluster", "gf64_n576_k480", 3.0),
+              ("scratch", "gf256_n1200", 2.5), ("scratch", "gf64_n1800", 2.5),
+              ("scratch", "gf64_n3600", 2.5)]
+BF16_KERNELS = {"k0": qr.resident_decode, "cluster": qr.resident_decode_cl,
+                "scratch": qr.resident_decode_cl_scratch}
+
+
+def _bf16_graph(code, device):
+    if code in SCRATCH_CODES:
+        return _scratch_graph(code, device)
+    if code in BF16_SCRATCH_CODES:
+        return TannerGraph(random_regular_spec(*BF16_SCRATCH_CODES[code], seed=3), device=device)
+    if code == "gf32_random":
+        return TannerGraph(random_regular_spec(32, 192, 96, 11), device=device)
+    if code in K0_CODES:
+        return TannerGraph(K0_CODES[code](), device=device)
+    return _graph(code, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+@pytest.mark.parametrize("kernel,code,ebn0", BF16_CASES)
+def test_resident_bf16_kernels_match_plain(cuda_device, kernel, code, ebn0, mode):
+    g = _bf16_graph(code, cuda_device)
+    plan = qr.ResidentQSPA(g, 1, mm_precision="bf16").cluster_plan
+    if kernel == "cluster":
+        assert plan.size == (4 if g.q == 256 else 2)
+    _hold_resident(g, _zero_cw_llrs(g, 300, ebn0, cuda_device), mode, BF16_KERNELS[kernel],
+                   direct=kernel == "scratch" and plan is not None, precision="bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+@pytest.mark.parametrize("kernel,code,ebn0", [c for c in BF16_CASES if c[0] != "k0"])
+def test_resident_cl_bf16_frames_in_a_row_equal_frames_alone(cuda_device, kernel, code, ebn0,
+                                                             mode):
+    """The bf16 builds of K0-cl's two kernels: every cluster decodes 16
+    frames in a row, equal bit for bit to each frame decoded alone."""
+    g = _bf16_graph(code, cuda_device)
+    dec = qr.ResidentQSPA(g, *mode, mm_precision="bf16")
+    if kernel == "cluster":
+        fn, at_once = qr.resident_decode_cl, qr.cluster_occupancy(dec, cuda_device)
+    else:
+        fn, at_once = qr.resident_decode_cl_scratch, qr.scratch_occupancy(dec, cuda_device)
+    counter = fn.launches_bf16
+    llr = _zero_cw_llrs(g, 16 * at_once, ebn0, cuda_device)
+    together = fn(dec, llr)
+    alone = [fn(dec, llr[b:b + 1].contiguous()) for b in range(llr.shape[0])]
+    assert fn.launches_bf16 == counter + 1 + llr.shape[0]
+    for got, want in zip(together, (torch.cat(parts) for parts in zip(*alone))):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+@pytest.mark.parametrize("code", ["gf256_n255_k175", "gf64_n576_k480"])
+def test_resident_cl_bf16_two_kernels_agree_bit_for_bit(cuda_device, code, mode):
+    """The bf16 builds of the cluster and scratch kernels, on codes a
+    cluster holds: the same association order, equal outputs."""
+    g = _graph(code, cuda_device)
+    dec = qr.ResidentQSPA(g, *mode, mm_precision="bf16")
+    llr = _zero_cw_llrs(g, 300, 2.5, cuda_device)
+    for a, b in zip(qr.resident_decode_cl(dec, llr), qr.resident_decode_cl_scratch(dec, llr)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_resident_bf16_dispatch_on_card(cuda_device):
+    """qspa.decode with mm_precision="bf16" launches the bf16 builds only:
+    K0 at q <= 32, K0-cl's cluster kernel, its scratch kernel."""
+    from nbldpc_tpu_torch.decoders import qspa
+
+    for code, kernel in (("gf16_n204_k102_c8", qr.resident_decode),
+                         ("gf256_n255_k175", qr.resident_decode_cl),
+                         ("gf256_n1200", qr.resident_decode_cl_scratch)):
+        g = _bf16_graph(code, cuda_device)
+        llr = _zero_cw_llrs(g, 64, 2.5, cuda_device)
+        before = [(c.launches, c.launches_bf16) for c in RESIDENT_COUNTERS]
+        qspa.decode(g, llr, 5, True, cn_impl="auto", mm_precision="bf16")
+        assert [(c.launches, c.launches_bf16) for c in RESIDENT_COUNTERS] == [
+            (a, b + (c is kernel)) for c, (a, b) in zip(RESIDENT_COUNTERS, before)]
+
+
 # Writes outside an output: each kernel below writes into the middle of a
 # buffer whose ends hold a sentinel, which must survive.
 
@@ -1116,7 +1214,7 @@ def test_resident_cl_scratch_writes_only_its_outputs(cuda_device, code):
     plan, c = qr.scratch_layout(dec)
     grid = min(B, qr.scratch_occupancy(dec, cuda_device))
     bufs, (hard, iters, scratch) = zip(*(_guarded_out(shape, cuda_device) for shape in (
-        (B, g.n), (B,), (grid * plan.slice_floats,))))
+        (B, g.n), (B,), (grid * plan.slice_elems,))))
     hard, iters = hard.view(torch.int32), iters.view(torch.int32)
     dbuf = torch.full((B + 2 * _GUARD,), 0xAB, dtype=torch.uint8, device=cuda_device)
     done = dbuf[_GUARD:_GUARD + B]
@@ -1128,6 +1226,69 @@ def test_resident_cl_scratch_writes_only_its_outputs(cuda_device, code):
         dec.n2e.data_ptr(), c["gf_log"].data_ptr(), c["gf_exp"].data_ptr(),
         20, 0, 0, _build.stream_ptr(cuda_device)), "qspa_resident_cl_decode")
     assert all(_guards_intact(b) for b in bufs)
+    assert bool((dbuf[:_GUARD] == 0xAB).all() and (dbuf[-_GUARD:] == 0xAB).all())
+    want = qr.resident_decode_cl_scratch(dec, llr)
+    assert torch.equal(hard, want[0]) and torch.equal(done.bool(), want[1])
+    assert torch.equal(iters, want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["gf256_n255_k175", "gf64_n576_k480"])
+def test_resident_cl_cluster_bf16_writes_only_its_outputs(cuda_device, code):
+    """The cluster kernel's bf16 build writes its hard decisions, done
+    flags and iteration counts, and nothing on either side of them."""
+    from nbldpc_tpu_torch.kernels import _build
+
+    g, B = _graph(code, cuda_device), 37
+    dec = qr.ResidentQSPA(g, 20, False, False, mm_precision="bf16")
+    plan, c = dec.cluster_plan, dec.cluster
+    llr = _zero_cw_llrs(g, B, 2.5, cuda_device)
+    bufs, (hard, iters) = zip(*(_guarded_out(shape, cuda_device) for shape in ((B, g.n), (B,))))
+    hard, iters = hard.view(torch.int32), iters.view(torch.int32)
+    dbuf = torch.full((B + 2 * _GUARD,), 0xAB, dtype=torch.uint8, device=cuda_device)
+    done = dbuf[_GUARD:_GUARD + B]
+    _build.check(_build.library().qspa_cluster_decode_bf16(
+        llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(), B, g.n, g.m,
+        g.dc_max, g.dv_max, g.q, plan.size, plan.rows, plan.checks, plan.round_checks,
+        plan.warps, plan.smem_bytes, c["edge_info"].data_ptr(), c["row_src"].data_ptr(),
+        c["row_var"].data_ptr(), dec.n2e.data_ptr(), c["gf_log"].data_ptr(),
+        c["gf_exp"].data_ptr(), 20, 0, 0, _build.stream_ptr(cuda_device)),
+        "qspa_cluster_decode_bf16")
+    assert all(_guards_intact(b) for b in bufs)
+    assert bool((dbuf[:_GUARD] == 0xAB).all() and (dbuf[-_GUARD:] == 0xAB).all())
+    want = qr.resident_decode_cl(dec, llr)
+    assert torch.equal(hard, want[0]) and torch.equal(done.bool(), want[1])
+    assert torch.equal(iters, want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["gf256_n1200", "gf64_n1800"])
+def test_resident_cl_scratch_bf16_writes_only_its_outputs(cuda_device, code):
+    """The scratch kernel's bf16 build writes its outputs and its bf16
+    slices of the scratch, and nothing on either side of any of them."""
+    from nbldpc_tpu_torch.kernels import _build
+
+    g, B = _scratch_graph(code, cuda_device), 37
+    dec = qr.ResidentQSPA(g, 20, False, False, mm_precision="bf16")
+    llr = _zero_cw_llrs(g, B, 2.5, cuda_device)
+    plan, c = qr.scratch_layout(dec)
+    grid = min(B, qr.scratch_occupancy(dec, cuda_device))
+    bufs, (hard, iters) = zip(*(_guarded_out(shape, cuda_device) for shape in ((B, g.n), (B,))))
+    hard, iters = hard.view(torch.int32), iters.view(torch.int32)
+    n = grid * plan.slice_elems                   # bf16: sentinel words of 0x1234
+    sbuf = torch.full((n + 2 * _GUARD,), 0x1234, dtype=torch.int16, device=cuda_device)
+    dbuf = torch.full((B + 2 * _GUARD,), 0xAB, dtype=torch.uint8, device=cuda_device)
+    done = dbuf[_GUARD:_GUARD + B]
+    _build.check(_build.library().qspa_resident_cl_decode_bf16(
+        llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
+        sbuf[_GUARD:_GUARD + n].data_ptr(), grid, B, g.n, g.m, g.dc_max, g.dv_max, g.q,
+        plan.size, plan.rows, plan.checks, plan.round_checks, plan.warps, plan.smem_bytes,
+        int(plan.post_shared), c["edge_info"].data_ptr(), c["row_src"].data_ptr(),
+        c["row_var"].data_ptr(), dec.n2e.data_ptr(), c["gf_log"].data_ptr(),
+        c["gf_exp"].data_ptr(), 20, 0, 0, _build.stream_ptr(cuda_device)),
+        "qspa_resident_cl_decode_bf16")
+    assert all(_guards_intact(b) for b in bufs)
+    assert bool((sbuf[:_GUARD] == 0x1234).all() and (sbuf[-_GUARD:] == 0x1234).all())
     assert bool((dbuf[:_GUARD] == 0xAB).all() and (dbuf[-_GUARD:] == 0xAB).all())
     want = qr.resident_decode_cl_scratch(dec, llr)
     assert torch.equal(hard, want[0]) and torch.equal(done.bool(), want[1])

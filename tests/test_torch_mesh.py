@@ -183,6 +183,31 @@ def test_layout_blocks_tile_the_batch():
         mesh.Layout(1, 2, 0).block(2, 5)
 
 
+def test_device_cuda_needs_local_rank_under_nbldpc_group(monkeypatch):
+    """--device cuda in an NBLDPC_* group of several processes without
+    LOCAL_RANK would put every rank on card 0: refused, naming LOCAL_RANK
+    and --device cuda:N; with LOCAL_RANK, or one process, or a card named,
+    the device resolves."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setenv("NBLDPC_COORDINATOR", "localhost:29500")
+    monkeypatch.setenv("NBLDPC_NUM_PROCS", "2")
+    monkeypatch.setenv("NBLDPC_PROC_ID", "1")
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    with pytest.raises(ValueError, match=r"LOCAL_RANK.*--device cuda:N"):
+        cli.resolve_device("cuda")
+    assert cli.resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert cli.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert cli.resolve_device("cuda") == torch.device("cuda", 1)
+    monkeypatch.delenv("LOCAL_RANK")
+    monkeypatch.setenv("NBLDPC_NUM_PROCS", "1")
+    assert cli.resolve_device("cuda") == torch.device("cuda", 0)
+    # through the entry point: refused before the group is joined
+    monkeypatch.setenv("NBLDPC_NUM_PROCS", "2")
+    with pytest.raises(ValueError, match="LOCAL_RANK"):
+        cli.main(["run", "--code", "gf4_n96_k48", "--device", "cuda"])
+
+
 def test_initialize_without_a_group_is_single_process(monkeypatch):
     for v in ("NBLDPC_COORDINATOR", "NBLDPC_NUM_PROCS", "NBLDPC_PROC_ID", "RANK",
               "WORLD_SIZE"):

@@ -20,6 +20,7 @@ from nbldpc_tpu_torch.decoders import common
 from nbldpc_tpu_torch.decoders import qspa as tqspa
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import cn_qspa
+from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
 from tests.reference_model import OracleDecoder
 
@@ -158,7 +159,12 @@ def test_dispatch_and_refusals(small_codes):
     assert tqspa.pick_impl("resident", g, llr) == "resident"
     with pytest.raises(ValueError):
         tqspa.pick_impl("pallas", g, llr)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqspa.decode(g, llr, mm_precision="bf16")
+    # bf16 message storage decodes (the resident path's plain version on a
+    # CPU tensor); an unknown precision is refused
+    calls = qr.decode_plain.calls
+    res = tqspa.decode(g, llr, max_iters=2, cn_impl="resident", mm_precision="bf16")
+    assert qr.decode_plain.calls == calls + 1 and res.hard.shape == (2, g.n)
+    with pytest.raises(ValueError, match="mm_precision"):
+        tqspa.decode(g, llr, mm_precision="fp16")
     res = common.decode_bl(g, llr[:0], tqspa.qspa_cn_update_bl, 3)
     assert res.hard.shape == (0, g.n)
