@@ -120,6 +120,21 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 K0-cl; the flagship and GF(256) FER gates in bf16 against
                 the f32 records (|z| < 3.3) and the scratch kernel's path,
                 through cli.main
+ 20. fer_harness - the coding-performance harness as a user runs it, cut
+                to 4096 frames a point (nbldpc_tpu_torch.benchmarks:
+                fer_curves on gf4_qspa_c8_20it (K0) and
+                gf256_ems_bubble_10it (K2b), offset_sweep on
+                gf64_tems_nr8_20it at offsets 1.5 and 2.0 (K5),
+                ber_precision at 1.5 and 2.0 dB (K0 and its bf16 build)),
+                counters zeroed before each and read after; each record
+                file well formed, each point with >= 10 frame errors on
+                both sides (and not at FER 1 on both) held to the JAX
+                records (fer_curves_r5.json, offset_sweep_r5.json) by
+                compare_records (|z| under the Bonferroni bound at
+                family-wise 0.001, at least one point held), and bf16 to
+                f32 the same way as a sanity check only (the same noise
+                decoded twice: correlated, so a loose bound; phase 19
+                holds the bf16 builds exactly)
 Then the kernels summary (each kernel's launches on the paths above, its
 worst error against its plain version, its time, its plain version's time,
 the bound of the same work and, for P3, the library call's time), the card
@@ -1485,6 +1500,103 @@ def phase_resident_bf16(device, card: str):
     return summary, _sum_counts(launches, counts)
 
 
+# Phase fer_harness: (module, its arguments, the kernels that must launch);
+# each writes <module>_smoke.json into build/nbldpc_tpu_torch/
+FER_HARNESS_FRAMES = 4096
+FER_HARNESS_RUNS = [
+    ("fer_curves", ["--only", "gf4_qspa_c8_20it", "--max-frames", str(FER_HARNESS_FRAMES)],
+     ("qspa_resident",)),
+    ("fer_curves", ["--only", "gf256_ems_bubble_10it", "--max-frames", str(FER_HARNESS_FRAMES)],
+     ("cn_ems_bubble",)),
+    ("offset_sweep", ["--only", "gf64_tems_nr8", "--offsets", "1.5,2.0"], ("cn_tems",)),
+    ("ber_precision", ["--frames", str(FER_HARNESS_FRAMES), "--snrs", "1.5", "2.0"],
+     ("qspa_resident", "qspa_resident_bf16")),
+]
+
+
+def phase_fer_harness():
+    """The three harness entry points (FER_HARNESS_RUNS) on the card,
+    counters zeroed just before each and read just after: its kernels
+    launched and no plain version ran. Then their records: the configs,
+    points and keys expected, and compare_records holding the fer_curves
+    points to fer_curves_r5.json, the offset rows to offset_sweep_r5.json
+    and, as a sanity check against gross disagreement (the two decode
+    the same noise), ber_precision's bf16 points to its f32 points.
+    Returns the launches summed over the runs."""
+    import torch
+
+    from nbldpc_tpu_torch import benchmarks
+    from nbldpc_tpu_torch.benchmarks import ber_precision, fer_curves, offset_sweep
+
+    out_dir = ROOT / "build" / "nbldpc_tpu_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    mods = {"fer_curves": fer_curves, "offset_sweep": offset_sweep,
+            "ber_precision": ber_precision}
+    files = {name: out_dir / f"{name}_smoke.json" for name in mods}
+    for f in files.values():
+        f.unlink(missing_ok=True)
+    launches = {}
+    for name, args, kernels in FER_HARNESS_RUNS:
+        _reset_counters()
+        t0 = time.perf_counter()
+        rc = mods[name].main([*args, "--tag", "smoke", "--out", str(out_dir)])
+        seconds = time.perf_counter() - t0
+        counts = _counters()
+        emit({"phase": "fer_harness", "run": name, "args": args, "seconds": seconds,
+              "launches": {k: v for k, v in counts.items() if v}})
+        if rc != 0:
+            fail(f"fer_harness {name} {args}: main returned {rc}")
+        idle = [k for k in kernels if counts[k] < 1]
+        if idle or _ran_plain(counts):
+            fail(f"fer_harness {name} {args}: kernels {idle} never launched, or a plain "
+                 f"version ran: {counts}")
+        launches = _sum_counts(launches, counts)
+
+    card = benchmarks.device_fields(torch.device("cuda", 0))
+    try:
+        recs = {name: json.loads(f.read_text()) for name, f in files.items()}
+    except (OSError, ValueError) as e:
+        fail(f"fer_harness: a record file is missing or malformed: {e}")
+    curves, offsets, (prec,) = recs["fer_curves"], recs["offset_sweep"], recs["ber_precision"]
+    ref_keys = set(json.loads((ROOT / "benchmarks/results/fer_curves_r5.json").read_text())[0])
+    sweeps = {s[0]: s for s in fer_curves.SWEEPS}
+    stops = {a.only: a for a in (fer_curves.parser().parse_args(args)
+                                 for name, args, _ in FER_HARNESS_RUNS if name == "fer_curves")}
+    if ([r["config"] for r in curves] != ["gf256_ems_bubble_10it", "gf4_qspa_c8_20it"]
+            or any(set(r) != ref_keys | set(card) or r["card"] != card["card"]
+                   or r["ebn0_db"] != sweeps[r["config"]][3]
+                   or not all(0.0 <= f <= 1.0 for f in r["fer"])
+                   or not all(f >= stops[r["config"]].max_frames or e >= stops[r["config"]].max_fe
+                              for f, e in zip(r["frames"], r["frame_errors"]))
+                   for r in curves)):
+        fail(f"fer_harness: bad fer_curves records {curves}")
+    if ([r["config"] for r in offsets] != ["gf64_tems_nr8_20it"]
+            or [row["offset"] for row in offsets[0]["rows"]] != [1.5, 2.0]
+            or offsets[0]["best_offset"] not in (1.5, 2.0) or offsets[0]["card"] != card["card"]):
+        fail(f"fer_harness: bad offset_sweep record {offsets}")
+    modes = prec.get("modes", {})
+    if (set(modes) != {"f32", "bf16"} or prec["card"] != card["card"]
+            or any(m["frames"] != [FER_HARNESS_FRAMES] * 2 or not all(
+                0.0 <= f <= 1.0 for f in m["fer"]) for m in modes.values())):
+        fail(f"fer_harness: bad ber_precision record {prec}")
+
+    for label, port, ref in (
+            ("fer_curves", curves, "benchmarks/results/fer_curves_r5.json"),
+            ("offset_sweep", offsets, "benchmarks/results/offset_sweep_r5.json"),
+            ("bf16_vs_f32", ber_precision.as_curve(prec, "bf16"),
+             ber_precision.as_curve(prec, "f32"))):
+        if isinstance(ref, str):
+            ref = json.loads((ROOT / ref).read_text())
+        cmp = fer_curves.compare_records(port, ref)
+        emit({"phase": "fer_harness", "compare": label, "held": cmp["held"],
+              "threshold": cmp["threshold"], "ok": cmp["ok"],
+              "points": [[p["config"], p["x"], p["port"], p["reference"], p["z"], p["held"]]
+                         for p in cmp["points"]]})
+        if not cmp["ok"]:
+            fail(f"fer_harness {label}: {cmp['held']} points held, failed: {cmp['failed']}")
+    return launches
+
+
 def phase_bench(card: str):
     from nbldpc_tpu_torch import bench
 
@@ -2036,7 +2148,7 @@ def main() -> int:
     micro_counts, micro_rows = phase_micro(device, card)
     counts = _sum_counts(counts, micro_counts, phase_multi_rank(device, card))
     bf16, bf16_counts = phase_resident_bf16(device, card)
-    counts = _sum_counts(counts, bf16_counts)
+    counts = _sum_counts(counts, bf16_counts, phase_fer_harness())
 
     def entry(name, source, replaces, max_abs_err, timed, **extra):
         """One kernel of the summary: `timed` holds its ms, plain_ms and

@@ -74,17 +74,21 @@ def resolve_device(name: str):
     return dev
 
 
+def code_config(code: str):
+    """The CodeConfig of `--code`: an alist path, else a standard code name."""
+    from nbldpc_tpu_torch.utils.config import CodeConfig
+
+    if "/" in code or code.endswith(".alist"):
+        return CodeConfig(path=code)
+    return CodeConfig(name=code)
+
+
 def build_config(args):
-    from nbldpc_tpu_torch.utils.config import (
-        CodeConfig, RunConfig, apply_overrides, load_config,
-    )
+    from nbldpc_tpu_torch.utils.config import RunConfig, apply_overrides, load_config
 
     cfg = load_config(args.config) if args.config else RunConfig()
     if args.code:
-        is_path = "/" in args.code or args.code.endswith(".alist")
-        cfg = dataclasses.replace(
-            cfg, code=CodeConfig(path=args.code if is_path else None,
-                                 name=None if is_path else args.code))
+        cfg = dataclasses.replace(cfg, code=code_config(args.code))
     if args.decoder:
         cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(cfg.decoder, kind=args.decoder))
     if args.iters:
