@@ -135,6 +135,22 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 f32 the same way as a sanity check only (the same noise
                 decoded twice: correlated, so a loose bound; phase 19
                 holds the bf16 builds exactly)
+ 21. throughput - the throughput harness. A: run_all as a user runs it
+                (nbldpc_tpu_torch.benchmarks.run_all: all 18 configurations
+                of the JAX script at its batches and budgets, 10 timed
+                steps a block), counters zeroed before and read after;
+                every record well formed, each configuration launching its
+                kernel (THROUGHPUT_KERNELS) once a step (K0, K0 bf16, K0-cl,
+                K3) or once an iteration (K2, K2b, K5) and nothing else.
+                B: K3 on the QC and chunk8 GF(16) codes and K0 on the QC
+                GF(16) and GF(4) codes against their plain versions at
+                sigma 0.7 in the modes of phase 4, agreement 1.0. C: the
+                layout sweep (benchmarks.scaling) on 8 ranks sharing card 0
+                over gloo (torch.distributed.run, this script as the rank
+                program: --scaling-worker): counters identical across the
+                layouts (1,1), (1,2), (2,2), (2,4), K0-cl launched on every
+                rank that holds a block and on no other. Ranks time-sharing
+                one card are no scaling measurement
 Then the kernels summary (each kernel's launches on the paths above, its
 worst error against its plain version, its time, its plain version's time,
 the bound of the same work and, for P3, the library call's time), the card
@@ -764,8 +780,9 @@ def phase_cn_ems(device):
     return rows
 
 
-def _hold_ems(phase: str, code: str, g, modes: dict, timed=(), cw=None) -> dict:
-    """K3 against its plain version (offset 0.3) on identical LLRs, mode by
+def _hold_ems(phase: str, code: str, g, modes: dict, timed=(), cw=None,
+              offset: float = 0.3) -> dict:
+    """K3 against its plain version (at `offset`) on identical LLRs, mode by
     mode: (llr, max_iters, early_term, stats_each_iter, nm). Agreement
     (hard, done and iters all equal) must be 1.0, and the kernel must mark
     a frame done exactly when its hard decision satisfies H. Frame errors
@@ -783,7 +800,7 @@ def _hold_ems(phase: str, code: str, g, modes: dict, timed=(), cw=None) -> dict:
     ref = 0 if cw is None else cw
     for name, (llr, iters, et, stats, nm) in modes.items():
         B = llr.shape[0]
-        dec = er.ResidentEMS(g, iters, nm, 0.3, et, stats)
+        dec = er.ResidentEMS(g, iters, nm, offset, et, stats)
         hk, dk, ik = er.resident_decode(dec, llr)
         hp, dp, ip = er.decode_plain(dec, llr)
         torch.cuda.synchronize()
@@ -853,39 +870,16 @@ def phase_cn_tems(device):
             for code, B, n_r, levels in cases]
 
 
-def _counted():
-    """(name, function, attribute) of every kernel wrapper and plain version."""
-    from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems, micro
-    from nbldpc_tpu_torch.kernels import ems_resident as er
-    from nbldpc_tpu_torch.kernels import qspa_resident as qr
-
-    return [("qspa_resident", qr.resident_decode, "launches"),
-            ("qspa_resident_cl", qr.resident_decode_cl, "launches"),
-            ("qspa_resident_cl_scratch", qr.resident_decode_cl_scratch, "launches"),
-            ("qspa_resident_bf16", qr.resident_decode, "launches_bf16"),
-            ("qspa_resident_cl_bf16", qr.resident_decode_cl, "launches_bf16"),
-            ("qspa_resident_cl_scratch_bf16", qr.resident_decode_cl_scratch, "launches_bf16"),
-            ("qspa_resident_plain", qr.decode_plain, "calls"),
-            ("cn_qspa", cn_qspa.cn_update, "launches"),
-            ("cn_qspa_plain", cn_qspa.cn_update_plain, "calls"),
-            ("ems_resident", er.resident_decode, "launches"),
-            ("ems_resident_plain", er.decode_plain, "calls"),
-            ("cn_ems", cn_ems.cn_update, "launches"),
-            ("cn_ems_plain", cn_ems.cn_update_plain, "calls"),
-            ("cn_ems_bubble", cn_ems.cn_update_bubble, "launches"),
-            ("cn_ems_bubble_plain", cn_ems.cn_update_bubble_plain, "calls"),
-            ("cn_tems", cn_tems.cn_update, "launches"),
-            ("cn_tems_plain", cn_tems.cn_update_plain, "calls"),
-            *((f"micro_{fn.__name__}", fn, "launches") for fn in micro.WRAPPERS)]
-
-
 def _counters():
-    return {name: getattr(fn, attr) for name, fn, attr in _counted()}
+    from nbldpc_tpu_torch.kernels import launch_counts
+
+    return launch_counts()
 
 
 def _reset_counters():
-    for _, fn, attr in _counted():
-        setattr(fn, attr, 0)
+    from nbldpc_tpu_torch.kernels import reset_launch_counts
+
+    reset_launch_counts()
 
 
 def _ran_plain(counts: dict) -> dict:
@@ -2115,6 +2109,161 @@ def phase_multi_rank(device, card: str) -> dict:
     return counts
 
 
+# Phase throughput. A: each run_all configuration's kernel (the one
+# cn_impl="auto" picks on the card) and its launches a step: 1 for a
+# whole-decode kernel, one an iteration for a check-node kernel in decode_bl
+THROUGHPUT_KERNELS = {
+    "gf4_qspa_20it": "qspa_resident", "gf16_qspa_50it": "qspa_resident",
+    "gf16_qspa_50it_bf16": "qspa_resident_bf16", "gf16_ems_nm16_20it": "ems_resident",
+    "gf64_tems_20it": "cn_tems", "gf256_qspa_10it": "qspa_resident_cl",
+    "gf256_ems_nm16_10it": "cn_ems", "gf256_qspa_10it_4snr": "qspa_resident_cl",
+    "gf256_ems_nm16_10it_4snr": "cn_ems", "gf256_ems_bubble_10it": "cn_ems_bubble",
+    "gf64_tems_nr8_20it": "cn_tems", "gf64_tems_nr4_20it": "cn_tems",
+    "gf16_qspa_qc_slot_50it": "qspa_resident", "gf4_qspa_qc_20it": "qspa_resident",
+    "gf16_ems_qc_slot_20it": "ems_resident", "gf16_qspa_c8_50it": "qspa_resident",
+    "gf4_qspa_c8_20it": "qspa_resident", "gf16_ems_c8_20it": "ems_resident"}
+# B: (kernel, code, iterations) never held on the card before, each held
+# against its plain version on THROUGHPUT_HOLD_FRAMES frames at sigma 0.7
+# (a configuration's first SNR slot) in the modes of phase 4; K3 at the
+# configurations' EMS decoder, nm 16, offset 0.0
+THROUGHPUT_HOLDS = [("ems_resident", "gf16_n204_k102_qc", 20),
+                    ("ems_resident", "gf16_n204_k102_c8", 20),
+                    ("qspa_resident", "gf16_n204_k102_qc", 50),
+                    ("qspa_resident", "gf4_n96_k48_qc", 20)]
+THROUGHPUT_HOLD_FRAMES = 1024
+
+
+def scaling_worker() -> int:
+    """One rank of phase throughput's case C (started by
+    torch.distributed.run): the layout sweep on card 0 over gloo, counters
+    zeroed before and read after; writes its launches to
+    build/nbldpc_tpu_torch/scaling/rank<r>.json."""
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    from nbldpc_tpu_torch.benchmarks import scaling
+
+    out_dir = ROOT / "build" / "nbldpc_tpu_torch" / "scaling"
+    _reset_counters()
+    rc = scaling.main(["--device", "cuda:0", "--backend", "gloo", "--tag", "smoke",
+                       "--out", str(out_dir)])
+    (out_dir / f"rank{os.environ['RANK']}.json").write_text(
+        json.dumps({"rc": rc, "launches": _counters()}))
+    return rc
+
+
+def phase_throughput(device, card: str) -> dict:
+    """A: nbldpc_tpu_torch.benchmarks.run_all as a user runs it, all 18
+    configurations at the JAX script's batches, counters zeroed before and
+    read after; each record well formed, with its configuration's kernel
+    (THROUGHPUT_KERNELS) launched once a step or an iteration and nothing
+    else. B: THROUGHPUT_HOLDS, agreement 1.0. C: the layout sweep
+    (benchmarks/scaling) on 8 ranks sharing card 0 over gloo, this script
+    as the rank program: identical counters across the layouts, K0-cl
+    launched on every rank that holds a block and on no other, no plain
+    version. Returns the launches of A and C."""
+    import os
+    import shutil
+
+    from nbldpc_tpu_torch import benchmarks
+    from nbldpc_tpu_torch.benchmarks import run_all, scaling
+
+    out_dir = ROOT / "build" / "nbldpc_tpu_torch"
+    out = out_dir / "run_all_smoke.json"
+    out.unlink(missing_ok=True)
+    _reset_counters()
+    t0 = time.perf_counter()
+    rc = run_all.main(["--tag", "smoke", "--out", str(out_dir)])
+    seconds = time.perf_counter() - t0
+    total = _counters()
+    if rc != 0:
+        fail(f"throughput: run_all returned {rc}")
+    recs = json.loads(out.read_text())
+    fields = benchmarks.device_fields(device)
+    rows, bad = [], []
+    for r, (name, code, deckw, iters, batch, n_snr) in zip(recs, run_all.CONFIGS):
+        kernel = THROUGHPUT_KERNELS[name]
+        ran = {k: v for k, v in r["launches"].items() if v}
+        n = _graph(code, "cpu").n
+        rows.append([name, r["ms_per_step"], r["wall_ms_per_step"], r["first_call_s"],
+                     r["frames_per_s"], ran])
+        if ((r["config"], r["code"], r["iters"], r["batch"], r["n_snr"])
+                != (name, code, iters, batch, n_snr)
+                or ran != {kernel: r["steps"] * (1 if "resident" in kernel else iters)}
+                or r["timing"] != "cuda_events" or not r["mm_precision_applied"]
+                or not (0 < r["ms_per_step"] < math.inf and 0 < r["wall_ms_per_step"] < math.inf)
+                or not math.isclose(r["symbols_per_s"], r["frames_per_s"] * n, rel_tol=1e-12)
+                or {k: r.get(k) for k in fields} != fields):
+            bad.append(name)
+    emit({"phase": "throughput", "case": "A_run_all", "card": card, "seconds": seconds,
+          "reps": recs[0]["reps"] if recs else None,
+          "rows_config_ms_wall_ms_first_call_s_frames_per_s_launches": rows})
+    # run_all zeroes the counters before each configuration: what they hold
+    # after it is its last configuration's record
+    if len(recs) != len(run_all.CONFIGS) or bad or total != recs[-1]["launches"]:
+        fail(f"throughput A: {len(recs)} records, bad {bad}, the counters {total} "
+             f"against the last record's")
+
+    for kernel, code, iters in THROUGHPUT_HOLDS:
+        g = _graph(code, device)
+        llr = _llrs(g, THROUGHPUT_HOLD_FRAMES, [0.7], device, ebn0=False)
+        modes = {"a_early_term": (llr, iters, True, True),
+                 "b_throughput": (llr, iters, False, False),
+                 "c_one_iter": (llr, 1, False, True)}
+        _reset_counters()
+        if kernel == "qspa_resident":
+            res = _hold_resident("throughput", code, g, modes, ())
+            agree = res["agreement_min"]
+        else:
+            _hold_ems("throughput", code, g, {k: (*m, 16) for k, m in modes.items()},
+                      offset=0.0)
+            agree = 1.0                        # _hold_ems fails below 1.0
+        counts = _counters()
+        if agree != 1.0 or counts[kernel] != len(modes) or counts[f"{kernel}_plain"] != len(modes):
+            fail(f"throughput B {kernel} {code}: agreement {agree}, launches {counts}")
+
+    run_dir = out_dir / "scaling"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", str(scaling.WORLD), str(ROOT / "chip_smoke.py"),
+                           "--scaling-worker"], cwd=ROOT, env={**os.environ,
+                                                               "OMP_NUM_THREADS": "1"},
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"throughput C: torch.distributed.run returned {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    rec = json.loads((run_dir / "scaling_smoke.json").read_text())
+    ranks = [json.loads((run_dir / f"rank{r}.json").read_text()) for r in range(scaling.WORLD)]
+    emit({"phase": "throughput", "case": "C_scaling", "card": card, "seconds": seconds,
+          "backend": rec["backend"], "ranks_per_card": rec["ranks_per_card"],
+          "counters": rec["counters"],
+          "rows": [{k: row[k] for k in ("mesh", "step_s", "counters_identical_to_1dev",
+                                        "launches_ranks")} for row in rec["rows"]]})
+    # scaling zeroes the counters before each layout: what a rank's hold
+    # after it are its launches in the last layout, as the record has them
+    launches = _sum_counts(*(r["launches"] for r in recs),
+                           *(ran for row in rec["rows"] for ran in row["launches_ranks"]))
+    for r, got in enumerate(ranks):
+        last = rec["rows"][-1]["launches_ranks"][r]
+        if got["rc"] != 0 or {k: v for k, v in got["launches"].items() if v} != last:
+            fail(f"throughput C: rank {r} returned {got['rc']} or its launches "
+                 f"{got['launches']} differ from the record's {last}")
+    for row in rec["rows"]:
+        want = [{"qspa_resident_cl": 1} if r < row["devices"] else {}
+                for r in range(scaling.WORLD)]
+        if not row["counters_identical_to_1dev"] or row["launches_ranks"] != [
+                {k: 2 * v for k, v in w.items()} for w in want]:
+            fail(f"throughput C: layout {row['mesh']}: {row}")
+    if (rec["backend"], rec["ranks_per_card"], rec.get("card")) != ("gloo", scaling.WORLD,
+                                                                     fields["card"]):
+        fail(f"throughput C: record {rec['backend']}, {rec['ranks_per_card']}, "
+             f"{rec.get('card')}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2148,7 +2297,8 @@ def main() -> int:
     micro_counts, micro_rows = phase_micro(device, card)
     counts = _sum_counts(counts, micro_counts, phase_multi_rank(device, card))
     bf16, bf16_counts = phase_resident_bf16(device, card)
-    counts = _sum_counts(counts, bf16_counts, phase_fer_harness())
+    counts = _sum_counts(counts, bf16_counts, phase_fer_harness(),
+                         phase_throughput(device, card))
 
     def entry(name, source, replaces, max_abs_err, timed, **extra):
         """One kernel of the summary: `timed` holds its ms, plain_ms and
@@ -2222,5 +2372,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(multi_rank_worker() if sys.argv[1:] == ["--multi-rank-worker"]
+    WORKERS = {"--multi-rank-worker": multi_rank_worker, "--scaling-worker": scaling_worker}
+    raise SystemExit(WORKERS[sys.argv[1]]() if sys.argv[1:] and sys.argv[1] in WORKERS
                      else main())

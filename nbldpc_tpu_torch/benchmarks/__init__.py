@@ -18,6 +18,15 @@ The coding-performance harness, writing into results/ by default:
   ber_precision - bf16 against f32 message storage in the resident QSPA
                   kernels (benchmarks/ber_precision.py).
 
+The throughput harness, writing into results/ by default:
+
+  run_all       - sim-step throughput of the JAX script's 18
+                  configurations at their batches and budgets, device and
+                  host clock side by side (benchmarks/run_all.py);
+  scaling       - one step's counters across rank layouts on 8 ranks,
+                  which must all equal one rank's
+                  (benchmarks/scaling_cpu.py).
+
 All run on the card by default (`--device cuda`, which needs one and never
 falls back); `--device cpu` runs the plain PyTorch versions on the CPU.
 Every printed line and record names the device, and on a card its power

@@ -27,6 +27,30 @@ def local_rank() -> int:
     return int(os.environ.get("LOCAL_RANK", 0))
 
 
+def _group_env() -> Optional[tuple]:
+    """(init method, world size, rank) of the group the environment names;
+    None for a single-process run."""
+    env = os.environ
+    given = [v for v in _NBLDPC_VARS if v in env]
+    if given:
+        if len(given) < len(_NBLDPC_VARS):
+            raise ValueError(f"{', '.join(given)} set without "
+                             f"{', '.join(v for v in _NBLDPC_VARS if v not in env)}")
+        coord = env["NBLDPC_COORDINATOR"]
+        init_method = coord if "://" in coord else f"tcp://{coord}"
+        return init_method, int(env["NBLDPC_NUM_PROCS"]), int(env["NBLDPC_PROC_ID"])
+    if "RANK" in env and "WORLD_SIZE" in env:
+        return "env://", int(env["WORLD_SIZE"]), int(env["RANK"])
+    return None
+
+
+def declared_world() -> int:
+    """The size of the group the environment names (1 for a single
+    process), read before joining it."""
+    group = _group_env()
+    return 1 if group is None else group[1]
+
+
 def initialize(device_type: str = "cpu", backend: Optional[str] = None) -> bool:
     """Join the process group the environment names (see the module
     docstring); False, and nothing joined, for a single-process run.
@@ -38,20 +62,10 @@ def initialize(device_type: str = "cpu", backend: Optional[str] = None) -> bool:
 
     if tdist.is_initialized():
         return True
-    env = os.environ
-    given = [v for v in _NBLDPC_VARS if v in env]
-    if given:
-        if len(given) < len(_NBLDPC_VARS):
-            raise ValueError(f"{', '.join(given)} set without "
-                             f"{', '.join(v for v in _NBLDPC_VARS if v not in env)}")
-        coord = env["NBLDPC_COORDINATOR"]
-        init_method = coord if "://" in coord else f"tcp://{coord}"
-        world, rank = int(env["NBLDPC_NUM_PROCS"]), int(env["NBLDPC_PROC_ID"])
-    elif "RANK" in env and "WORLD_SIZE" in env:
-        init_method = "env://"
-        world, rank = int(env["WORLD_SIZE"]), int(env["RANK"])
-    else:
+    group = _group_env()
+    if group is None:
         return False
+    init_method, world, rank = group
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} outside a group of {world}")
     backend = backend or ("nccl" if device_type == "cuda" else "gloo")

@@ -110,9 +110,9 @@ def make_sim_step(
 
     block: (slots, frames) slices of the [S, B] batch (Layout.block): the
     step still draws the whole batch, decodes only the block and returns
-    the block's counters [S_r]. step.frames(sigmas, noise, u) runs the
-    same step on given draws of any [S', B'] (u None: the all-zero
-    codeword)."""
+    the block's counters [S_r] (step.block is the block). step.frames(
+    sigmas, noise, u) runs the same step on given draws of any [S', B'] (u
+    None: the all-zero codeword)."""
     decode_fn = get_decode_fn(dec, cn_impl)
     S, B, N, p, q = n_snr, batch_per_snr, graph.n, graph.gf.p, graph.q
     device = graph.device
@@ -153,6 +153,7 @@ def make_sim_step(
         return frames(sigmas, noise, u)
 
     step.frames = frames
+    step.block = block
     return step
 
 
@@ -166,6 +167,21 @@ def fetch(out) -> dict:
     transfer."""
     host = (stack(out) if isinstance(out, dict) else out).cpu().numpy()
     return dict(zip((f.name for f in dataclasses.fields(Counters)), host))
+
+
+def step_counters(step, gen: torch.Generator, sigmas: torch.Tensor, layout=None) -> dict:
+    """One step's counters on the host (fetch). Under `layout`, `step` decodes
+    this rank's block (make_sim_step's `block`, layout.block): its counters
+    are placed in the step's [6, S] and all-reduced over the layout's
+    group, so every rank gets the whole step's."""
+    out = stack(step(gen, sigmas))
+    if layout is not None:
+        full = torch.zeros((out.shape[0], sigmas.shape[0]), dtype=torch.int64,
+                           device=out.device)
+        full[:, step.block[0]] = out
+        tdist.all_reduce(full, group=layout.group)
+        out = full
+    return fetch(out)
 
 
 @dataclasses.dataclass
@@ -235,8 +251,8 @@ def run_sweep(
     sigma_np = np.asarray([float(ebn0_to_sigma(s, spec.k / spec.n)) for s in snrs],
                           dtype=np.float32)
     encoder = None if cfg.channel.zero_codeword else Encoder(spec, graph.device)
-    block = None if layout is None else layout.block(S, B)
-    step = make_sim_step(graph, cfg.decoder, B, S, encoder, block=block)
+    step = make_sim_step(graph, cfg.decoder, B, S, encoder,
+                         block=None if layout is None else layout.block(S, B))
 
     counters = Counters.zeros(S)
     start_t = 0
@@ -268,13 +284,7 @@ def run_sweep(
             for k, s in enumerate(np.flatnonzero(done)):
                 slot_point[s] = order[k % len(order)]
         sig = torch.from_numpy(sigma_np[slot_point]).to(graph.device)
-        out = stack(step(step_generator(cfg.sim.seed, t, graph.device), sig))
-        if layout is not None:
-            full = torch.zeros((out.shape[0], S), dtype=torch.int64, device=graph.device)
-            full[:, block[0]] = out
-            tdist.all_reduce(full, group=layout.group)
-            out = full
-        o = fetch(out)
+        o = step_counters(step, step_generator(cfg.sim.seed, t, graph.device), sig, layout)
         if n_done:
             remapped = {}
             for name, arr in o.items():

@@ -9,13 +9,14 @@ without a card. Run them there with:
 from pathlib import Path
 
 import functools
+import json
 import math
 
 import numpy as np
 import pytest
 import torch
 
-from nbldpc_tpu_torch.benchmarks import micro_kernels, micro_layout
+from nbldpc_tpu_torch.benchmarks import micro_kernels, micro_layout, run_all
 from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init, perfect_llr, transmit
 from nbldpc_tpu_torch.code import CodeSpec, random_regular_spec
 from nbldpc_tpu_torch.codegen import make_peg_code
@@ -1394,3 +1395,28 @@ def test_sharded_decode_one_rank_k1_equals_decode_bl(cuda_device, tmp_path, earl
         tdist.destroy_process_group()
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+# one run_all configuration of each kernel family, and the kernel it runs
+RUN_ALL_FAMILIES = [("gf4_qspa_20it", "qspa_resident"),
+                    ("gf16_qspa_50it_bf16", "qspa_resident_bf16"),
+                    ("gf256_qspa_10it_4snr", "qspa_resident_cl"),
+                    ("gf16_ems_nm16_20it", "ems_resident"),
+                    ("gf256_ems_nm16_10it_4snr", "cn_ems"),
+                    ("gf256_ems_bubble_10it", "cn_ems_bubble"),
+                    ("gf64_tems_nr8_20it", "cn_tems")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,kernel", RUN_ALL_FAMILIES)
+def test_run_all_row_launches_its_kernel(cuda_device, tmp_path, config, kernel):
+    """run_all --quick on one configuration: its kernel launches once a step
+    (a whole-decode kernel) or once an iteration (a check-node kernel), and
+    nothing else runs, no plain version in particular."""
+    assert run_all.main(["--quick", "--only", config, "--out", str(tmp_path)]) == 0
+    (rec,) = json.loads((tmp_path / "run_all_h100.json").read_text())
+    per_step = 1 if "resident" in kernel else rec["iters"]
+    assert {k: v for k, v in rec["launches"].items() if v} == {kernel: rec["steps"] * per_step}
+    assert rec["config"] == config and rec["batch"] == 32 and rec["timing"] == "cuda_events"
+    assert rec["device"] == torch.cuda.get_device_name(cuda_device)
+    assert rec["mm_precision_applied"] and rec["ms_per_step"] > 0

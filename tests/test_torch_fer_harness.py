@@ -7,7 +7,9 @@ from their files (their top level imports no JAX) and their tables held to
 the port's row for row; ber_precision's defaults are read from its source
 with ast. The port's entry points run here on the CPU, one step or a tiny
 PEG code each, and compare_records is held to its stated threshold on
-synthetic records.
+synthetic records. The checks that no module imports JAX and that every
+entry point needs a card also cover the throughput harness (run_all,
+scaling; tests/test_torch_throughput_harness.py holds the rest of it).
 """
 
 import ast
@@ -21,7 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from nbldpc_tpu_torch.benchmarks import ber_precision, fer_curves, merge_records, offset_sweep
+from nbldpc_tpu_torch.benchmarks import (
+    ber_precision, fer_curves, merge_records, offset_sweep, run_all, scaling,
+)
 from nbldpc_tpu_torch.code import save_alist
 from nbldpc_tpu_torch.codegen import make_peg_code
 
@@ -120,7 +124,7 @@ def test_cli_defaults_equal_jax(name, port):
 
 
 def test_harness_imports_without_jax():
-    """The three modules import nothing of JAX, of the JAX package or of
+    """The harness's modules import nothing of JAX, of the JAX package or of
     benchmarks/, directly or through the port."""
     code = """
 import importlib, sys
@@ -129,7 +133,7 @@ class Block:
         if name.split('.')[0] in ('jax', 'jaxlib', 'nbldpc_tpu', 'benchmarks'):
             raise ImportError('blocked ' + name)
 sys.meta_path.insert(0, Block())
-for m in ('fer_curves', 'offset_sweep', 'ber_precision'):
+for m in ('fer_curves', 'offset_sweep', 'ber_precision', 'run_all', 'scaling'):
     importlib.import_module('nbldpc_tpu_torch.benchmarks.' + m)
 bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'nbldpc_tpu', 'benchmarks')]
 assert not bad, bad
@@ -224,7 +228,9 @@ def test_ber_precision_tiny(tiny_code, tmp_path, capsys):
 @pytest.mark.parametrize("port, args", [
     (fer_curves, ["--only", "gf4_qspa_20it", "--max-fe", "1"]),
     (offset_sweep, ["--only", "gf16_ems", "--offsets", "0.3"]),
-    (ber_precision, ["--frames", "32"])])
+    (ber_precision, ["--frames", "32"]),
+    (run_all, ["--only", "gf4_qspa_20it"]),
+    (scaling, [])])
 def test_entry_points_need_a_card(port, args, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
