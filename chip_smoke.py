@@ -104,8 +104,10 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 process's, K0-cl or K0 launched on each rank and no plain
                 version. C: the edge-sharded decode (decoders/sharded.py)
                 on the two ranks with K1, hard/done/iters equal to decode_bl
-                through K1, both early_term modes. Two ranks time-sharing one
-                card are no scaling measurement; and the edge-sharded decode
+                through K1 and the routing kernels (which that decode_bl
+                must launch, with no plain version), both early_term modes.
+                Two ranks time-sharing one card are no scaling
+                measurement; and the edge-sharded decode
                 with K2 (classic EMS) and K5 (T-EMS), equal to decode_bl
                 through the same kernel
  19. resident_bf16 - bf16 message storage (mm_precision="bf16"): the bf16
@@ -141,7 +143,8 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 steps a block), counters zeroed before and read after;
                 every record well formed, each configuration launching its
                 kernel (THROUGHPUT_KERNELS) once a step (K0, K0 bf16, K0-cl,
-                K3) or once an iteration (K2, K2b, K5) and nothing else.
+                K3) or once an iteration (K2, K2b, K5, each with the two
+                routing kernels) and nothing else.
                 B: K3 on the QC and chunk8 GF(16) codes and K0 on the QC
                 GF(16) and GF(4) codes against their plain versions at
                 sigma 0.7 in the modes of phase 4, agreement 1.0. C: the
@@ -151,6 +154,18 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 layouts (1,1), (1,2), (2,2), (2,4), K0-cl launched on every
                 rank that holds a block and on no other. Ranks time-sharing
                 one card are no scaling measurement
+ 22. routing  - decode_bl's routing kernels (csrc/route.cu: route_down, the
+                leave-one-out, normalization and gather to the check slots;
+                route_up, the gather back and the posterior sum). A: each
+                against its plain version at config 5's step shape
+                (GF(256) (255,175), 4096 frames) and config 4's (GF(64)
+                (576,480), 1024 frames), exact (max abs error 0.0), timed
+                with its bound. B: decode_bl through them against decode_bl
+                through the plain routing with K1, K2, K2b and K5, early
+                termination and fixed budget, hard/done/iters equal. Every
+                path above that runs decode_bl on the card (phases 9, 12-15,
+                18 C, 20, 21) must launch both routing kernels and no plain
+                version
 Then the kernels summary (each kernel's launches on the paths above, its
 worst error against its plain version, its time, its plain version's time,
 the bound of the same work and, for P3, the library call's time), the card
@@ -894,6 +909,23 @@ def _sum_counts(*counts: dict) -> dict:
     return out
 
 
+# The check-node kernels that run inside decode_bl, where the two routing
+# kernels (phase routing) run beside them once an iteration each
+DECODE_BL_KERNELS = ("cn_qspa", "cn_ems", "cn_ems_bubble", "cn_tems")
+ROUTE_KERNELS = ("route_down", "route_up")
+
+
+def _path_kernels(kernel: str) -> tuple:
+    """The kernels a path through `kernel` must launch: the routing kernels
+    too where `kernel` runs inside decode_bl."""
+    return (kernel, *ROUTE_KERNELS) if kernel in DECODE_BL_KERNELS else (kernel,)
+
+
+def _idle(counts: dict, kernel: str) -> list:
+    """The kernels of a path through `kernel` that `counts` shows never launched."""
+    return [k for k in _path_kernels(kernel) if counts.get(k, 0) < 1]
+
+
 def phase_highq_qspa(device):
     """`qspa.decode` through K0-cl ("resident") against `qspa.decode` through
     K1 inside decode_bl ("kernel") on the same LLRs, 20 iterations with
@@ -916,7 +948,7 @@ def phase_highq_qspa(device):
             out[impl] = qspa.decode(g, llr, max_iters=20, early_term=True, cn_impl=impl)
             torch.cuda.synchronize()
             counts[impl] = _counters()
-            if counts[impl][kernel] < 1 or _ran_plain(counts[impl]):
+            if _idle(counts[impl], kernel) or _ran_plain(counts[impl]):
                 fail(f"highq_qspa {code} {impl}: {kernel} did not run alone: "
                      f"{counts[impl]}")
         r, k = out["resident"], out["kernel"]
@@ -1088,8 +1120,8 @@ def phase_paths(phase: str, paths):
               "reference": [ref_name, snr, k_ref, n_ref], "z_vs_reference": z})
         if rc != 0:
             fail(f"{name}: cli.main returned {rc}")
-        if counts[kernel] < 1:
-            fail(f"{name}: the {kernel} kernel never launched: {counts}")
+        if _idle(counts, kernel):
+            fail(f"{name}: the kernels {_idle(counts, kernel)} never launched: {counts}")
         ran_plain = _ran_plain(counts)
         if ran_plain:
             fail(f"{name}: a plain version ran on the path: {ran_plain}")
@@ -1154,9 +1186,10 @@ def phase_cfg5():
               "avg_iters": r["avg_iters"]})
         if rc != 0:
             fail(f"{name}: cli.main returned {rc}")
-        if counts[kernel] < 1:
-            fail(f"{name}: the {kernel} kernel never launched: {counts}")
-        if _ran_plain(counts) or (kernel == "qspa_resident_cl" and counts["cn_qspa"]):
+        if _idle(counts, kernel):
+            fail(f"{name}: the kernels {_idle(counts, kernel)} never launched: {counts}")
+        if _ran_plain(counts) or (kernel == "qspa_resident_cl" and (
+                counts["cn_qspa"] or counts["route_down"] or counts["route_up"])):
             fail(f"{name}: another implementation ran on the path: {counts}")
         stopped = all(f >= CFG5_FRAMES or e >= errors_stop
                       for f, e in zip(r["frames"], r["frame_errors"]))
@@ -1501,8 +1534,9 @@ FER_HARNESS_RUNS = [
     ("fer_curves", ["--only", "gf4_qspa_c8_20it", "--max-frames", str(FER_HARNESS_FRAMES)],
      ("qspa_resident",)),
     ("fer_curves", ["--only", "gf256_ems_bubble_10it", "--max-frames", str(FER_HARNESS_FRAMES)],
-     ("cn_ems_bubble",)),
-    ("offset_sweep", ["--only", "gf64_tems_nr8", "--offsets", "1.5,2.0"], ("cn_tems",)),
+     _path_kernels("cn_ems_bubble")),
+    ("offset_sweep", ["--only", "gf64_tems_nr8", "--offsets", "1.5,2.0"],
+     _path_kernels("cn_tems")),
     ("ber_precision", ["--frames", str(FER_HARNESS_FRAMES), "--snrs", "1.5", "2.0"],
      ("qspa_resident", "qspa_resident_bf16")),
 ]
@@ -1923,9 +1957,12 @@ def multi_rank_worker() -> int:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = _counters()
+        _reset_counters()
         ref = qspa.decode(g, llr, SHARDED_ITERS, early, cn_impl="kernel")
+        torch.cuda.synchronize()
         records[f"sharded_early{int(early)}"] = {
             "seconds": seconds, "launches": {k: v for k, v in counts.items() if v},
+            "ref_launches": {k: v for k, v in _counters().items() if v},
             "equal": {k: bool(torch.equal(a, b))
                       for k, a, b in zip(("hard", "done", "iters"), got, ref)},
             "converged": int(got.done.sum()), "max_iters": int(got.iters.max())}
@@ -1942,10 +1979,13 @@ def multi_rank_worker() -> int:
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         counts = _counters()
+        _reset_counters()
         ref = {"ems": ems, "tems": tems}[kind].decode(g, llr, SHARDED_ITERS, early_term=True,
                                                       cn_impl="kernel", **opts)
+        torch.cuda.synchronize()
         records[name] = {
             "seconds": seconds, "launches": {k: v for k, v in counts.items() if v},
+            "ref_launches": {k: v for k, v in _counters().items() if v},
             "equal": {k: bool(torch.equal(a, b))
                       for k, a, b in zip(("hard", "done", "iters"), got, ref)},
             "converged": int(got.done.sum()), "max_iters": int(got.iters.max())}
@@ -2093,7 +2133,11 @@ def phase_multi_rank(device, card: str) -> dict:
                 fail(f"multi_rank C {name}: rank {r} differs from decode_bl: {rec}")
             if got[name]["launches"].get("cn_qspa", 0) < 1 or _ran_plain(got[name]["launches"]):
                 fail(f"multi_rank C {name}: rank {r} did not run K1 alone: {rec}")
-            counts = _sum_counts(counts, got[name]["launches"])
+            ref = got[name]["ref_launches"]
+            if _idle(ref, "cn_qspa") or _ran_plain(ref):
+                fail(f"multi_rank C {name}: rank {r}'s decode_bl did not run K1 and the "
+                     f"routing kernels alone: {rec}")
+            counts = _sum_counts(counts, got[name]["launches"], ref)
     for name, kernel, kind, opts in SHARDED_OTHER:
         rec = {"phase": "multi_rank", "case": f"C_{name}", "card": card, "decoder": kind,
                **opts, "code": "make_peg_code(%d, %d, %d, dv=%d, seed=%d)" % SHARDED_CODE,
@@ -2105,7 +2149,11 @@ def phase_multi_rank(device, card: str) -> dict:
                 fail(f"multi_rank C {name}: rank {r} differs from decode_bl: {rec}")
             if got[name]["launches"].get(kernel, 0) < 1 or _ran_plain(got[name]["launches"]):
                 fail(f"multi_rank C {name}: rank {r} did not run {kernel} alone: {rec}")
-            counts = _sum_counts(counts, got[name]["launches"])
+            ref = got[name]["ref_launches"]
+            if _idle(ref, kernel) or _ran_plain(ref):
+                fail(f"multi_rank C {name}: rank {r}'s decode_bl did not run {kernel} and "
+                     f"the routing kernels alone: {rec}")
+            counts = _sum_counts(counts, got[name]["launches"], ref)
     return counts
 
 
@@ -2189,7 +2237,8 @@ def phase_throughput(device, card: str) -> dict:
                      r["frames_per_s"], ran])
         if ((r["config"], r["code"], r["iters"], r["batch"], r["n_snr"])
                 != (name, code, iters, batch, n_snr)
-                or ran != {kernel: r["steps"] * (1 if "resident" in kernel else iters)}
+                or ran != {k: r["steps"] * (1 if "resident" in kernel else iters)
+                           for k in _path_kernels(kernel)}
                 or r["timing"] != "cuda_events" or not r["mm_precision_applied"]
                 or not (0 < r["ms_per_step"] < math.inf and 0 < r["wall_ms_per_step"] < math.inf)
                 or not math.isclose(r["symbols_per_s"], r["frames_per_s"] * n, rel_tol=1e-12)
@@ -2264,6 +2313,127 @@ def phase_throughput(device, card: str) -> dict:
     return launches
 
 
+# Phase routing. A: the two step shapes the routing kernels run at on the
+# main paths (label, code, frames): config 5's (GF(256) (255,175), 8 points
+# x 512 frames; its EMS half, the bubble merge and the K1 path) and config
+# 4's (GF(64) (576,480), 1024 frames; T-EMS)
+ROUTE_SHAPES = [("cfg5", "gf256_n255_k175", 4096), ("cfg4", "gf64_n576_k480", 1024)]
+# B: decode_bl through the routing kernels against the plain routing, the
+# same check-node kernel in both: (kernel, code, frames, Eb/N0, its
+# arguments after U: nm and offset, or offset and n_r)
+ROUTE_DECODES = [("cn_qspa", "gf256_n255_k175", 512, 2.5, ()),
+                 ("cn_ems", "gf256_n255_k175", 512, 2.5, (16, 0.1)),
+                 ("cn_ems_bubble", "gf256_n255_k175", 512, 2.5, (16, 0.0)),
+                 ("cn_tems", "gf64_n576_k480", 1024, 3.5, (2.0, 8))]
+
+
+def route_inputs(g, B: int, device) -> tuple:
+    """(posterior [N, q, B], Cv [N, dv, q, B] with 0 on pad VN slots, Chat
+    [M, dc, q, B], llr [N, q, B]): normal draws x 3 from a numpy seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(3)
+
+    def draw(*shape):
+        return torch.from_numpy((rng.standard_normal(shape) * 3.0).astype(np.float32)).to(device)
+
+    post = draw(g.n, g.q, B)
+    Cv = torch.where(g.vn_mask[:, :, None, None], draw(g.n, g.dv_max, g.q, B), 0.0)
+    return post, Cv.contiguous(), draw(g.m, g.dc_max, g.q, B), draw(g.n, g.q, B)
+
+
+def route_bounds(g, B: int) -> dict:
+    """The least time of each routing half at B frames. route_down reads the
+    posterior once, each real VN slot's Cv rows (the pad slots' rows are
+    never routed) and the real slots' down_idx rows, and writes every U row
+    (log-delta0 on pad CN slots): a subtraction, a max and a subtraction an
+    element. route_up reads the real CN slots' Chat rows, the LLRs and the
+    real VN slots' up_idx rows, and writes every Cv row and the posterior:
+    an add a slot and one more for the LLR."""
+    q, E = g.q, g.spec.num_edges
+    cn_slots, vn_slots = g.m * g.dc_max, g.n * g.dv_max
+    down = bound(3 * E * q * B,
+                 4 * B * q * (g.n + E + cn_slots) + 4 * E * q + cn_slots)
+    up = bound(B * q * (vn_slots + g.n),
+               4 * B * q * (E + 2 * g.n + vn_slots) + 4 * E * q + vn_slots)
+    return {"route_down": down, "route_up": up}
+
+
+def phase_routing(device, card: str) -> dict:
+    """A: route_down and route_up (kernels/route.py, csrc/route.cu) against
+    their plain versions at ROUTE_SHAPES on the same inputs (normal draws
+    from a seed, Cv 0 on pad VN slots): every output equal, max abs error
+    0.0, finite; timed plain, kernel, kernel, plain beside their bounds.
+    B: ROUTE_DECODES in the early-termination and fixed-budget modes,
+    hard/done/iters equal, the kernel run launching its CN kernel and both
+    routing kernels once an iteration and no plain version. Returns the
+    rows of A by kernel and shape."""
+    import torch
+
+    from nbldpc_tpu_torch.decoders import common
+    from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems, route
+
+    rows = {"route_down": {}, "route_up": {}}
+    for label, code, B in ROUTE_SHAPES:
+        g = _graph(code, device)
+        post, Cv, Chat, llr = route_inputs(g, B, device)
+        bounds = route_bounds(g, B)
+        for name, kern, plain, args in (
+                ("route_down", route.route_down, route.route_down_plain, (post, Cv, g)),
+                ("route_up", route.route_up, route.route_up_plain, (Chat, llr, g))):
+            outs = kern(*args)
+            refs = plain(*args)
+            outs, refs = ((outs,), (refs,)) if name == "route_down" else (outs, refs)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(o, r) for o, r in zip(outs, refs))
+            err = max(float((o - r).abs().max()) for o, r in zip(outs, refs))
+            finite = all(bool(torch.isfinite(o).all()) for o in outs)
+            p1 = cuda_ms(lambda: plain(*args), 2)
+            k1 = cuda_ms(lambda: kern(*args), 10)
+            k2 = cuda_ms(lambda: kern(*args), 10)
+            p2 = cuda_ms(lambda: plain(*args), 2)
+            row = {"phase": "routing", "case": "A", "kernel": name, "shape": label,
+                   "code": code, "frames": B, "card": card, "equal": equal,
+                   "max_abs_err": err, "finite": finite, "ms": (k1 + k2) / 2,
+                   "plain_ms": (p1 + p2) / 2, "ms_runs": [k1, k2], "plain_ms_runs": [p1, p2],
+                   **bounds[name]}
+            emit(row)
+            if not (equal and err == 0.0 and finite):
+                fail(f"routing {name} {label}: equal {equal}, max abs err {err}, "
+                     f"finite {finite}")
+            rows[name][label] = row
+        del post, Cv, Chat, llr, outs, refs
+        torch.cuda.empty_cache()
+
+    fns = {"cn_qspa": cn_qspa.cn_update, "cn_ems": cn_ems.cn_update,
+           "cn_ems_bubble": cn_ems.cn_update_bubble, "cn_tems": cn_tems.cn_update}
+    for kernel, code, frames, ebn0, args in ROUTE_DECODES:
+        g = _graph(code, device)
+        llr = _llrs(g, frames, [ebn0], device)
+
+        def cn(U, _g, fn=fns[kernel], args=args):
+            return fn(U, *args)
+
+        for early, stats in ((True, True), (False, False)):
+            _reset_counters()
+            got = common.decode_bl(g, llr, cn, 20, early, stats, route="kernel")
+            torch.cuda.synchronize()
+            counts = _counters()
+            ref = common.decode_bl(g, llr, cn, 20, early, stats, route="torch")
+            equal = {k: bool(torch.equal(a, b))
+                     for k, a, b in zip(("hard", "done", "iters"), got, ref)}
+            its = int(got.iters.max()) if early else 20
+            ran = {k: v for k, v in counts.items() if v}
+            emit({"phase": "routing", "case": "B", "kernel": kernel, "code": code,
+                  "frames": frames, "ebn0_db": ebn0, "early_term": early, "equal": equal,
+                  "converged": int(got.done.sum()), "iterations": its, "launches": ran})
+            if not all(equal.values()) or ran != {k: its for k in _path_kernels(kernel) if its}:
+                fail(f"routing B {kernel} early_term={early}: equal {equal}, launches {ran} "
+                     f"for {its} iterations")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -2299,12 +2469,14 @@ def main() -> int:
     bf16, bf16_counts = phase_resident_bf16(device, card)
     counts = _sum_counts(counts, bf16_counts, phase_fer_harness(),
                          phase_throughput(device, card))
+    route_rows = phase_routing(device, card)
 
     def entry(name, source, replaces, max_abs_err, timed, **extra):
         """One kernel of the summary: `timed` holds its ms, plain_ms and
         bound of one timed shape. library_ms is null unless `extra` gives
         it: no single PyTorch call computes any of these functions but
-        P3's one-hot product."""
+        P3's one-hot product (the routing halves are a gather and
+        elementwise work each, several calls)."""
         return {"name": name, "route": "cuda", "source": f"nbldpc_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": max_abs_err,
@@ -2340,6 +2512,14 @@ def main() -> int:
         # BASELINE config 4's check-node shape and n_r, the main path's
         entry("cn_tems", "cn_tems.cu", "nbldpc_tpu/kernels/cn_tems.py:33",
               max(r["max_abs_err"] for r in tems_rows), tems_rows[2]),
+        # decode_bl's routing, replacing the two XLA scopes of JAX's loop
+        # body, at config 5's step (config 4's times beside)
+        *(entry(name, "route.cu", f"nbldpc_tpu/decoders/common.py:{line}",
+                max(r["max_abs_err"] for r in route_rows[name].values()),
+                route_rows[name]["cfg5"],
+                **{f"cfg4_{k}": route_rows[name]["cfg4"][k]
+                   for k in ("ms", "plain_ms", "bound_ms")})
+          for name, line in (("route_down", "215"), ("route_up", "221"))),
         # the bf16 builds (mm_precision="bf16") at their bench rows' steps
         # (the scratch kernel at OVERSIZE, OVERSIZE_GF64's times beside),
         # each with its f32 build's time in the same run and both plans

@@ -17,11 +17,13 @@ ROWS has its own code, batch, budget and noise:
          (configs/gf256_sweep_2host.json: 20 iterations, 8 Eb/N0 points x
          512 frames = 4096 frames per step), sigma from 3.0 dB;
   ems_gf256_n255_k175 - config 5's EMS half (nm = 16, offset 0.1) at the
-         same step: the classic check-node kernel inside decode_bl (kernel
-         path only: the plain path takes ~16 s per step there);
+         same step: the classic check-node kernel inside decode_bl, between
+         its two routing kernels (kernel path only: the plain path takes
+         ~16 s per step there);
   ems_bubble_gf256_n255_k175 - the same step through the bubble merge (nm
          = 16, offset 0.0, the JAX package's gf256_ems_bubble record): the
-         bubble check-node kernel inside decode_bl (kernel path only);
+         bubble check-node kernel inside decode_bl, between its routing
+         kernels (kernel path only);
   qspa_gf16_n204_k102_c8_bf16, qspa_gf256_n255_k175_bf16 - the first and
          the fifth row with bf16 message storage (mm_precision="bf16": K0
          and K0-cl's cluster kernel built for bf16 state; the "torch" path

@@ -1,9 +1,9 @@
 """Time the resident EMS decode (K3), the T-EMS check node (K5), the
 resident QSPA decode (K0), K0-cl's two kernels, the QSPA check node (K1),
-the EMS check nodes (K2b bubble, K2 classic beside it) and the probes P1,
-P2, P4, P5 and P6/P7 of one tree at the shapes their paths (the probes:
-their entry points) run, with a digest of every output, so that two trees
-compare on one card.
+the EMS check nodes (K2b bubble, K2 classic beside it), decode_bl's two
+routing kernels and the probes P1, P2, P4, P5 and P6/P7 of one tree at the
+shapes their paths (the probes: their entry points) run, with a digest of
+every output, so that two trees compare on one card.
 
     python nbldpc_tpu_torch/benchmarks/kernel_ab.py [--root DIR] [--steps]
                                     [--builds k0_frames1,k3_frames1,...]
@@ -17,7 +17,8 @@ k0cl cases: since the scratch kernel's redesign, which added
 code.random_regular_spec (a tree without it stops there).
 --steps adds the sim steps of the bench rows qspa_gf16_n204_k102_c8,
 qspa_gf16_n204_k102, ems_gf16_n204_k102 and tems_gf64_n576_k480, the K1
-path of qspa_gf256_n255_k175 and ems_bubble_gf256_n255_k175 (K2b).
+path of qspa_gf256_n255_k175, ems_gf256_n255_k175 (K2) and
+ems_bubble_gf256_n255_k175 (K2b).
 --builds builds the --root tree's csrc/qspa_resident.cu,
 csrc/qspa_resident_cl.cu, csrc/ems_resident.cu, csrc/cn_tems.cu,
 csrc/cn_qspa.cu or csrc/cn_ems.cu once per named edit of BUILDS (the
@@ -25,9 +26,11 @@ design choices and the parts of K0, K0-cl's scratch kernel, K3, K5, K1 and
 K2b) and times each build beside the library's kernel.
 --only keeps the kernel cases whose names start with one of the given
 prefixes (k0cl for K0-cl: its scratch kernel on the codes no cluster
-holds, both its kernels on two that one does; p1, p2, p4, p5 and route
-for the probes; p1, p2, p5 and route also time those probes at 0 and 200
-iterations).
+holds, both its kernels on two that one does; p1, p2, p4, p5, route_new
+and route_old for the probes; p1, p2, p5 and the route also time those
+probes at 0 and 200 iterations; route_cfg for decode_bl's routing kernels
+at config 5's and config 4's steps, which a tree from before them reports
+as absent; plain route keeps both).
 
 Prints the card's name and power limit, then one JSON line per case:
 device ms (CUDA events, mean over `reps` calls after one warm-up; for the
@@ -53,7 +56,8 @@ sys.path.insert(0, str(HERE))
 # chip_smoke's helpers import the package only when called, so they use
 # the tree that --root puts first on the path
 from chip_smoke import (K0_GF32, OVERSIZE_EBN0, OVERSIZE_FRAMES,  # noqa: E402
-                        _graph, _llrs, _u_for, cuda_ms, oversize_spec, queued_ms)
+                        _graph, _llrs, _u_for, cuda_ms, oversize_spec, queued_ms,
+                        route_inputs)
 
 
 def _digest(*tensors) -> str:
@@ -117,6 +121,12 @@ EMS_CASES = [(f"{k}_{label}", code, B, nm, levels, merge)
                  ("gf256_512", "gf256_n255_k175", 512, 16, 0),
                  ("gf256_512_ties", "gf256_n255_k175", 512, 16, 4),
                  ("gf256_cfg5", "gf256_n255_k175", 4096, 16, 0))]
+
+# (case, code, frames): decode_bl's routing kernels (route_down, route_up)
+# at config 5's step [GF(256) (255,175), 4096 frames] and config 4's
+# [GF(64) (576,480), 1024 frames], on chip_smoke's phase-routing inputs
+# (chip_smoke.route_inputs)
+ROUTE_CASES = [("route_cfg5", "gf256_n255_k175", 4096), ("route_cfg4", "gf64_n576_k480", 1024)]
 
 # (case, iterations): the probes at their entry points' shapes and depths,
 # P1, P2 and P4 at micro_kernels' x [408,16,128], P5 at micro_layout's X
@@ -249,6 +259,22 @@ def run_kernels(device, reps: int, only=()):
         out = fn(U, nm, 0.0)
         yield {"case": case, "shape": list(U.shape), "nm": nm, "tie_levels": levels,
                "digest": _digest(out), "ms": cuda_ms(lambda: fn(U, nm, 0.0), 2 * reps)}
+    for case, code, B in keep(ROUTE_CASES):
+        try:
+            from nbldpc_tpu_torch.kernels import route
+        except ImportError:
+            yield {"case": case, "absent": True}
+            continue
+        g = _graph(code, device)
+        post, Cv, Chat, llr = route_inputs(g, B, device)
+        yield {"case": case, "kernel": "route_down", "frames": B,
+               "digest": _digest(route.route_down(post, Cv, g)),
+               "ms": cuda_ms(lambda: route.route_down(post, Cv, g), 4 * reps)}
+        yield {"case": case, "kernel": "route_up", "frames": B,
+               "digest": _digest(*route.route_up(Chat, llr, g)),
+               "ms": cuda_ms(lambda: route.route_up(Chat, llr, g), 4 * reps)}
+        del post, Cv, Chat, llr
+        torch.cuda.empty_cache()
     for case, iters in keep(PROBE_CASES + PROBE_DEPTHS):
         fn = _probe(case, iters, device)
         out = fn()
@@ -270,7 +296,8 @@ def run_steps():
     steps = [*((rows[name], rows[name].impls[0], 10) for name in (
         "qspa_gf16_n204_k102_c8", "qspa_gf16_n204_k102", "ems_gf16_n204_k102",
         "tems_gf64_n576_k480")),
-        (rows["qspa_gf256_n255_k175"], "kernel", 3), (bubble, "kernel", 3)]
+        (rows["qspa_gf256_n255_k175"], "kernel", 3), (rows["ems_gf256_n255_k175"], "kernel", 3),
+        (bubble, "kernel", 3)]
     for row, impl, reps in steps:
         rec = bench.measure(row, impl, reps=reps)
         yield {"case": f"step_{row.name}", "cn_impl": impl, "ms": rec["ms_per_step"],

@@ -2,6 +2,11 @@
 
     init V = prior -> [CN update -> VN update -> decision -> syndrome] x iters
 
+The routing around the CN update (leave-one-out, normalization and the
+gather to the check slots; the gather back and the posterior sum) is
+kernels/route.py: its CUDA kernels with route="kernel", its plain versions
+with route="torch".
+
 Batch-last layout: messages [M, dc_max, q, B] / [N, dv_max, q, B], priors
 [N, q, B], hard decisions [N, B]. Messages are log-domain, normalized so
 the max over q is 0. Converged frames keep running (no dynamic shapes);
@@ -15,6 +20,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from nbldpc_tpu_torch.graph import TannerGraph
+from nbldpc_tpu_torch.kernels import route as routing
+
+ROUTES = ("torch", "kernel")
 
 
 class DecodeResult(NamedTuple):
@@ -43,11 +51,14 @@ def decode_bl(
     max_iters: int,
     early_term: bool = True,
     stats_each_iter: bool = True,
+    route: str = "torch",
 ) -> DecodeResult:
     """Batch-last decode of llr [B, N, q] (transposed once at entry/exit).
 
     The state carries the VN-major extrinsics and the posterior, so each
-    iteration does one down-gather and one up-gather.
+    iteration does one down-gather and one up-gather: route="kernel" runs
+    them through kernels/route.py's wrappers (the CUDA kernels on a CUDA
+    tensor), route="torch" through their plain versions.
 
     early_term=True stops once every frame is done (checked on the host
     each iteration). stats_each_iter=False (fixed-budget throughput mode,
@@ -56,10 +67,16 @@ def decode_bl(
     initialization report 0 iterations and the rest max_iters, and the
     decision is taken after the loop.
     """
+    if route not in ROUTES:
+        raise ValueError(f"route={route!r}; expected one of {ROUTES}")
+    if route == "kernel":
+        route_down, route_up = routing.route_down, routing.route_up
+    else:
+        route_down, route_up = routing.route_down_plain, routing.route_up_plain
     B = llr.shape[0]
     stats_each_iter = bool(stats_each_iter) or early_term
     llr = llr.permute(1, 2, 0)                                 # [N, q, B]
-    llr = llr - llr.amax(dim=1, keepdim=True)
+    llr = (llr - llr.amax(dim=1, keepdim=True)).contiguous()
     Cv = torch.zeros((graph.n, graph.dv_max, graph.q, B), dtype=llr.dtype,
                      device=llr.device)
     posterior = llr
@@ -70,12 +87,9 @@ def decode_bl(
     for _ in range(max_iters):
         if early_term and bool(done.all()):
             break
-        Vv = posterior[:, None] - Cv                           # leave-one-out
-        Vv = Vv - Vv.amax(dim=2, keepdim=True)                 # normalize (q)
-        U = graph.gather_cn_x_bl(Vv)                           # [M, dc, q, B]
+        U = route_down(posterior, Cv, graph)                   # [M, dc, q, B]
         Chat = cn_update_bl(U, graph)
-        Cv = graph.gather_vn_x_bl(Chat)                        # [N, dv, q, B]
-        posterior = llr + Cv.sum(dim=1)
+        Cv, posterior = route_up(Chat, llr, graph)             # [N, dv, q, B], [N, q, B]
         if not stats_each_iter:
             iters = iters + (~done).to(torch.int32)
             continue

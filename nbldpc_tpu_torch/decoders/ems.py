@@ -23,9 +23,10 @@ max is rounding-free, so any scan order gives the same values.
 Implementations (`cn_impl`):
   "resident" - kernels/ems_resident.py: the whole decode in one CUDA kernel
                (q <= 32, classic merge, any batch size);
-  "kernel"   - kernels/cn_ems.py's CUDA check-node kernel inside decode_bl;
-  "torch"    - decode_bl with the plain check-node update (the semantic
-               reference, and what runs on the CPU);
+  "kernel"   - kernels/cn_ems.py's CUDA check-node kernel inside decode_bl,
+               with kernels/route.py's routing kernels;
+  "torch"    - decode_bl with the plain check-node update and routing (the
+               semantic reference, and what runs on the CPU);
   "auto"     - "resident" for a CUDA tensor when q <= 32 and the merge is
                classic, else "kernel"; "torch" for a CPU tensor.
 """
@@ -325,4 +326,4 @@ def decode(
         fn = cn_ems.cn_update if impl == "kernel" else cn_ems.cn_update_plain
     cn = lambda U, _graph: fn(U, nm, offset)
     return common.decode_bl(graph, llr, cn, max_iters, early_term,
-                            stats_each_iter=stats_each_iter)
+                            stats_each_iter=stats_each_iter, route=impl)

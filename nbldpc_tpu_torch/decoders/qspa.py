@@ -11,9 +11,9 @@ Three implementations (`cn_impl`):
                kernel, probability-domain BP, any batch size (K0 for
                q <= 32, K0-cl for 32 < q <= 256);
   "kernel"   - kernels/cn_qspa.py's CUDA check-node kernel (K1) inside
-               decode_bl;
-  "torch"    - decode_bl with the plain check-node update (the semantic
-               reference, and what runs on the CPU);
+               decode_bl, with kernels/route.py's routing kernels;
+  "torch"    - decode_bl with the plain check-node update and routing (the
+               semantic reference, and what runs on the CPU);
   "auto"     - "resident" for a CUDA tensor (every q <= 256: the resident
                kernels take any batch, so the JAX package's tile rule has
                no counterpart), "torch" for a CPU tensor.
@@ -83,4 +83,4 @@ def decode(
         return common.DecodeResult(hard=hard, done=done, iters=iters)
     cn = qspa_cn_update_bl_kernel if impl == "kernel" else qspa_cn_update_bl
     return common.decode_bl(graph, llr, cn, max_iters, early_term,
-                            stats_each_iter=stats_each_iter)
+                            stats_each_iter=stats_each_iter, route=impl)

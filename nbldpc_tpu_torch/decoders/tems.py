@@ -21,9 +21,10 @@ parameters beyond the decoder config (offset, n_r), and the graph tables
 come over through convert.py, so no other state is carried across.
 
 Implementations (`cn_impl`):
-  "kernel" - kernels/cn_tems.py's CUDA check-node kernel inside decode_bl;
-  "torch"  - decode_bl with the plain check-node update (the semantic
-             reference, and what runs on the CPU);
+  "kernel" - kernels/cn_tems.py's CUDA check-node kernel inside decode_bl,
+             with kernels/route.py's routing kernels;
+  "torch"  - decode_bl with the plain check-node update and routing (the
+             semantic reference, and what runs on the CPU);
   "auto"   - "kernel" for a CUDA tensor, "torch" for a CPU tensor.
 """
 
@@ -179,7 +180,8 @@ def decode(
 
     if graph.dc_max < 3:
         raise ValueError(f"the T-EMS top-3 scheme needs dc >= 3, the code has {graph.dc_max}")
-    fn = cn_tems.cn_update if pick_impl(cn_impl, llr) == "kernel" else cn_tems.cn_update_plain
+    impl = pick_impl(cn_impl, llr)
+    fn = cn_tems.cn_update if impl == "kernel" else cn_tems.cn_update_plain
     cn = lambda U, _graph: fn(U, offset, n_r)
     return common.decode_bl(graph, llr, cn, max_iters, early_term,
-                            stats_each_iter=stats_each_iter)
+                            stats_each_iter=stats_each_iter, route=impl)

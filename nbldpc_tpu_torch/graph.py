@@ -145,7 +145,7 @@ class TannerGraph:
         """[M, dc_max, q, B] x-domain -> [N, dv_max, q, B] c-domain.
 
         Pad VN slots become 0, the additive identity of the posterior sum."""
-        flat = Chat.reshape(-1, Chat.shape[-1])
+        flat = Chat.reshape(self.m * self.dc_max * self.q, Chat.shape[-1])
         out = flat.index_select(0, self._up).reshape(
             self.n, self.dv_max, self.q, -1)
         if self.has_vn_pads:
@@ -156,7 +156,7 @@ class TannerGraph:
         """[N, dv_max, q, B] c-domain -> [M, dc_max, q, B] x-domain.
 
         Pad CN slots become log-delta0, so CN updates need no masks."""
-        flat = Vv.reshape(-1, Vv.shape[-1])
+        flat = Vv.reshape(self.n * self.dv_max * self.q, Vv.shape[-1])
         out = flat.index_select(0, self._down).reshape(
             self.m, self.dc_max, self.q, -1)
         if self.has_cn_pads:

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 def counted() -> list:
     """(name, function, attribute) of every kernel wrapper and plain version."""
-    from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems, micro
+    from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems, micro, route
     from nbldpc_tpu_torch.kernels import ems_resident as er
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
@@ -35,6 +35,10 @@ def counted() -> list:
             ("cn_ems_bubble_plain", cn_ems.cn_update_bubble_plain, "calls"),
             ("cn_tems", cn_tems.cn_update, "launches"),
             ("cn_tems_plain", cn_tems.cn_update_plain, "calls"),
+            ("route_down", route.route_down, "launches"),
+            ("route_down_plain", route.route_down_plain, "calls"),
+            ("route_up", route.route_up, "launches"),
+            ("route_up_plain", route.route_up_plain, "calls"),
             *((f"micro_{fn.__name__}", fn, "launches") for fn in micro.WRAPPERS)]
 
 

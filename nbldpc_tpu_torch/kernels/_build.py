@@ -75,6 +75,11 @@ SIGNATURES = {
                             _I, _F,                     # nm, offset
                             _P, _P, _P, _P, _P,         # tables
                             _I, _I, _I, _P],            # iters, modes, stream
+    # decode_bl's routing (kernels/route.py): route_down(posterior, Cv, U,
+    # down_idx, cn_mask, M dc, dv, q, B), route_up(Chat, llr, Cv, posterior,
+    # up_idx, vn_mask, N, dv, q, B), stream
+    "route_down": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "route_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # the probes of kernels/micro.py (P1-P7): x, out, tables, shapes, iters, stream
     "micro_flat_gather": [_P, _P, _P, _I, _I, _I, _P],               # perm; R BT
     "micro_row_moves": [_P, _P, _P, _P, _I, _I, _I, _I, _P],         # pi perms; E Q BT

@@ -26,7 +26,7 @@ from nbldpc_tpu_torch.gf import get_field
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems
 from nbldpc_tpu_torch.kernels import ems_resident as er
-from nbldpc_tpu_torch.kernels import micro
+from nbldpc_tpu_torch.kernels import micro, route
 from nbldpc_tpu_torch.kernels import qspa_resident as qr
 from nbldpc_tpu_torch.utils.config import CodeConfig
 
@@ -1416,7 +1416,146 @@ def test_run_all_row_launches_its_kernel(cuda_device, tmp_path, config, kernel):
     assert run_all.main(["--quick", "--only", config, "--out", str(tmp_path)]) == 0
     (rec,) = json.loads((tmp_path / "run_all_h100.json").read_text())
     per_step = 1 if "resident" in kernel else rec["iters"]
-    assert {k: v for k, v in rec["launches"].items() if v} == {kernel: rec["steps"] * per_step}
+    # a check-node kernel runs inside decode_bl, between the two routing kernels
+    want = {name: rec["steps"] * per_step
+            for name in ([kernel] if "resident" in kernel else [kernel, "route_down", "route_up"])}
+    assert {k: v for k, v in rec["launches"].items() if v} == want
     assert rec["config"] == config and rec["batch"] == 32 and rec["timing"] == "cuda_events"
     assert rec["device"] == torch.cuda.get_device_name(cuda_device)
     assert rec["mm_precision_applied"] and rec["ms_per_step"] > 0
+
+
+# --- decode_bl's routing kernels (csrc/route.cu) -------------------------------
+
+# code -> a function making its spec: config 5's and config 4's codes, the irregular codes
+# with CN and VN pad slots at GF(16) and GF(64), dv = 3 at GF(4), and
+# variables of degree up to 10
+ROUTE_CODES = {**{name: lambda name=name: CodeConfig(path=str(CODES / f"{name}.alist")).load()
+                  for name in ("gf256_n255_k175", "gf64_n576_k480")},
+               "irregular_gf16": lambda: _irregular_spec(16, 4),
+               "irregular_gf64": lambda: _irregular_spec(64, 6),
+               "dv3_gf4": lambda: random_regular_spec(4, 96, 48, 5, dv=3),
+               # variables of degree 2 to 10: torch's four-accumulator sum
+               "dense_gf16": lambda: _irregular_spec(16, 9, n=12, m=20)}
+
+
+def _route_inputs(g, B, device, seed=3, levels=0):
+    """(posterior [N, q, B], Cv [N, dv, q, B] with zeros on pad VN slots,
+    Chat [M, dc, q, B], llr [N, q, B]) from a numpy seed: normal draws, or
+    with `levels` > 0 multiples of 1.5 from that many values (ties in every
+    max)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        v = rng.integers(0, levels, shape) * 1.5 if levels else rng.standard_normal(shape) * 3.0
+        return torch.from_numpy(v.astype(np.float32)).to(device)
+
+    Cv = torch.where(g.vn_mask[:, :, None, None], draw(g.n, g.dv_max, g.q, B), 0.0)
+    return (draw(g.n, g.q, B), Cv.contiguous(), draw(g.m, g.dc_max, g.q, B),
+            draw(g.n, g.q, B))
+
+
+def _hold_route(g, B, device, levels=0):
+    """Both routing kernels against their plain versions on the same inputs:
+    equal (max abs error 0) and one launch each (none at B = 0)."""
+    post, Cv, Chat, llr = _route_inputs(g, B, device, levels=levels)
+    before = (route.route_down.launches, route.route_up.launches)
+    U = route.route_down(post, Cv, g)
+    Cv_k, post_k = route.route_up(Chat, llr, g)
+    assert (route.route_down.launches, route.route_up.launches) == tuple(
+        n + (B > 0) for n in before)
+    U_p = route.route_down_plain(post, Cv, g)
+    Cv_p, post_p = route.route_up_plain(Chat, llr, g)
+    torch.cuda.synchronize()
+    assert U.shape == (g.m, g.dc_max, g.q, B) and Cv_k.shape == Cv.shape
+    assert post_k.shape == (g.n, g.q, B)
+    for got, want in ((U, U_p), (Cv_k, Cv_p), (post_k, post_p)):
+        assert torch.equal(got, want)
+        assert got.numel() == 0 or float((got - want).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [0, 1, 37, 128])
+@pytest.mark.parametrize("code", list(ROUTE_CODES))
+def test_route_kernels_match_plain(cuda_device, code, B):
+    g = TannerGraph(ROUTE_CODES[code](), device=cuda_device)
+    _hold_route(g, B, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [2, 8, 32, 128])
+def test_route_kernels_match_plain_every_field(cuda_device, q):
+    """The fields ROUTE_CODES leaves out, on random dv = 2 codes."""
+    g = TannerGraph(random_regular_spec(q, 60, 30, q), device=cuda_device)
+    _hold_route(g, 37, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code,B,levels", [("gf256_n255_k175", 4096, 0),     # config 5's step
+                                           ("gf64_n576_k480", 1024, 0),      # config 4's step
+                                           ("gf256_n255_k175", 37, 3),       # ties in every max
+                                           ("irregular_gf64", 37, 3)])
+def test_route_kernels_match_plain_at_step_shapes(cuda_device, code, B, levels):
+    g = TannerGraph(ROUTE_CODES[code](), device=cuda_device)
+    _hold_route(g, B, cuda_device, levels)
+
+
+# (label, code, the CN kernel as decode_bl calls it, Eb/N0): K1, K2, K2b and
+# K5 on their paths' codes, K1 and K5 also on the code with CN and VN pads
+ROUTE_DECODES = [
+    ("k1", "gf256_n255_k175", lambda U, _g: cn_qspa.cn_update(U), 2.5),
+    ("k1", "irregular_gf16", lambda U, _g: cn_qspa.cn_update(U), 3.0),
+    ("k2", "gf256_n255_k175", lambda U, _g: cn_ems.cn_update(U, 16, 0.1), 2.5),
+    ("k2", "gf64_n576_k480", lambda U, _g: cn_ems.cn_update(U, 8, 0.1), 3.0),
+    ("k2b", "gf256_n255_k175", lambda U, _g: cn_ems.cn_update_bubble(U, 16, 0.0), 2.5),
+    ("k5", "gf64_n576_k480", lambda U, _g: cn_tems.cn_update(U, 2.0, 8), 3.5),
+    ("k5", "irregular_gf16", lambda U, _g: cn_tems.cn_update(U, 2.0, 0), 3.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [(20, True, True), (20, False, False)])
+@pytest.mark.parametrize("label,code,cn,ebn0", ROUTE_DECODES,
+                         ids=[f"{c[0]}-{c[1]}" for c in ROUTE_DECODES])
+def test_decode_bl_route_kernels_equal_plain_routing(cuda_device, label, code, cn, ebn0, mode):
+    """decode_bl through the routing kernels against decode_bl through their
+    plain versions, the same CN kernel in both: hard, done and iters equal,
+    in the early-termination and fixed-budget modes."""
+    from nbldpc_tpu_torch.decoders import common
+
+    iters, early, stats = mode
+    g = TannerGraph(ROUTE_CODES[code](), device=cuda_device)
+    llr = _zero_cw_llrs(g, 300, ebn0, cuda_device)
+    before = route.route_down.launches
+    got = common.decode_bl(g, llr, cn, iters, early, stats, route="kernel")
+    ran = route.route_down.launches - before
+    calls = route.route_down_plain.calls
+    ref = common.decode_bl(g, llr, cn, iters, early, stats, route="torch")
+    assert route.route_down_plain.calls - calls == ran >= 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_route_wrappers_reject_bad_input(cuda_device):
+    g = _graph("gf16_n204_k102", cuda_device)
+    post, Cv, Chat, llr = _route_inputs(g, 8, cuda_device)
+    with pytest.raises(ValueError):
+        route.route_down(post.double(), Cv, g)
+    with pytest.raises(ValueError):
+        route.route_down(post, Cv.double(), g)
+    with pytest.raises(ValueError):
+        route.route_up(Chat, llr.double(), g)
+    # non-contiguous, wrong shape, off the tables' device
+    with pytest.raises(ValueError):
+        route.route_down(post.transpose(0, 1).contiguous().transpose(0, 1), Cv, g)
+    with pytest.raises(ValueError):
+        route.route_up(Chat.transpose(1, 2).contiguous().transpose(1, 2), llr, g)
+    with pytest.raises(ValueError):
+        route.route_down(post[:, :, :4], Cv, g)
+    with pytest.raises(ValueError):
+        route.route_up(Chat, llr.cpu(), g)
+    before = (route.route_down.launches, route.route_up.launches)
+    route.route_down(post, Cv, g)
+    route.route_up(Chat, llr, g)
+    assert (route.route_down.launches, route.route_up.launches) == (before[0] + 1, before[1] + 1)

@@ -151,9 +151,11 @@ def test_run_all_cpu_record_and_merge(tmp_path):
     assert rec["timing"] == "host_clock" and rec["reps"] == 1 and rec["steps"] == 5
     assert rec["first_call_s"] > 0 and rec["wall_ms_per_step"] > 0
     assert rec["mm_precision"] == "f32" and rec["mm_precision_applied"]
-    # the CPU runs the plain versions: one QSPA check-node update an
-    # iteration of each of the configuration's steps, and no kernel
-    assert {k: v for k, v in rec["launches"].items() if v} == {"cn_qspa_plain": 5 * 20}
+    # the CPU runs the plain versions: one QSPA check-node update and one
+    # of each routing half an iteration of each of the configuration's
+    # steps, and no kernel
+    assert {k: v for k, v in rec["launches"].items() if v} == {
+        "cn_qspa_plain": 5 * 20, "route_down_plain": 5 * 20, "route_up_plain": 5 * 20}
     # a later configuration, then the first again: merged in CONFIGS order,
     # the rerun replacing its record in place
     assert run_all.main([*common, "--only", "gf4_qspa_qc"]) == 0
