@@ -166,6 +166,20 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 path above that runs decode_bl on the card (phases 9, 12-15,
                 18 C, 20, 21) must launch both routing kernels and no plain
                 version
+ 23. sim_step - the sim step around the decode (csrc/sim_step.cu:
+                channel_llr, the noise to q-ary LLRs; prior_bl, decode_bl's
+                entry; count_errors, the six counters). A: each against its
+                plain version at the flagship bench step (8192 frames),
+                config 4's (1024 frames) and config 5's (8 Eb/N0 points x
+                512 frames), all-zero and random codewords, exact (max abs
+                error 0.0), timed with its bound (queued behind a sleep,
+                and back to back). B: every bench row's step
+                through the kernels against the plain step composition
+                around the same decode, on one generator: counters equal,
+                each step kernel launched once and no plain version. Every
+                sim-step path above (phases 10-15, 18 B, 20, 21) must launch
+                the channel and the counters, and each decode_bl path
+                decode_bl's entry
 Then the kernels summary (each kernel's launches on the paths above, its
 worst error against its plain version, its time, its plain version's time,
 the bound of the same work and, for P3, the library call's time), the card
@@ -175,6 +189,7 @@ package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -910,20 +925,35 @@ def _sum_counts(*counts: dict) -> dict:
 
 
 # The check-node kernels that run inside decode_bl, where the two routing
-# kernels (phase routing) run beside them once an iteration each
+# kernels (phase routing) run beside them once an iteration each, after
+# decode_bl's entry (prior_bl, phase sim_step) once a decode; and the
+# kernels of every sim step around its decode (phase sim_step): the channel
+# and the counters
 DECODE_BL_KERNELS = ("cn_qspa", "cn_ems", "cn_ems_bubble", "cn_tems")
 ROUTE_KERNELS = ("route_down", "route_up")
+STEP_KERNELS = ("channel_llr", "count_errors")
 
 
-def _path_kernels(kernel: str) -> tuple:
-    """The kernels a path through `kernel` must launch: the routing kernels
-    too where `kernel` runs inside decode_bl."""
-    return (kernel, *ROUTE_KERNELS) if kernel in DECODE_BL_KERNELS else (kernel,)
+def _path_kernels(kernel: str, step: bool = False) -> tuple:
+    """The kernels a decode through `kernel` must launch: decode_bl's entry
+    and the routing kernels too where `kernel` runs inside decode_bl; with
+    `step`, a sim step's, the channel and the counters too."""
+    path = (kernel, "prior_bl", *ROUTE_KERNELS) if kernel in DECODE_BL_KERNELS else (kernel,)
+    return (*path, *STEP_KERNELS) if step else path
 
 
-def _idle(counts: dict, kernel: str) -> list:
-    """The kernels of a path through `kernel` that `counts` shows never launched."""
-    return [k for k in _path_kernels(kernel) if counts.get(k, 0) < 1]
+def _step_launches(kernel: str, iters: int) -> dict:
+    """The launches of one fixed-budget sim step through `kernel`: a
+    whole-decode kernel once, a check-node kernel and the routing kernels
+    once an iteration, decode_bl's entry, the channel and the counters once."""
+    return {k: iters if k in DECODE_BL_KERNELS + ROUTE_KERNELS else 1
+            for k in _path_kernels(kernel, step=True)}
+
+
+def _idle(counts: dict, kernel: str, step: bool = False) -> list:
+    """The kernels of a path through `kernel` (a sim step's, with `step`)
+    that `counts` shows never launched."""
+    return [k for k in _path_kernels(kernel, step) if counts.get(k, 0) < 1]
 
 
 def phase_highq_qspa(device):
@@ -1020,7 +1050,9 @@ def phase_main(main_b64: int):
     if rc16 != 0 or rc64 != 0 or rcbig != 0:
         fail(f"cli.main returned {rc16}, {rc64}, {rcbig}")
     if (counts["qspa_resident"] < 1 or counts64["qspa_resident_cl"] < 1
-            or countsbig["qspa_resident_cl_scratch"] < 1 or countsbig["qspa_resident_cl"]):
+            or countsbig["qspa_resident_cl_scratch"] < 1 or countsbig["qspa_resident_cl"]
+            or _idle(counts64, "qspa_resident_cl", step=True)
+            or _idle(countsbig, "qspa_resident_cl_scratch", step=True)):
         fail(f"a kernel of the main path never launched: {counts64}, {countsbig}")
     if _ran_plain(counts):
         fail(f"a plain version ran on the main path: {counts}")
@@ -1120,8 +1152,9 @@ def phase_paths(phase: str, paths):
               "reference": [ref_name, snr, k_ref, n_ref], "z_vs_reference": z})
         if rc != 0:
             fail(f"{name}: cli.main returned {rc}")
-        if _idle(counts, kernel):
-            fail(f"{name}: the kernels {_idle(counts, kernel)} never launched: {counts}")
+        if _idle(counts, kernel, step=True):
+            fail(f"{name}: the kernels {_idle(counts, kernel, step=True)} never launched: "
+                 f"{counts}")
         ran_plain = _ran_plain(counts)
         if ran_plain:
             fail(f"{name}: a plain version ran on the path: {ran_plain}")
@@ -1186,8 +1219,9 @@ def phase_cfg5():
               "avg_iters": r["avg_iters"]})
         if rc != 0:
             fail(f"{name}: cli.main returned {rc}")
-        if _idle(counts, kernel):
-            fail(f"{name}: the kernels {_idle(counts, kernel)} never launched: {counts}")
+        if _idle(counts, kernel, step=True):
+            fail(f"{name}: the kernels {_idle(counts, kernel, step=True)} never launched: "
+                 f"{counts}")
         if _ran_plain(counts) or (kernel == "qspa_resident_cl" and (
                 counts["cn_qspa"] or counts["route_down"] or counts["route_up"])):
             fail(f"{name}: another implementation ran on the path: {counts}")
@@ -1532,13 +1566,13 @@ def phase_resident_bf16(device, card: str):
 FER_HARNESS_FRAMES = 4096
 FER_HARNESS_RUNS = [
     ("fer_curves", ["--only", "gf4_qspa_c8_20it", "--max-frames", str(FER_HARNESS_FRAMES)],
-     ("qspa_resident",)),
+     _path_kernels("qspa_resident", step=True)),
     ("fer_curves", ["--only", "gf256_ems_bubble_10it", "--max-frames", str(FER_HARNESS_FRAMES)],
-     _path_kernels("cn_ems_bubble")),
+     _path_kernels("cn_ems_bubble", step=True)),
     ("offset_sweep", ["--only", "gf64_tems_nr8", "--offsets", "1.5,2.0"],
-     _path_kernels("cn_tems")),
+     _path_kernels("cn_tems", step=True)),
     ("ber_precision", ["--frames", str(FER_HARNESS_FRAMES), "--snrs", "1.5", "2.0"],
-     ("qspa_resident", "qspa_resident_bf16")),
+     ("qspa_resident", "qspa_resident_bf16", *STEP_KERNELS)),
 ]
 
 
@@ -2107,7 +2141,8 @@ def phase_multi_rank(device, card: str) -> dict:
         for r, got in enumerate(ranks):
             if got[name]["rc"] != 0 or got[name]["counters"] != single[name]["counters"]:
                 fail(f"multi_rank B {name}: rank {r} differs from one process: {rec}")
-            if got[name]["launches"].get(kernel, 0) < 1 or _ran_plain(got[name]["launches"]):
+            if _idle(got[name]["launches"], kernel, step=True) or _ran_plain(
+                    got[name]["launches"]):
                 fail(f"multi_rank B {name}: rank {r} did not run {kernel} alone: {rec}")
             counts = _sum_counts(counts, got[name]["launches"])
         if rep["frames"] != one["frames"] or rep["fer"] != one["fer"]:
@@ -2237,8 +2272,7 @@ def phase_throughput(device, card: str) -> dict:
                      r["frames_per_s"], ran])
         if ((r["config"], r["code"], r["iters"], r["batch"], r["n_snr"])
                 != (name, code, iters, batch, n_snr)
-                or ran != {k: r["steps"] * (1 if "resident" in kernel else iters)
-                           for k in _path_kernels(kernel)}
+                or ran != {k: r["steps"] * n for k, n in _step_launches(kernel, iters).items()}
                 or r["timing"] != "cuda_events" or not r["mm_precision_applied"]
                 or not (0 < r["ms_per_step"] < math.inf and 0 < r["wall_ms_per_step"] < math.inf)
                 or not math.isclose(r["symbols_per_s"], r["frames_per_s"] * n, rel_tol=1e-12)
@@ -2301,7 +2335,7 @@ def phase_throughput(device, card: str) -> dict:
             fail(f"throughput C: rank {r} returned {got['rc']} or its launches "
                  f"{got['launches']} differ from the record's {last}")
     for row in rec["rows"]:
-        want = [{"qspa_resident_cl": 1} if r < row["devices"] else {}
+        want = [_step_launches("qspa_resident_cl", scaling.ITERS) if r < row["devices"] else {}
                 for r in range(scaling.WORLD)]
         if not row["counters_identical_to_1dev"] or row["launches_ranks"] != [
                 {k: 2 * v for k, v in w.items()} for w in want]:
@@ -2428,10 +2462,188 @@ def phase_routing(device, card: str) -> dict:
             emit({"phase": "routing", "case": "B", "kernel": kernel, "code": code,
                   "frames": frames, "ebn0_db": ebn0, "early_term": early, "equal": equal,
                   "converged": int(got.done.sum()), "iterations": its, "launches": ran})
-            if not all(equal.values()) or ran != {k: its for k in _path_kernels(kernel) if its}:
+            want = {k: its for k in (kernel, *ROUTE_KERNELS) if its}
+            if not all(equal.values()) or ran != {**want, "prior_bl": 1}:
                 fail(f"routing B {kernel} early_term={early}: equal {equal}, launches {ran} "
                      f"for {its} iterations")
     return rows
+
+
+# Phase sim_step. A: the step shapes the three kernels of csrc/sim_step.cu
+# run at on the main paths (label, code, SNR slots' Eb/N0 or sigma, frames a
+# slot, whether the slots are Eb/N0): the flagship bench step (sigma 0.63,
+# 8192 frames; K0 after the channel), config 4's (3.5 dB, 1024 frames;
+# T-EMS in decode_bl) and config 5's (its file's 8 Eb/N0 points x 512
+# frames; K0-cl, or K1, K2 and K2b in decode_bl)
+SIM_STEP_SHAPES = [("flagship", "gf16_n204_k102_c8", [0.63], 8192, False),
+                   ("cfg4", "gf64_n576_k480", [3.5], 1024, True),
+                   ("cfg5", "gf256_n255_k175", None, 512, True)]
+SIM_STEP_NAMES = ("channel_llr", "prior_bl", "count_errors")
+
+
+def sim_step_inputs(g, B: int, sigmas, device, seed: int = 7) -> tuple:
+    """(noise [S, B, N, p], sig [S], cw [S, B, N] int32, iters [S B] int32,
+    done [S B] bool) of a step of S = len(sigmas) slots x B frames: the
+    noise drawn as a sim step draws it, the rest from the same generator."""
+    import torch
+
+    from nbldpc_tpu_torch.sim import step_generator
+
+    S = len(sigmas)
+    gen = step_generator(seed, 0, device)
+    noise = torch.randn((S, B, g.n, g.gf.p), generator=gen, device=device)
+    cw = torch.randint(0, g.q, (S, B, g.n), generator=gen, device=device, dtype=torch.int32)
+    iters = torch.randint(0, 21, (S * B,), generator=gen, device=device, dtype=torch.int32)
+    done = torch.rand(S * B, generator=gen, device=device) < 0.5
+    return noise, torch.tensor(sigmas, dtype=torch.float32, device=device), cw, iters, done
+
+
+def sim_step_bounds(g, S: int, B: int, codeword: bool) -> dict:
+    """The least time of each kernel on a step of S x B frames. channel_llr
+    reads the noise (p floats a symbol; with a codeword, its symbol) and
+    sigma and scale, and writes q LLRs a symbol: y takes 2 operations a bit,
+    an LLR p products, p - 1 adds, a negation and a product. prior_bl reads
+    q floats a symbol and writes q and the decision: a max, a subtraction
+    and a compare a value. count_errors reads the decisions (and codewords),
+    the iterations and done flags, and writes six int64 a slot: a xor, a
+    compare, a mask, a popcount and two adds a symbol."""
+    q, p, F = g.q, g.gf.p, S * B * g.n
+    cw_bytes = 4 * F if codeword else 0
+    return {"channel_llr": bound(F * (2 * p + q * (2 * p + 1)),
+                                 4 * F * (p + q) + 8 * S + cw_bytes),
+            "prior_bl": bound(3 * F * q, 4 * F * (2 * q + 1)),
+            "count_errors": bound(6 * F, 4 * F + cw_bytes + 5 * S * B + 48 * S)}
+
+
+def _same_bits(a, b) -> bool:
+    """The same shape, dtype and values, float32 compared bit for bit
+    (signed zeros included)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+@contextlib.contextmanager
+def plain_step_functions():
+    """sim_step's three wrappers replaced by their plain versions while the
+    context lasts: a sim step built inside it (make_sim_step binds the
+    channel and the counters when it builds the step; decode_bl looks
+    prior_bl up at each call) is the plain step composition around the
+    same decode."""
+    from nbldpc_tpu_torch.kernels import sim_step
+
+    saved = {name: getattr(sim_step, name) for name in SIM_STEP_NAMES}
+    for name in SIM_STEP_NAMES:
+        setattr(sim_step, name, getattr(sim_step, f"{name}_plain"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(sim_step, name, fn)
+
+
+def phase_sim_step(device, card: str) -> tuple:
+    """A: channel_llr, prior_bl and count_errors (kernels/sim_step.py,
+    csrc/sim_step.cu) against their plain versions at SIM_STEP_SHAPES,
+    chained as a step chains them, all-zero and random codewords: every
+    output equal bit for bit (max abs error 0.0); timed on the all-zero
+    codeword plain, kernel, kernel, plain beside their bounds. B: every
+    bench row's kernel step (bench._step, the row's full batch) against the
+    plain step composition around the same decode on the same generator:
+    counters equal, the channel and the counters launched once (decode_bl's
+    entry once on the decode_bl paths, never on the whole-decode kernels)
+    and no plain version. Returns the rows of A by kernel and shape, and
+    B's launches."""
+    import torch
+
+    from nbldpc_tpu_torch import bench
+    from nbldpc_tpu_torch.channel import ebn0_to_sigma
+    from nbldpc_tpu_torch.kernels import sim_step
+    from nbldpc_tpu_torch.sim import stack, step_generator
+
+    cfg5_points = json.loads((ROOT / CFG5).read_text())["channel"]["ebn0_db"]
+    rows = {name: {} for name in SIM_STEP_NAMES}
+    for label, code, points, B, ebn0 in SIM_STEP_SHAPES:
+        g = _graph(code, device)
+        points = cfg5_points if points is None else points
+        sigmas = [float(ebn0_to_sigma(x, g.spec.k / g.n)) if ebn0 else x for x in points]
+        noise, sig, cw_all, iters, done = sim_step_inputs(g, B, sigmas, device)
+        S, N, q, p = len(sigmas), g.n, g.q, g.gf.p
+        for codeword in (False, True):
+            cw = cw_all if codeword else None
+            llr = sim_step.channel_llr(noise, sig, q, cw)
+            flat = llr.reshape(S * B, N, q)
+            prior, hard0 = sim_step.prior_bl(flat)
+            hard = hard0.T.contiguous()
+            counters = sim_step.count_errors(hard, cw, iters, done, S, B, p)
+            # name: (kernel, plain version, arguments, the kernel's outputs)
+            calls = {
+                "channel_llr": (sim_step.channel_llr, sim_step.channel_llr_plain,
+                                (noise, sig, q, cw), (llr,)),
+                "prior_bl": (sim_step.prior_bl, sim_step.prior_bl_plain, (flat,),
+                             (prior, hard0)),
+                "count_errors": (sim_step.count_errors, sim_step.count_errors_plain,
+                                 (hard, cw, iters, done, S, B, p), tuple(counters.values()))}
+            bounds = sim_step_bounds(g, S, B, codeword)
+            for name, (kern, plain, args, outs) in calls.items():
+                ref = plain(*args)
+                ref = tuple(ref.values()) if isinstance(ref, dict) else (
+                    ref if isinstance(ref, tuple) else (ref,))
+                torch.cuda.synchronize()
+                equal = all(_same_bits(o, r) for o, r in zip(outs, ref))
+                err = max(float((o.double() - r.double()).abs().max()) if o.numel() else 0.0
+                          for o, r in zip(outs, ref))
+                row = {"phase": "sim_step", "case": "A", "kernel": name, "shape": label,
+                       "code": code, "slots": S, "frames": B, "codeword": codeword,
+                       "card": card, "equal": equal, "max_abs_err": err}
+                if not codeword:
+                    # the kernel's calls queued behind a sleep (device time;
+                    # back to back, events_ms, a call's host time shows where
+                    # it is longer); the plain chains back to back
+                    heavy = 3 if name != "count_errors" else 10
+                    p1 = cuda_ms(lambda: plain(*args), heavy)
+                    k1 = queued_ms(lambda: kern(*args), 20)
+                    k2 = queued_ms(lambda: kern(*args), 20)
+                    events = cuda_ms(lambda: kern(*args), 20)
+                    p2 = cuda_ms(lambda: plain(*args), heavy)
+                    row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, ms_runs=[k1, k2],
+                               events_ms=events, plain_ms_runs=[p1, p2], **bounds[name])
+                    rows[name][label] = row
+                emit(row)
+                if not (equal and err == 0.0):
+                    fail(f"sim_step {name} {label} codeword={codeword}: equal {equal}, "
+                         f"max abs err {err}")
+                rows[name][label]["max_abs_err"] = max(rows[name][label]["max_abs_err"], err)
+            del llr, flat, prior, hard0, hard, counters, calls, outs, ref
+        del noise, cw_all
+        torch.cuda.empty_cache()
+
+    total = {}
+    for row in bench.ROWS:
+        for impl in (i for i in row.impls if i != "torch"):
+            step, sig, _, _ = bench._step(row, impl)
+            _reset_counters()
+            got = stack(step(step_generator(0, 0, device), sig))
+            torch.cuda.synchronize()
+            counts = _counters()
+            with plain_step_functions():
+                ref_step, _, _, _ = bench._step(row, impl)
+                want = stack(ref_step(step_generator(0, 0, device), sig))
+            ran = {k: v for k, v in counts.items() if v}
+            equal = bool(torch.equal(got, want))
+            launched = {k: counts[k] for k in SIM_STEP_NAMES}
+            emit({"phase": "sim_step", "case": "B", "row": row.name, "cn_impl": impl,
+                  "frames": row.batch, "iters": row.iters, "equal": equal,
+                  "counters": got.cpu().tolist(), "launches": ran})
+            if not equal or _ran_plain(counts) or launched != {
+                    "channel_llr": 1, "count_errors": 1, "prior_bl": int(impl == "kernel")}:
+                fail(f"sim_step B {row.name} {impl}: counters equal {equal}, launches {ran}")
+            total = _sum_counts(total, counts)
+    return rows, total
 
 
 def main() -> int:
@@ -2470,6 +2682,8 @@ def main() -> int:
     counts = _sum_counts(counts, bf16_counts, phase_fer_harness(),
                          phase_throughput(device, card))
     route_rows = phase_routing(device, card)
+    step_rows, step_counts = phase_sim_step(device, card)
+    counts = _sum_counts(counts, step_counts)
 
     def entry(name, source, replaces, max_abs_err, timed, **extra):
         """One kernel of the summary: `timed` holds its ms, plain_ms and
@@ -2520,6 +2734,16 @@ def main() -> int:
                 **{f"cfg4_{k}": route_rows[name]["cfg4"][k]
                    for k in ("ms", "plain_ms", "bound_ms")})
           for name, line in (("route_down", "215"), ("route_up", "221"))),
+        # the sim step around the decode, replacing XLA code of JAX's step:
+        # config 5's step, the flagship's and config 4's times beside
+        *(entry(name, "sim_step.cu", replaces,
+                max(r["max_abs_err"] for r in step_rows[name].values()),
+                step_rows[name]["cfg5"],
+                **{f"{label}_{k}": step_rows[name][label][k]
+                   for label in ("flagship", "cfg4") for k in ("ms", "plain_ms", "bound_ms")})
+          for name, replaces in (("channel_llr", "nbldpc_tpu/sim.py:151"),
+                                 ("prior_bl", "nbldpc_tpu/decoders/common.py:200"),
+                                 ("count_errors", "nbldpc_tpu/sim.py:153"))),
         # the bf16 builds (mm_precision="bf16") at their bench rows' steps
         # (the scratch kernel at OVERSIZE, OVERSIZE_GF64's times beside),
         # each with its f32 build's time in the same run and both plans

@@ -16,9 +16,10 @@ k0cl cases: since the scratch kernel's redesign, which added
 `scratch_occupancy`), and the case k0_gf32 builds its code by that tree's
 code.random_regular_spec (a tree without it stops there).
 --steps adds the sim steps of the bench rows qspa_gf16_n204_k102_c8,
-qspa_gf16_n204_k102, ems_gf16_n204_k102 and tems_gf64_n576_k480, the K1
-path of qspa_gf256_n255_k175, ems_gf256_n255_k175 (K2) and
-ems_bubble_gf256_n255_k175 (K2b).
+qspa_gf16_n204_k102, ems_gf16_n204_k102 and tems_gf64_n576_k480, the
+K0-cl and K1 paths of qspa_gf256_n255_k175, ems_gf256_n255_k175 (K2) and
+ems_bubble_gf256_n255_k175 (K2b), each with a digest of its first timed
+step's counters.
 --builds builds the --root tree's csrc/qspa_resident.cu,
 csrc/qspa_resident_cl.cu, csrc/ems_resident.cu, csrc/cn_tems.cu,
 csrc/cn_qspa.cu or csrc/cn_ems.cu once per named edit of BUILDS (the
@@ -30,7 +31,9 @@ holds, both its kernels on two that one does; p1, p2, p4, p5, route_new
 and route_old for the probes; p1, p2, p5 and the route also time those
 probes at 0 and 200 iterations; route_cfg for decode_bl's routing kernels
 at config 5's and config 4's steps, which a tree from before them reports
-as absent; plain route keeps both).
+as absent; plain route keeps both; sim_step for the sim step's kernels
+(the channel, decode_bl's entry, the counters) at the flagship's, config
+4's and config 5's steps, absent from a tree before them).
 
 Prints the card's name and power limit, then one JSON line per case:
 device ms (CUDA events, mean over `reps` calls after one warm-up; for the
@@ -55,9 +58,9 @@ HERE = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(HERE))
 # chip_smoke's helpers import the package only when called, so they use
 # the tree that --root puts first on the path
-from chip_smoke import (K0_GF32, OVERSIZE_EBN0, OVERSIZE_FRAMES,  # noqa: E402
-                        _graph, _llrs, _u_for, cuda_ms, oversize_spec, queued_ms,
-                        route_inputs)
+from chip_smoke import (CFG5, K0_GF32, OVERSIZE_EBN0, OVERSIZE_FRAMES,  # noqa: E402
+                        SIM_STEP_SHAPES, _graph, _llrs, _u_for, cuda_ms, oversize_spec,
+                        queued_ms, route_inputs, sim_step_inputs)
 
 
 def _digest(*tensors) -> str:
@@ -127,6 +130,10 @@ EMS_CASES = [(f"{k}_{label}", code, B, nm, levels, merge)
 # [GF(64) (576,480), 1024 frames], on chip_smoke's phase-routing inputs
 # (chip_smoke.route_inputs)
 ROUTE_CASES = [("route_cfg5", "gf256_n255_k175", 4096), ("route_cfg4", "gf64_n576_k480", 1024)]
+# the sim step's kernels (csrc/sim_step.cu) at chip_smoke's SIM_STEP_SHAPES,
+# all-zero codeword: (case, code, Eb/N0 points or sigmas (None: config
+# 5's points), frames a slot, whether the points are Eb/N0)
+SIM_STEP_CASES = [(f"sim_step_{label}", *rest) for label, *rest in SIM_STEP_SHAPES]
 
 # (case, iterations): the probes at their entry points' shapes and depths,
 # P1, P2 and P4 at micro_kernels' x [408,16,128], P5 at micro_layout's X
@@ -275,6 +282,36 @@ def run_kernels(device, reps: int, only=()):
                "ms": cuda_ms(lambda: route.route_up(Chat, llr, g), 4 * reps)}
         del post, Cv, Chat, llr
         torch.cuda.empty_cache()
+    for case, code, points, B, ebn0 in keep(SIM_STEP_CASES):
+        try:
+            from nbldpc_tpu_torch.kernels import sim_step
+        except ImportError:
+            yield {"case": case, "absent": True}
+            continue
+        from nbldpc_tpu_torch.channel import ebn0_to_sigma
+
+        g = _graph(code, device)
+        points = json.loads((HERE / CFG5).read_text())["channel"]["ebn0_db"] \
+            if points is None else points
+        sigmas = [float(ebn0_to_sigma(x, g.spec.k / g.n)) if ebn0 else x for x in points]
+        noise, sig, _, iters, done = sim_step_inputs(g, B, sigmas, device)
+        S = len(sigmas)
+        llr = sim_step.channel_llr(noise, sig, g.q)
+        flat = llr.reshape(S * B, g.n, g.q)
+        prior, hard0 = sim_step.prior_bl(flat)
+        hard = hard0.T.contiguous()
+        counters = sim_step.count_errors(hard, None, iters, done, S, B, g.gf.p)
+        for name, fn, out in (
+                ("channel_llr", lambda: sim_step.channel_llr(noise, sig, g.q), (llr,)),
+                ("prior_bl", lambda: sim_step.prior_bl(flat), (prior, hard0)),
+                ("count_errors", lambda: sim_step.count_errors(hard, None, iters, done, S, B,
+                                                               g.gf.p),
+                 tuple(counters.values()))):
+            yield {"case": case, "kernel": name, "slots": S, "frames": B,
+                   "digest": _digest(*out), "ms": cuda_ms(fn, 10 * reps),
+                   "queued_ms": queued_ms(fn, 10 * reps)}
+        del noise, llr, flat, prior, hard0, hard
+        torch.cuda.empty_cache()
     for case, iters in keep(PROBE_CASES + PROBE_DEPTHS):
         fn = _probe(case, iters, device)
         out = fn()
@@ -285,6 +322,7 @@ def run_kernels(device, reps: int, only=()):
 
 def run_steps():
     from nbldpc_tpu_torch import bench
+    from nbldpc_tpu_torch.sim import stack, step_generator
 
     rows = bench.ROWS_BY_NAME
     # config 5's step through the bubble merge (bench row
@@ -296,12 +334,15 @@ def run_steps():
     steps = [*((rows[name], rows[name].impls[0], 10) for name in (
         "qspa_gf16_n204_k102_c8", "qspa_gf16_n204_k102", "ems_gf16_n204_k102",
         "tems_gf64_n576_k480")),
+        (rows["qspa_gf256_n255_k175"], "resident", 3),
         (rows["qspa_gf256_n255_k175"], "kernel", 3), (rows["ems_gf256_n255_k175"], "kernel", 3),
         (bubble, "kernel", 3)]
     for row, impl, reps in steps:
         rec = bench.measure(row, impl, reps=reps)
+        step, sig, device, _ = bench._step(row, impl)
         yield {"case": f"step_{row.name}", "cn_impl": impl, "ms": rec["ms_per_step"],
-               "frame_errors_last_step": rec["frame_errors_last_step"]}
+               "frame_errors_last_step": rec["frame_errors_last_step"],
+               "digest": _digest(stack(step(step_generator(0, 0, device), sig)))}
 
 
 # Trial builds: name -> (source in csrc/, [(text, its replacement), ...]).

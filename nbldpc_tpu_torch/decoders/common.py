@@ -2,10 +2,11 @@
 
     init V = prior -> [CN update -> VN update -> decision -> syndrome] x iters
 
-The routing around the CN update (leave-one-out, normalization and the
-gather to the check slots; the gather back and the posterior sum) is
-kernels/route.py: its CUDA kernels with route="kernel", its plain versions
-with route="torch".
+The entry (the LLRs batch-last and normalized, and their decision) is
+kernels/sim_step.py's prior_bl, and the routing around the CN update
+(leave-one-out, normalization and the gather to the check slots; the
+gather back and the posterior sum) is kernels/route.py: their CUDA kernels
+with route="kernel", their plain versions with route="torch".
 
 Batch-last layout: messages [M, dc_max, q, B] / [N, dv_max, q, B], priors
 [N, q, B], hard decisions [N, B]. Messages are log-domain, normalized so
@@ -21,6 +22,7 @@ import torch
 
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import route as routing
+from nbldpc_tpu_torch.kernels import sim_step
 
 ROUTES = ("torch", "kernel")
 
@@ -57,8 +59,9 @@ def decode_bl(
 
     The state carries the VN-major extrinsics and the posterior, so each
     iteration does one down-gather and one up-gather: route="kernel" runs
-    them through kernels/route.py's wrappers (the CUDA kernels on a CUDA
-    tensor), route="torch" through their plain versions.
+    them, and the entry (prior_bl), through the wrappers of kernels/route.py
+    and kernels/sim_step.py (the CUDA kernels on a CUDA tensor),
+    route="torch" through their plain versions.
 
     early_term=True stops once every frame is done (checked on the host
     each iteration). stats_each_iter=False (fixed-budget throughput mode,
@@ -70,17 +73,17 @@ def decode_bl(
     if route not in ROUTES:
         raise ValueError(f"route={route!r}; expected one of {ROUTES}")
     if route == "kernel":
-        route_down, route_up = routing.route_down, routing.route_up
+        prior_bl, route_down, route_up = (sim_step.prior_bl, routing.route_down,
+                                          routing.route_up)
     else:
-        route_down, route_up = routing.route_down_plain, routing.route_up_plain
+        prior_bl, route_down, route_up = (sim_step.prior_bl_plain, routing.route_down_plain,
+                                          routing.route_up_plain)
     B = llr.shape[0]
     stats_each_iter = bool(stats_each_iter) or early_term
-    llr = llr.permute(1, 2, 0)                                 # [N, q, B]
-    llr = (llr - llr.amax(dim=1, keepdim=True)).contiguous()
+    llr, hard = prior_bl(llr.contiguous())                     # [N, q, B], [N, B]
     Cv = torch.zeros((graph.n, graph.dv_max, graph.q, B), dtype=llr.dtype,
                      device=llr.device)
     posterior = llr
-    hard = argmax_q(llr)
     done = satisfied(graph, hard)
     iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
 

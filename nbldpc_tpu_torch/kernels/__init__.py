@@ -14,7 +14,7 @@ from __future__ import annotations
 
 def counted() -> list:
     """(name, function, attribute) of every kernel wrapper and plain version."""
-    from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems, micro, route
+    from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems, micro, route, sim_step
     from nbldpc_tpu_torch.kernels import ems_resident as er
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
@@ -39,6 +39,12 @@ def counted() -> list:
             ("route_down_plain", route.route_down_plain, "calls"),
             ("route_up", route.route_up, "launches"),
             ("route_up_plain", route.route_up_plain, "calls"),
+            ("channel_llr", sim_step.channel_llr, "launches"),
+            ("channel_llr_plain", sim_step.channel_llr_plain, "calls"),
+            ("prior_bl", sim_step.prior_bl, "launches"),
+            ("prior_bl_plain", sim_step.prior_bl_plain, "calls"),
+            ("count_errors", sim_step.count_errors, "launches"),
+            ("count_errors_plain", sim_step.count_errors_plain, "calls"),
             *((f"micro_{fn.__name__}", fn, "launches") for fn in micro.WRAPPERS)]
 
 

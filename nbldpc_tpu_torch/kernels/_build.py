@@ -80,6 +80,12 @@ SIGNATURES = {
     # up_idx, vn_mask, N, dv, q, B), stream
     "route_down": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "route_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the sim step around the decode (kernels/sim_step.py): channel_llr(noise,
+    # sig, scale, cw, llr, S, B, N, q), prior_bl(llr, prior, hard, N, q, B),
+    # count_errors(hard, cw, iters, done, out, S, B, N, p), stream
+    "channel_llr": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "prior_bl": [_P, _P, _P, _I, _I, _I, _P],
+    "count_errors": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # the probes of kernels/micro.py (P1-P7): x, out, tables, shapes, iters, stream
     "micro_flat_gather": [_P, _P, _P, _I, _I, _I, _P],               # perm; R BT
     "micro_row_moves": [_P, _P, _P, _P, _I, _I, _I, _I, _P],         # pi perms; E Q BT

@@ -28,11 +28,12 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init, modulate
+from nbldpc_tpu_torch.channel import ebn0_to_sigma
 from nbldpc_tpu_torch.decoders import ems, qspa, tems
 from nbldpc_tpu_torch.encode import Encoder
 from nbldpc_tpu_torch.gf import get_field
 from nbldpc_tpu_torch.graph import TannerGraph
+from nbldpc_tpu_torch.kernels import sim_step
 from nbldpc_tpu_torch.utils.config import DecoderConfig, RunConfig
 
 
@@ -106,7 +107,9 @@ def make_sim_step(
     [0, q); it encodes them, modulates, adds the noise, computes LLRs,
     decodes and counts errors against the codewords. With no encoder every
     frame is the all-zero codeword and no symbols are drawn, so both modes
-    draw the same noise from the same generator.
+    draw the same noise from the same generator. The channel and the
+    counters run through kernels/sim_step.py's wrappers (their CUDA kernels
+    on the card), or through their plain versions with cn_impl="torch".
 
     block: (slots, frames) slices of the [S, B] batch (Layout.block): the
     step still draws the whole batch, decodes only the block and returns
@@ -116,31 +119,17 @@ def make_sim_step(
     decode_fn = get_decode_fn(dec, cn_impl)
     S, B, N, p, q = n_snr, batch_per_snr, graph.n, graph.gf.p, graph.q
     device = graph.device
+    if cn_impl == "torch":
+        channel, count = sim_step.channel_llr_plain, sim_step.count_errors_plain
+    else:
+        channel, count = sim_step.channel_llr, sim_step.count_errors
 
     def frames(sigmas: torch.Tensor, noise: torch.Tensor, u=None) -> dict:
         S, B = noise.shape[:2]
-        sig = sigmas.to(torch.float32)[:, None, None, None]            # [S,1,1,1]
-        if u is None:
-            cw = None
-            y = 1.0 + sig * noise                    # BPSK of the zero codeword
-        else:
-            cw = encoder.encode(u)                                     # [S,B,N]
-            y = modulate(cw, q) + sig * noise
-        llr = llr_init(y, sig, q)                                      # [S,B,N,q]
+        cw = None if u is None else encoder.encode(u)                 # [S,B,N]
+        llr = channel(noise, sigmas, q, cw)                            # [S,B,N,q]
         res = decode_fn(graph, llr.reshape(S * B, N, q))
-        diff = res.hard.reshape(S, B, N)
-        if cw is not None:
-            diff = diff ^ cw
-        sym_err = diff != 0
-        bit_err = sum(((diff >> t) & 1) for t in range(p))
-        return {
-            "frames": torch.full((S,), B, dtype=torch.int64, device=device),
-            "frame_errors": sym_err.any(dim=-1).sum(dim=1),
-            "symbol_errors": sym_err.sum(dim=(1, 2)),
-            "bit_errors": bit_err.sum(dim=(1, 2), dtype=torch.int64),
-            "iter_sum": res.iters.reshape(S, B).sum(dim=1, dtype=torch.int64),
-            "converged": res.done.reshape(S, B).sum(dim=1),
-        }
+        return count(res.hard, cw, res.iters, res.done, S, B, p)
 
     def step(gen: torch.Generator, sigmas: torch.Tensor) -> dict:
         noise = torch.randn((S, B, N, p), generator=gen, device=device)
@@ -148,7 +137,7 @@ def make_sim_step(
             0, q, (S, B, encoder.k), generator=gen, device=device, dtype=torch.int32)
         if block is not None:
             slots, frame_block = block
-            noise, sigmas = noise[slots, frame_block], sigmas[slots]
+            noise, sigmas = noise[slots, frame_block].contiguous(), sigmas[slots]
             u = None if u is None else u[slots, frame_block]
         return frames(sigmas, noise, u)
 

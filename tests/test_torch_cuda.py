@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from nbldpc_tpu_torch import bench
 from nbldpc_tpu_torch.benchmarks import micro_kernels, micro_layout, run_all
 from nbldpc_tpu_torch.channel import ebn0_to_sigma, llr_init, perfect_llr, transmit
 from nbldpc_tpu_torch.code import CodeSpec, random_regular_spec
@@ -26,7 +27,7 @@ from nbldpc_tpu_torch.gf import get_field
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems
 from nbldpc_tpu_torch.kernels import ems_resident as er
-from nbldpc_tpu_torch.kernels import micro, route
+from nbldpc_tpu_torch.kernels import micro, route, sim_step
 from nbldpc_tpu_torch.kernels import qspa_resident as qr
 from nbldpc_tpu_torch.utils.config import CodeConfig
 
@@ -1416,9 +1417,13 @@ def test_run_all_row_launches_its_kernel(cuda_device, tmp_path, config, kernel):
     assert run_all.main(["--quick", "--only", config, "--out", str(tmp_path)]) == 0
     (rec,) = json.loads((tmp_path / "run_all_h100.json").read_text())
     per_step = 1 if "resident" in kernel else rec["iters"]
-    # a check-node kernel runs inside decode_bl, between the two routing kernels
+    # a check-node kernel runs inside decode_bl, between the two routing
+    # kernels, after decode_bl's entry; every step runs the channel and the
+    # counters once
     want = {name: rec["steps"] * per_step
             for name in ([kernel] if "resident" in kernel else [kernel, "route_down", "route_up"])}
+    want.update({name: rec["steps"] for name in (
+        ["channel_llr", "count_errors"] + ([] if "resident" in kernel else ["prior_bl"]))})
     assert {k: v for k, v in rec["launches"].items() if v} == want
     assert rec["config"] == config and rec["batch"] == 32 and rec["timing"] == "cuda_events"
     assert rec["device"] == torch.cuda.get_device_name(cuda_device)
@@ -1559,3 +1564,207 @@ def test_route_wrappers_reject_bad_input(cuda_device):
     route.route_down(post, Cv, g)
     route.route_up(Chat, llr, g)
     assert (route.route_down.launches, route.route_up.launches) == (before[0] + 1, before[1] + 1)
+
+
+# --- the sim step around the decode (csrc/sim_step.cu) -------------------------
+
+SIM_STEP_N = 12          # symbols a frame in the kernel-level tests
+
+
+def _bits_equal(a, b) -> bool:
+    """The same float32 bit patterns (signed zeros included)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _sim_step_inputs(q, S, B, device, seed=11):
+    """(noise [S, B, N, p], sig [S], codewords [S, B, N] int32) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    noise = rng.standard_normal((S, B, SIM_STEP_N, q.bit_length() - 1)).astype(np.float32)
+    sig = rng.uniform(0.4, 1.2, S).astype(np.float32)
+    cw = rng.integers(0, q, (S, B, SIM_STEP_N)).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(device) for a in (noise, sig, cw))
+
+
+def _counters_equal(got: dict, want: dict) -> bool:
+    return list(got) == list(want) and all(
+        g.dtype == torch.int64 and torch.equal(g, w) for g, w in zip(got.values(),
+                                                                  want.values()))
+
+
+def _hold_sim_step(q, S, B, device, codeword, noise=None):
+    """The three kernels against their plain versions on the same inputs,
+    chained as a step chains them (the channel's LLRs into prior_bl, its
+    decision into count_errors with random iterations and done flags):
+    every output equal, one launch each (none at B = 0)."""
+    base, sig, cw = _sim_step_inputs(q, S, B, device)
+    noise = base if noise is None else noise
+    cw = cw if codeword else None
+    counts = [fn.launches for fn in (sim_step.channel_llr, sim_step.prior_bl,
+                                     sim_step.count_errors)]
+    llr = sim_step.channel_llr(noise, sig, q, cw)
+    prior, hard0 = sim_step.prior_bl(llr.reshape(S * B, SIM_STEP_N, q))
+    hard = hard0.T.contiguous()
+    gen = torch.Generator(device=device).manual_seed(3)
+    iters = torch.randint(0, 21, (S * B,), generator=gen, device=device, dtype=torch.int32)
+    done = torch.rand(S * B, generator=gen, device=device) < 0.5
+    out = sim_step.count_errors(hard, cw, iters, done, S, B, q.bit_length() - 1)
+    assert [fn.launches for fn in (sim_step.channel_llr, sim_step.prior_bl,
+                                   sim_step.count_errors)] == [c + (B > 0) for c in counts]
+    llr_p = sim_step.channel_llr_plain(noise, sig, q, cw)
+    prior_p, hard_p = sim_step.prior_bl_plain(llr_p.reshape(S * B, SIM_STEP_N, q))
+    out_p = sim_step.count_errors_plain(hard, cw, iters, done, S, B, q.bit_length() - 1)
+    torch.cuda.synchronize()
+    assert _bits_equal(llr, llr_p) and _bits_equal(prior, prior_p)
+    assert hard0.dtype == torch.int32 and torch.equal(hard0, hard_p)
+    assert _counters_equal(out, out_p)
+    assert out["frames"].tolist() == [B] * S
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codeword", [False, True])
+@pytest.mark.parametrize("B", [0, 1, 7, 4096])
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("q", [2, 4, 8, 16, 32, 64, 128, 256])
+def test_sim_step_kernels_match_plain(cuda_device, q, S, B, codeword):
+    _hold_sim_step(q, S, B, cuda_device, codeword)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [4, 64, 256])
+def test_sim_step_kernels_match_plain_on_a_layout_block(cuda_device, q):
+    """A layout's block of the step's noise (slots 1-2, frames 3-9 of
+    [4, 16]) is not contiguous: the wrapper refuses it, and takes it as
+    make_sim_step passes it, contiguous."""
+    noise, sig, _ = _sim_step_inputs(q, 4, 16, cuda_device)
+    view = noise[1:3, 3:10]
+    assert not view.is_contiguous()
+    with pytest.raises(ValueError):
+        sim_step.channel_llr(view, sig[1:3], q)
+    got = sim_step.channel_llr(view.contiguous(), sig[1:3], q)
+    assert _bits_equal(got, sim_step.channel_llr_plain(view, sig[1:3], q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [2, 16, 64, 256])
+def test_prior_bl_ties_and_special_values_match_plain(cuda_device, q):
+    """Rows of equal values, integer values (ties in every max), signed
+    zeros, infinities and NaNs: prior and decision equal to the plain
+    version's (torch.amax and torch.argmax on the card)."""
+    rng = np.random.default_rng(q)
+    B, N = 70, 9
+    llr = np.round(rng.standard_normal((B, N, q)) * 2.0).astype(np.float32)
+    llr[0] = 1.5
+    llr[1] = -0.0
+    llr[2, :, 0] = np.inf
+    llr[3, :, q // 2] = np.inf
+    llr[3, :, q - 1] = np.inf
+    llr[4] = -np.inf
+    llr[5, :, q - 1] = np.nan
+    llr[6, :, 1] = np.nan
+    llr[6, :, 0] = np.nan
+    x = torch.from_numpy(llr).to(cuda_device)
+    before = sim_step.prior_bl.launches
+    prior, hard = sim_step.prior_bl(x)
+    assert sim_step.prior_bl.launches == before + 1
+    prior_p, hard_p = sim_step.prior_bl_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(hard, hard_p)
+    assert torch.equal(torch.isnan(prior), torch.isnan(prior_p))
+    finite = ~torch.isnan(prior_p)
+    assert torch.equal(prior[finite], prior_p[finite])
+
+
+@pytest.mark.cuda
+def test_sim_step_wrappers_reject_bad_input(cuda_device):
+    q, S, B = 16, 2, 5
+    noise, sig, cw = _sim_step_inputs(q, S, B, cuda_device)
+    llr = sim_step.channel_llr(noise, sig, q, cw)
+    flat = llr.reshape(S * B, SIM_STEP_N, q)
+    hard = torch.zeros((S * B, SIM_STEP_N), dtype=torch.int32, device=cuda_device)
+    iters = torch.zeros(S * B, dtype=torch.int32, device=cuda_device)
+    done = torch.zeros(S * B, dtype=torch.bool, device=cuda_device)
+    bad = [
+        # wrong dtype
+        lambda: sim_step.channel_llr(noise.double(), sig, q),
+        lambda: sim_step.channel_llr(noise, sig, q, cw.long()),
+        lambda: sim_step.prior_bl(flat.double()),
+        lambda: sim_step.count_errors(hard.long(), None, iters, done, S, B, 4),
+        lambda: sim_step.count_errors(hard, None, iters, done.int(), S, B, 4),
+        # non-contiguous
+        lambda: sim_step.channel_llr(noise.transpose(0, 1).contiguous().transpose(0, 1),
+                                     sig, q),
+        lambda: sim_step.prior_bl(flat.transpose(0, 1).contiguous().transpose(0, 1)),
+        lambda: sim_step.count_errors(hard.T.contiguous().T, None, iters, done, S, B, 4),
+        # an unsupported q (p bits of noise for q = 2^p), or p
+        lambda: sim_step.channel_llr(torch.zeros((S, B, 3, 9), device=cuda_device), sig, 512),
+        lambda: sim_step.prior_bl(torch.zeros((B, 3, 12), device=cuda_device)),
+        lambda: sim_step.count_errors(hard, None, iters, done, S, B, 9),
+        # shapes that disagree, a tensor off the card
+        lambda: sim_step.channel_llr(noise, sig, 32),
+        lambda: sim_step.channel_llr(noise, sig[:1], q),
+        lambda: sim_step.count_errors(hard, cw[:, :, :3].contiguous(), iters, done, S, B, 4),
+        lambda: sim_step.count_errors(hard, None, iters.cpu(), done, S, B, 4),
+    ]
+    before = [fn.launches for fn in (sim_step.channel_llr, sim_step.prior_bl,
+                                     sim_step.count_errors)]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert [fn.launches for fn in (sim_step.channel_llr, sim_step.prior_bl,
+                                   sim_step.count_errors)] == before
+
+
+# every bench row's kernel implementation (the "torch" ones are plain)
+SIM_STEP_ROWS = [(row.name, impl) for row in bench.ROWS for impl in row.impls
+                 if impl != "torch"]
+
+
+def _plain_composed_step(g, dec, impl, enc, gen, sig, S, B, monkeypatch) -> dict:
+    """A sim step composed of the plain step functions around the same
+    decode (decode_bl's entry through prior_bl_plain): noise and info
+    symbols drawn from `gen` as make_sim_step draws them."""
+    from nbldpc_tpu_torch import sim
+
+    N, p, q = g.n, g.gf.p, g.q
+    noise = torch.randn((S, B, N, p), generator=gen, device=g.device)
+    cw = None if enc is None else enc.encode(torch.randint(
+        0, q, (S, B, enc.k), generator=gen, device=g.device, dtype=torch.int32))
+    llr = sim_step.channel_llr_plain(noise, sig, q, cw)
+    with monkeypatch.context() as m:
+        m.setattr(sim_step, "prior_bl", sim_step.prior_bl_plain)
+        res = sim.get_decode_fn(dec, impl)(g, llr.reshape(S * B, N, q))
+    return sim_step.count_errors_plain(res.hard, cw, res.iters, res.done, S, B, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("random_cw", [False, True])
+@pytest.mark.parametrize("row,impl", SIM_STEP_ROWS)
+def test_sim_step_through_kernels_equals_plain_composition(cuda_device, monkeypatch, row,
+                                                           impl, random_cw):
+    """make_sim_step through the kernels (2 SNR slots x 64 frames of the
+    row's code and decoder) against the plain step functions around the same
+    decode kernel on the same generator seed: counters equal, each step
+    kernel launched once and no plain version run."""
+    from nbldpc_tpu_torch import sim
+    from nbldpc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from nbldpc_tpu_torch.utils.config import DecoderConfig
+
+    r = bench.ROWS_BY_NAME[row]
+    S, B = 2, 64
+    g = TannerGraph(CodeConfig(name=r.code).load(), device=cuda_device)
+    dec = DecoderConfig(kind=r.kind, max_iters=r.iters, early_term=False,
+                        stats_each_iter=False, **{"mm_precision": "f32", **dict(r.config)})
+    enc = Encoder(g.spec, cuda_device) if random_cw else None
+    sigma = float(ebn0_to_sigma(r.noise, g.spec.k / g.n)) if r.ebn0 else r.noise
+    sig = torch.tensor([sigma, 1.2 * sigma], dtype=torch.float32, device=cuda_device)
+    step = sim.make_sim_step(g, dec, B, S, enc, cn_impl=impl)
+    reset_launch_counts()
+    got = step(sim.step_generator(4, 0, cuda_device), sig)
+    torch.cuda.synchronize()
+    ran = {k: v for k, v in launch_counts().items() if v}
+    want = _plain_composed_step(g, dec, impl, enc, sim.step_generator(4, 0, cuda_device), sig,
+                                S, B, monkeypatch)
+    assert _counters_equal(got, want)
+    assert not [k for k in ran if k.endswith("_plain")]
+    assert {k: ran.get(k) for k in ("channel_llr", "count_errors", "prior_bl")} == {
+        "channel_llr": 1, "count_errors": 1, "prior_bl": 1 if impl == "kernel" else None}

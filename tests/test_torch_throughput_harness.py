@@ -153,9 +153,11 @@ def test_run_all_cpu_record_and_merge(tmp_path):
     assert rec["mm_precision"] == "f32" and rec["mm_precision_applied"]
     # the CPU runs the plain versions: one QSPA check-node update and one
     # of each routing half an iteration of each of the configuration's
-    # steps, and no kernel
+    # steps, the channel, decode_bl's entry and the counters once a step,
+    # and no kernel
     assert {k: v for k, v in rec["launches"].items() if v} == {
-        "cn_qspa_plain": 5 * 20, "route_down_plain": 5 * 20, "route_up_plain": 5 * 20}
+        "cn_qspa_plain": 5 * 20, "route_down_plain": 5 * 20, "route_up_plain": 5 * 20,
+        "channel_llr_plain": 5, "prior_bl_plain": 5, "count_errors_plain": 5}
     # a later configuration, then the first again: merged in CONFIGS order,
     # the rerun replacing its record in place
     assert run_all.main([*common, "--only", "gf4_qspa_qc"]) == 0
