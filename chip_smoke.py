@@ -180,6 +180,19 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 sim-step path above (phases 10-15, 18 B, 20, 21) must launch
                 the channel and the counters, and each decode_bl path
                 decode_bl's entry
+ 24. q_last   - the q-last decode path (each decoder's batch_last=False:
+                common.decode in plain PyTorch, no kernel) against the
+                batch-last paths on the same LLRs: QSPA on the flagship
+                (8192 frames, 50 iterations, sigma 0.63, fixed budget and
+                early termination) against the plain decode_bl, the K1 path
+                and K0; EMS nm 16 on config 3's code (8192 frames, 50
+                iterations) and at config 5's (512 frames, cut for time; 20
+                iterations, 3.0 dB) against the plain path and the K2 path;
+                T-EMS n_r 8 at config 4's (1024 frames, 20 iterations, 3.5
+                dB) against the plain path and the K5 path. hard/done/iters
+                frame for frame: the plain path, K2 and K5 exactly, K1 on
+                >= 99.9% of the frames, K0 reported only; every decode
+                twice, the second timed by CUDA events, one line of times
 Then the kernels summary (each kernel's launches on the paths above, its
 worst error against its plain version, its time, its plain version's time,
 the bound of the same work and, for P3, the library call's time), the card
@@ -2646,6 +2659,119 @@ def phase_sim_step(device, card: str) -> tuple:
     return rows, total
 
 
+# Phase q_last: the q-last decode path (batch_last=False) against the
+# batch-last paths on the same LLRs (the port's channel, a fixed seed): (label,
+# code, decoder, keywords, frames, iterations, noise, noise as Eb/N0 (else
+# sigma), early termination, the kernel paths: cn_impl -> (the kernel the
+# path launches, the least frame agreement with the q-last path, or None
+# where it is only reported)). Frame agreement: hard, done and iters all
+# equal. The plain path (cn_impl="torch") is held at Q_LAST_PLAIN_MIN on
+# every shape. K2 and K5 are exact to their plain versions, as are the
+# routing kernels, so their paths are held exactly; K1 rounds exp and log
+# apart from its plain version (phase cn_qspa), which a frame that never
+# converges may amplify over 50 iterations; K0 runs probability-domain BP,
+# reported only. Config 5's EMS shape is cut to 512 frames for time (its
+# bench step has 4096).
+Q_LAST_PLAIN_MIN = 1.0
+Q_LAST_CASES = [
+    ("qspa_flagship", "gf16_n204_k102_c8", "qspa", {}, 8192, 50, 0.63, False, False,
+     {"kernel": ("cn_qspa", 0.999), "resident": ("qspa_resident", None)}),
+    ("qspa_flagship_early", "gf16_n204_k102_c8", "qspa", {}, 8192, 50, 0.63, False, True,
+     {"kernel": ("cn_qspa", 0.999), "resident": ("qspa_resident", None)}),
+    ("ems_cfg3", "gf16_n204_k102", "ems", {"nm": 16, "offset": 0.3}, 8192, 50, 0.63, False,
+     False, {"kernel": ("cn_ems", 1.0)}),
+    ("ems_cfg5", "gf256_n255_k175", "ems", {"nm": 16, "offset": 0.1}, 512, 20, 3.0, True,
+     False, {"kernel": ("cn_ems", 1.0)}),
+    ("tems_cfg4", "gf64_n576_k480", "tems", {"n_r": 8, "offset": 2.0}, 1024, 20, 3.5, True,
+     False, {"kernel": ("cn_tems", 1.0)}),
+]
+
+
+def _twice(fn) -> tuple:
+    """(fn()'s result, the launch counts of that call, the device ms of a
+    second call between CUDA events): the second call must return the same
+    tensors."""
+    import torch
+
+    _reset_counters()
+    first = fn()
+    torch.cuda.synchronize()
+    counts = _counters()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    second = fn()
+    end.record()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail(f"q_last: a decode gave other outputs on its second call ({fn})")
+    return first, counts, start.elapsed_time(end)
+
+
+def _frame_agreement(a, b) -> dict:
+    """Frames whose hard, done and iters all agree; the first that does not,
+    with the fields that differ there."""
+    import torch
+
+    same = (a.hard == b.hard).all(dim=1) & (a.done == b.done) & (a.iters == b.iters)
+    bad = (~same).nonzero().flatten()
+    first = int(bad[0]) if bad.numel() else None
+    return {"agreement": float(same.float().mean()), "differing_frames": int(bad.numel()),
+            "first_differing_frame": first,
+            "first_differs_in": None if first is None else [
+                k for k in ("hard", "done", "iters")
+                if not torch.equal(getattr(a, k)[first], getattr(b, k)[first])]}
+
+
+def phase_q_last(device, card: str) -> list:
+    """Q_LAST_CASES: each decode through the q-last path (plain PyTorch, no
+    kernel launched), the plain batch-last path and its kernel paths, on the
+    same LLRs, every output on the card; hard/done/iters compared frame for
+    frame and held to the case's least agreement; a q-last frame done
+    exactly when its decision satisfies H. Each decode runs twice, the
+    second between CUDA events. Returns the times a case, also emitted as
+    one line."""
+    from nbldpc_tpu_torch.decoders import ems, qspa, tems
+
+    decoders = {"qspa": qspa.decode, "ems": ems.decode, "tems": tems.decode}
+    times = []
+    for label, code, kind, kw, frames, iters, noise, ebn0, early, paths in Q_LAST_CASES:
+        g = _graph(code, device)
+        llr = _llrs(g, frames, [noise], device, ebn0=ebn0)
+        dec = decoders[kind]
+        ql, counts, ql_ms = _twice(lambda: dec(g, llr, iters, early_term=early,
+                                               batch_last=False, **kw))
+        bad_h = _done_not_h(g, ql.hard, ql.done)
+        ran = {k: v for k, v in counts.items() if v}
+        on_card = all(t.device == llr.device for t in ql)
+        row = {"phase": "q_last", "case": label, "code": code, "decoder": kind, **kw,
+               "frames": frames, "iters": iters, "noise": noise, "ebn0": ebn0,
+               "early_term": early, "card": card, "converged": int(ql.done.sum()),
+               "frame_errors": int((ql.hard != 0).any(dim=1).sum()),
+               "iterations_run": int(ql.iters.max()), "done_not_h": bad_h, "ms": ql_ms}
+        emit({**row, "path": "q_last", "launches": ran, "on_card": on_card})
+        if ran or bad_h or not on_card:
+            fail(f"q_last {label}: launches {ran}, done against H {bad_h}, on card {on_card}")
+        timing = {"case": label, "q_last_ms": ql_ms}
+        for impl, (kernel, least) in {"torch": (None, Q_LAST_PLAIN_MIN), **paths}.items():
+            got, counts, ms = _twice(lambda: dec(g, llr, iters, early_term=early,
+                                                 cn_impl=impl, **kw))
+            ran = {k: v for k, v in counts.items() if v}
+            agree = _frame_agreement(ql, got)
+            emit({**row, "path": impl, "kernel": kernel, "ms": ms, "launches": ran,
+                  "least_agreement": least, **agree})
+            timing["plain_ms" if impl == "torch" else f"{kernel}_ms"] = ms
+            if kernel is not None and (not ran.get(kernel) or _ran_plain(counts)):
+                fail(f"q_last {label} {impl}: {kernel} did not run alone: {ran}")
+            if least is not None and agree["agreement"] < least:
+                fail(f"q_last {label} {impl}: frame agreement {agree['agreement']} "
+                     f"below {least}: {agree}")
+        times.append(timing)
+        del llr, ql, got
+    emit({"phase": "q_last", "case": "times", "card": card, "decodes": times})
+    return times
+
+
 def main() -> int:
     try:
         import torch
@@ -2684,6 +2810,7 @@ def main() -> int:
     route_rows = phase_routing(device, card)
     step_rows, step_counts = phase_sim_step(device, card)
     counts = _sum_counts(counts, step_counts)
+    phase_q_last(device, card)
 
     def entry(name, source, replaces, max_abs_err, timed, **extra):
         """One kernel of the summary: `timed` holds its ms, plain_ms and

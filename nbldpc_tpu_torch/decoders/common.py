@@ -8,10 +8,13 @@ kernels/sim_step.py's prior_bl, and the routing around the CN update
 gather back and the posterior sum) is kernels/route.py: their CUDA kernels
 with route="kernel", their plain versions with route="torch".
 
-Batch-last layout: messages [M, dc_max, q, B] / [N, dv_max, q, B], priors
-[N, q, B], hard decisions [N, B]. Messages are log-domain, normalized so
-the max over q is 0. Converged frames keep running (no dynamic shapes);
-only their hard/done/iters outputs are frozen.
+Batch-last layout (decode_bl, every decoder's default): messages [M,
+dc_max, q, B] / [N, dv_max, q, B], priors [N, q, B], hard decisions [N,
+B]. q-last layout (decode and vn_update, the decoders' batch_last=False):
+messages [B, M, dc_max, q] / [B, N, dv_max, q], priors [B, N, q], plain
+PyTorch on the input's device, no kernel. Messages are log-domain,
+normalized so the max over q is 0. Converged frames keep running (no
+dynamic shapes); only their hard/done/iters outputs are frozen.
 """
 
 from __future__ import annotations
@@ -44,6 +47,72 @@ def argmax_q(post: torch.Tensor) -> torch.Tensor:
 def satisfied(graph: TannerGraph, hard: torch.Tensor) -> torch.Tensor:
     """hard [N, B] -> [B] bool: every check of the frame is satisfied."""
     return (graph.syndrome_bl(hard) == 0).all(dim=0)
+
+
+def _decision(graph: TannerGraph, llr: torch.Tensor, C: torch.Tensor) -> tuple:
+    """q-last: CN outputs C [B, M, dc, q] (x-domain) -> (Cv [B, N, dv, q],
+    posterior [B, N, q] = llr + the slot sum, hard [B, N] int32)."""
+    Cv = graph.gather_vn_x(C)
+    posterior = llr + Cv.sum(dim=2)                             # pad slots are 0
+    return Cv, posterior, torch.argmax(posterior, dim=-1).to(torch.int32)
+
+
+def _leave_one_out(graph: TannerGraph, posterior: torch.Tensor,
+                   Cv: torch.Tensor) -> torch.Tensor:
+    """q-last: the var->check messages U [B, M, dc, q] (x-domain,
+    normalized) of the posterior [B, N, q] less each slot's extrinsic."""
+    Vv = posterior[:, :, None, :] - Cv
+    return graph.gather_cn_x(Vv - Vv.amax(dim=-1, keepdim=True))
+
+
+def vn_update(graph: TannerGraph, llr: torch.Tensor, C: torch.Tensor) -> tuple:
+    """q-last variable-node phase: llr [B, N, q], C [B, M, dc, q] -> (U [B,
+    M, dc, q] var->check messages in the x-domain, posterior [B, N, q],
+    hard [B, N])."""
+    Cv, posterior, hard = _decision(graph, llr, C)
+    return _leave_one_out(graph, posterior, Cv), posterior, hard
+
+
+def check_q_last_impl(cn_impl: str) -> None:
+    """Raise ValueError unless cn_impl asks for what the q-last path runs,
+    plain PyTorch ("auto" or "torch"): it has no kernel to launch."""
+    if cn_impl not in ("auto", "torch"):
+        raise ValueError(f"cn_impl={cn_impl!r}: the q-last path (batch_last=False) "
+                         "runs plain PyTorch only")
+
+
+def decode(
+    graph: TannerGraph,
+    llr: torch.Tensor,
+    cn_update: CnUpdateFn,
+    max_iters: int,
+    early_term: bool = True,
+) -> DecodeResult:
+    """q-last decode of llr [B, N, q] with a q-last CN update ([B, M, dc, q]
+    -> same), in plain PyTorch on llr's device.
+
+    The state carries the VN-major extrinsics Cv and the posterior. Every
+    iteration takes the decision and the syndrome, so `iters` counts the
+    iterations each frame ran before it was done, whatever the mode.
+    early_term=True stops once every frame is done (checked on the host
+    each iteration)."""
+    B = llr.shape[0]
+    llr = llr - llr.amax(dim=-1, keepdim=True)
+    Cv = llr.new_zeros((B, graph.n, graph.dv_max, graph.q))
+    posterior = llr
+    hard = torch.argmax(llr, dim=-1).to(torch.int32)
+    done = (graph.syndrome(hard) == 0).all(dim=-1)
+    iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
+    for _ in range(max_iters):
+        if early_term and bool(done.all()):
+            break
+        C = cn_update(_leave_one_out(graph, posterior, Cv), graph)
+        Cv, posterior, hard_new = _decision(graph, llr, C)
+        done_new = (graph.syndrome(hard_new) == 0).all(dim=-1)
+        iters = iters + (~done).to(torch.int32)
+        hard = torch.where(done[:, None], hard, hard_new)
+        done = done | done_new
+    return DecodeResult(hard=hard, done=done, iters=iters)
 
 
 def decode_bl(

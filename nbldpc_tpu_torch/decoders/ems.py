@@ -29,6 +29,12 @@ Implementations (`cn_impl`):
                semantic reference, and what runs on the CPU);
   "auto"     - "resident" for a CUDA tensor when q <= 32 and the merge is
                classic, else "kernel"; "torch" for a CPU tensor.
+
+`batch_last=False` runs the q-last path instead: common.decode with
+ems_cn_update (the classic merge), messages [B, M, dc, q], plain PyTorch
+on the input's device. A kernel `cn_impl` ("resident", "kernel") or
+merge="bubble" is refused there (ValueError), where the JAX package
+quietly runs classic XLA.
 """
 
 from __future__ import annotations
@@ -264,6 +270,23 @@ def _postprocess(O: torch.Tensor, offset: float, dim: int) -> torch.Tensor:
     return torch.clamp_min(torch.clamp_max(O + offset, 0.0), NEG)
 
 
+def ems_cn_update(U: torch.Tensor, graph: TannerGraph, nm: int = 16,
+                  offset: float = 0.0) -> torch.Tensor:
+    """q-last classic CN update, U [B, M, dc_max, q] log-domain x-domain ->
+    same: normalized, pad slots set to delta0 (the merge identity), the
+    classic core in its [M, q, B] layout, the offset over q, pad outputs 0.
+    Every step is max, select, gather or one add an element, so the values
+    are those of the batch-last update."""
+    q = graph.q
+    mask = graph.cn_mask[None, :, :, None]
+    U = U - U.amax(dim=-1, keepdim=True)
+    U = torch.where(mask, U, _delta0(q, U.device, U.dtype))
+    Ub = U.permute(1, 2, 3, 0)                                # [M, dc, q, B]
+    outs = _cn_ems_core([Ub[:, j] for j in range(Ub.shape[1])], min(nm, q))
+    O = torch.stack(outs, dim=1).permute(3, 0, 1, 2)          # [B, M, dc, q]
+    return torch.where(mask, _postprocess(O, offset, dim=-1), 0.0)
+
+
 def ems_cn_update_bl(U: torch.Tensor, graph: TannerGraph | None = None,
                      nm: int = 16, offset: float = 0.0,
                      merge: str = "classic") -> torch.Tensor:
@@ -308,8 +331,17 @@ def decode(
     cn_impl: str = "auto",
     stats_each_iter: bool = True,
     merge: str = "classic",
+    batch_last: bool = True,
 ) -> common.DecodeResult:
-    """EMS decode of a batch: llr [B, N, q] f32 -> DecodeResult."""
+    """EMS decode of a batch: llr [B, N, q] f32 -> DecodeResult.
+    batch_last=False: the q-last path (stats_each_iter is ignored there)."""
+    if not batch_last:
+        common.check_q_last_impl(cn_impl)
+        if merge != "classic":
+            raise ValueError(f"merge={merge!r}: the q-last path (batch_last=False) "
+                             "runs the classic merge only")
+        cn = lambda U, g: ems_cn_update(U, g, nm, offset)
+        return common.decode(graph, llr, cn, max_iters, early_term)
     impl = pick_impl(cn_impl, graph, llr, merge)
     if impl == "resident":
         from nbldpc_tpu_torch.kernels import ems_resident as er

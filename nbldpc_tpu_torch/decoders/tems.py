@@ -14,7 +14,7 @@ column collision substitutes the second-best side. n_r > 0 restricts the
 first deviation e1 to the n_r most reliable rows (ranked per column by m1x,
 ties to the lower row) while e2 = eta ^ e1 stays free.
 
-The same decoder as the JAX package's decoders/tems.py, batch-last only.
+The same decoder as the JAX package's decoders/tems.py, in both layouts.
 XOR permutes are index gathers; every candidate is one f32 add and the rest
 is max and select, so any scan order gives the same values. T-EMS has no
 parameters beyond the decoder config (offset, n_r), and the graph tables
@@ -26,6 +26,11 @@ Implementations (`cn_impl`):
   "torch"  - decode_bl with the plain check-node update and routing (the
              semantic reference, and what runs on the CPU);
   "auto"   - "kernel" for a CUDA tensor, "torch" for a CPU tensor.
+
+`batch_last=False` runs the q-last path instead: common.decode with
+tems_cn_update, messages [B, M, dc, q], plain PyTorch on the input's
+device; `cn_impl="kernel"` is refused there (ValueError), where the JAX
+package quietly runs XLA.
 """
 
 from __future__ import annotations
@@ -141,6 +146,22 @@ def _cn_tems_core(U: torch.Tensor, n_r: int = 0) -> torch.Tensor:
     return _xor_gather(dw, beta ^ z)                         # C_j(a) = dW(a ^ beta ^ z_j)
 
 
+def tems_cn_update(U: torch.Tensor, graph: TannerGraph, offset: float = 0.0,
+                   n_r: int = 0) -> torch.Tensor:
+    """q-last CN update, U [B, M, dc_max, q] log-domain x-domain -> same:
+    normalized, pad slots set to log-delta0, the core in its [M, dc, q, B]
+    layout, then (out - max) + offset clipped to [NEG, 0] and pad outputs
+    0. n_r > 0 selects the truncated-deviation search."""
+    mask = graph.cn_mask[None, :, :, None]                    # [1, M, dc, 1]
+    U = U - U.amax(dim=-1, keepdim=True)
+    d0 = torch.full((graph.q,), NEG, dtype=U.dtype, device=U.device)
+    d0[0] = 0.0
+    U = torch.where(mask, U, d0)
+    out = _cn_tems_core(U.permute(1, 2, 3, 0), n_r).permute(3, 0, 1, 2)
+    out = torch.clamp_max((out - out.amax(dim=-1, keepdim=True)) + offset, 0.0)
+    return torch.where(mask, torch.clamp_min(out, NEG), 0.0)
+
+
 def tems_cn_update_bl(U: torch.Tensor, graph: TannerGraph | None = None,
                       offset: float = 0.0, n_r: int = 0) -> torch.Tensor:
     """Batch-last CN update: U [M, dc_max, q, B] log-domain x-domain -> same.
@@ -171,15 +192,21 @@ def decode(
     cn_impl: str = "auto",
     stats_each_iter: bool = True,
     n_r: int = 0,
+    batch_last: bool = True,
 ) -> common.DecodeResult:
     """T-EMS decode of a batch: llr [B, N, q] f32 -> DecodeResult.
 
     n_r > 0 truncates the two-deviation search to the n_r most reliable
-    rows; stats_each_iter=False is the fixed-budget throughput mode."""
+    rows; stats_each_iter=False is the fixed-budget throughput mode
+    (ignored by the q-last path, batch_last=False)."""
     from nbldpc_tpu_torch.kernels import cn_tems
 
     if graph.dc_max < 3:
         raise ValueError(f"the T-EMS top-3 scheme needs dc >= 3, the code has {graph.dc_max}")
+    if not batch_last:
+        common.check_q_last_impl(cn_impl)
+        cn = lambda U, g: tems_cn_update(U, g, offset, n_r)
+        return common.decode(graph, llr, cn, max_iters, early_term)
     impl = pick_impl(cn_impl, llr)
     fn = cn_tems.cn_update if impl == "kernel" else cn_tems.cn_update_plain
     cn = lambda U, _graph: fn(U, offset, n_r)

@@ -2,6 +2,9 @@
 
 Edge ordering is CN-major: edge slot (m, j) has flat id m * dc_max + j.
 Irregular codes are padded to [M, dc_max] / [N, dv_max] and masked.
+Messages are batch-last, [M, dc_max, q, B] / [N, dv_max, q, B] (the
+decoders' decode_bl), or q-last, [B, M, dc_max, q] / [B, N, dv_max, q]
+(common.decode, batch_last=False).
 
 GF edge weights are folded into permutation tables:
   perm_down[m, j, a] = h_mj^{-1} * a   (variable->check: U(a) = V[perm_down])
@@ -130,6 +133,8 @@ class TannerGraph:
         self._up = t["up_idx"].reshape(-1).long().clamp_(
             max=self.m * self.dc_max * self.q - 1)
         self._cn_vn = t["cn_vn"].reshape(-1).long()
+        self._vn_edge = t["vn_edge"].reshape(-1).long()
+        self._cn_slot = t["cn_slot_of_vn_slot"].reshape(-1).long()
 
     @functools.cached_property
     def _pad_block(self) -> torch.Tensor:
@@ -168,6 +173,75 @@ class TannerGraph:
         """hard [N, B] int32 -> syndrome [M, B] int32 (0 == satisfied)."""
         return syndrome(hard, self._cn_vn, self.syn_k)
 
+    # ---- q-last routing: messages [B, M, dc, q] / [B, N, dv, q] ----
+
+    def _take(self, x: torch.Tensor, idx: torch.Tensor, rows: int, slots: int,
+              pad_row: bool) -> torch.Tensor:
+        """Rows idx of x's flat [B, slots', q] form -> [B, rows, slots, q];
+        pad_row appends the all-zero row that pad indices point at."""
+        B = x.shape[0]
+        flat = x.reshape(B, -1, self.q)
+        if pad_row:
+            flat = torch.cat([flat, flat.new_zeros(B, 1, self.q)], dim=1)
+        return flat.index_select(1, idx).reshape(B, rows, slots, self.q)
+
+    def gather_vn(self, C: torch.Tensor) -> torch.Tensor:
+        """CN-major [B, M, dc_max, q] -> VN-major [B, N, dv_max, q]; pad VN
+        slots read an appended all-zero row."""
+        return self._take(C, self._vn_edge, self.n, self.dv_max, pad_row=True)
+
+    def gather_cn(self, Vv: torch.Tensor) -> torch.Tensor:
+        """VN-major [B, N, dv_max, q] -> CN-major [B, M, dc_max, q]; pad CN
+        slots read an appended all-zero row (CN updates mask them)."""
+        return self._take(Vv, self._cn_slot, self.m, self.dc_max, pad_row=True)
+
+    def gather_cn_x(self, Vv: torch.Tensor) -> torch.Tensor:
+        """VN-major c-domain [B, N, dv_max, q] -> CN-major x-domain U [B, M,
+        dc_max, q], U_e(a) = V_e(h_e^{-1} a): routing and GF permutation in
+        one gather of the flat [B, N dv_max q]. Pad CN slots become
+        log-delta0 (skipped for CN-regular codes)."""
+        B = Vv.shape[0]
+        out = Vv.reshape(B, -1).index_select(1, self._down).reshape(
+            B, self.m, self.dc_max, self.q)
+        if self.has_cn_pads:
+            out = torch.where(self.cn_mask[None, :, :, None], out,
+                              self._pad_block[:, 0].to(Vv.dtype))
+        return out
+
+    def gather_vn_x(self, Chat: torch.Tensor) -> torch.Tensor:
+        """CN-major x-domain [B, M, dc_max, q] -> VN-major c-domain C [B, N,
+        dv_max, q], C_e(a) = Chat_e(h_e a), in one gather of the flat [B, M
+        dc_max q]. Pad VN slots become 0 (skipped for VN-regular codes)."""
+        B = Chat.shape[0]
+        out = Chat.reshape(B, -1).index_select(1, self._up).reshape(
+            B, self.n, self.dv_max, self.q)
+        if self.has_vn_pads:
+            out = torch.where(self.vn_mask[None, :, :, None], out, 0.0)
+        return out
+
+    def permute_down(self, V: torch.Tensor) -> torch.Tensor:
+        """Per-edge GF weight: U(a) = V(h^{-1} a), V [B, M, dc_max, q]."""
+        return torch.gather(V, 3, self.perm_down.long()[None].expand(V.shape))
+
+    def permute_up(self, Chat: torch.Tensor) -> torch.Tensor:
+        """Inverse weight map: C(a) = Chat(h a), Chat [B, M, dc_max, q]."""
+        return torch.gather(Chat, 3, self.perm_up.long()[None].expand(Chat.shape))
+
+    def syndrome(self, hard: torch.Tensor) -> torch.Tensor:
+        """hard [B, N] int32 -> syndrome [B, M] int32 (0 == satisfied)."""
+        return syndrome(hard.T, self._cn_vn, self.syn_k).T
+
+
+def xor_reduce(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """XOR of x's entries along `dim` (0 where `dim` is empty)."""
+    dim = dim % x.ndim
+    if x.shape[dim] == 0:
+        return x.new_zeros(x.shape[:dim] + x.shape[dim + 1:])
+    out = x.select(dim, 0)
+    for j in range(1, x.shape[dim]):
+        out = out ^ x.select(dim, j)
+    return out
+
 
 def syndrome(hard: torch.Tensor, cn_vn: torch.Tensor, syn_k: torch.Tensor) -> torch.Tensor:
     """Syndromes of checks given as rows of cn_vn (flat int64 [M' dc]) and
@@ -177,7 +251,4 @@ def syndrome(hard: torch.Tensor, cn_vn: torch.Tensor, syn_k: torch.Tensor) -> to
     x = torch.zeros_like(sym)
     for t in range(p):
         x = x ^ (((sym >> t) & 1) * syn_k[:, :, t : t + 1])
-    out = x[:, 0]
-    for j in range(1, dc):
-        out = out ^ x[:, j]
-    return out
+    return xor_reduce(x, 1)

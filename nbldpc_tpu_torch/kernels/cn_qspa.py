@@ -27,22 +27,23 @@ def _sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
     return s
 
 
-def _softmax_sum(e: torch.Tensor) -> torch.Tensor:
-    """Sum of e [M, dc, q, B] over q in K1's association (keepdim): with L =
-    32 for q >= 32 (1 below), the symbols l, l + L, ... of each l left to
-    right, then a pairwise tree over l (l and l ^ h at h = 1, 2, ..., L /
-    2); for q < 32 that is left to right. The kernel takes it whatever
-    lanes hold a frame.
+def _softmax_sum(e: torch.Tensor, dim: int = 2) -> torch.Tensor:
+    """Sum of e over q, its dim `dim` ([M, dc, q, B]: 2; q-last: -1), in
+    K1's association (keepdim): with L = 32 for q >= 32 (1 below), the
+    symbols l, l + L, ... of each l left to right, then a pairwise tree over
+    l (l and l ^ h at h = 1, 2, ..., L / 2); for q < 32 that is left to
+    right. The kernel takes it whatever lanes hold a frame.
 
     The inverse WHT cancels to values near 1e-12, so a sum taken in another
     order moves the log-tail outputs by up to ~1e-2; in one order the
-    kernel and this version round alike."""
-    M, dc, q, B = e.shape
+    kernel and this version round alike, and so do the two layouts."""
+    dim = dim % e.ndim
+    lead, q, tail = e.shape[:dim], e.shape[dim], e.shape[dim + 1:]
     L = 1 if q < 32 else 32
-    p = _sum_in_order(e.reshape(M, dc, q // L, L, B), 2).squeeze(2)     # [M, dc, L, B]
-    while p.shape[2] > 1:
-        p = p.reshape(M, dc, p.shape[2] // 2, 2, B)
-        p = p[:, :, :, 0] + p[:, :, :, 1]
+    p = _sum_in_order(e.reshape(lead + (q // L, L) + tail), dim).squeeze(dim)  # L at dim
+    while p.shape[dim] > 1:
+        p = p.reshape(lead + (p.shape[dim] // 2, 2) + tail)
+        p = p.select(dim + 1, 0) + p.select(dim + 1, 1)
     return p
 
 

@@ -30,6 +30,16 @@ def wht_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
     return x
 
 
+def wht(x: torch.Tensor) -> torch.Tensor:
+    """Unnormalized WHT along the last dim (the q-last decode path)."""
+    return wht_axis(x, -1)
+
+
+def iwht(x: torch.Tensor) -> torch.Tensor:
+    """Inverse WHT along the last dim: wht(x) / q."""
+    return wht(x) / x.shape[-1]
+
+
 def wht_matrix(q: int) -> np.ndarray:
     """Dense [q, q] Hadamard matrix H[a,b] = (-1)^popcount(a & b) (for tests)."""
     a = np.arange(q)

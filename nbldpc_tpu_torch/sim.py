@@ -21,6 +21,7 @@ frames an uninterrupted one would.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Optional
 
@@ -35,6 +36,19 @@ from nbldpc_tpu_torch.gf import get_field
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import sim_step
 from nbldpc_tpu_torch.utils.config import DecoderConfig, RunConfig
+
+
+def get_cn_update(dec: DecoderConfig):
+    """The q-last CN update ([B, M, dc, q], graph) -> same of the configured
+    decoder, as the JAX package's: T-EMS gets its offset and not
+    dec.tems_nr, so it runs the exact scan."""
+    if dec.kind == "qspa":
+        return qspa.qspa_cn_update
+    if dec.kind == "ems":
+        return functools.partial(ems.ems_cn_update, nm=dec.nm, offset=dec.offset)
+    if dec.kind == "tems":
+        return functools.partial(tems.tems_cn_update, offset=dec.offset)
+    raise ValueError(f"unknown decoder kind {dec.kind!r}")
 
 
 def get_decode_fn(dec: DecoderConfig, cn_impl: str = "auto"):

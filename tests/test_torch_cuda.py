@@ -1768,3 +1768,68 @@ def test_sim_step_through_kernels_equals_plain_composition(cuda_device, monkeypa
     assert not [k for k in ran if k.endswith("_plain")]
     assert {k: ran.get(k) for k in ("channel_llr", "count_errors", "prior_bl")} == {
         "channel_llr": 1, "count_errors": 1, "prior_bl": 1 if impl == "kernel" else None}
+
+
+# --- the q-last decode path (batch_last=False: plain PyTorch, no kernel) ------
+
+# (label, code, decoder, keywords, Eb/N0): each decoder on small codes, and
+# on the code with CN and VN pad slots
+Q_LAST_CASES = [
+    ("qspa", lambda: CodeConfig(name="gf4_n96_k48").load(), "qspa", {}, 2.0),
+    ("qspa", lambda: _irregular_spec(16, 4), "qspa", {}, 3.0),
+    ("ems", lambda: CodeConfig(name="gf16_n204_k102").load(), "ems", dict(nm=16), 2.0),
+    ("ems", lambda: make_peg_code(48, 24, 64, dv=2, seed=3), "ems", dict(nm=8), 2.5),
+    ("tems", lambda: CodeConfig(name="gf64_n576_k480").load(), "tems", dict(n_r=8), 3.5),
+    ("tems", lambda: _irregular_spec(16, 4), "tems", dict(offset=0.5), 3.0),
+]
+
+
+def _q_last_decoders():
+    from nbldpc_tpu_torch.decoders import ems, qspa, tems
+
+    return {"qspa": qspa.decode, "ems": ems.decode, "tems": tems.decode}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early_term", [True, False], ids=["early_term", "fixed"])
+@pytest.mark.parametrize("label,spec,kind,kw,ebn0", Q_LAST_CASES,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(Q_LAST_CASES)])
+def test_q_last_decode_equals_plain_decode_bl(cuda_device, label, spec, kind, kw, ebn0,
+                                              early_term):
+    """A q-last decode of a CUDA tensor returns CUDA tensors, launches no
+    kernel and runs no plain kernel version, and gives the plain decode_bl's
+    hard/done/iters frame for frame (dc and dv <= 5 and 4: the slot sums
+    associate alike in both layouts)."""
+    from nbldpc_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    decode = _q_last_decoders()[kind]
+    g = TannerGraph(spec(), device=cuda_device)
+    llr = _zero_cw_llrs(g, 300, ebn0, cuda_device)
+    reset_launch_counts()
+    got = decode(g, llr, 10, early_term=early_term, batch_last=False, **kw)
+    torch.cuda.synchronize()
+    assert not any(launch_counts().values())
+    assert all(t.device == llr.device for t in got)
+    ref = decode(g, llr, 10, early_term=early_term, cn_impl="torch", **kw)
+    for name, a, b in zip(("hard", "done", "iters"), got, ref):
+        assert torch.equal(a, b), name
+    assert 0 < int(got.done.sum())
+
+
+@pytest.mark.cuda
+def test_q_last_refusals_on_card(cuda_device):
+    from nbldpc_tpu_torch.decoders import ems, qspa, tems
+
+    g = _graph("gf16_n204_k102", cuda_device)
+    llr = _zero_cw_llrs(g, 8, 2.0, cuda_device)
+    for cn_impl in ("resident", "kernel"):
+        with pytest.raises(ValueError, match="q-last"):
+            qspa.decode(g, llr, cn_impl=cn_impl, batch_last=False)
+        with pytest.raises(ValueError, match="q-last"):
+            ems.decode(g, llr, cn_impl=cn_impl, batch_last=False)
+    with pytest.raises(ValueError, match="q-last"):
+        qspa.decode(g, llr, mm_precision="bf16", batch_last=False)
+    with pytest.raises(ValueError, match="q-last"):
+        ems.decode(g, llr, merge="bubble", batch_last=False)
+    with pytest.raises(ValueError, match="q-last"):
+        tems.decode(g, llr, cn_impl="kernel", batch_last=False)
