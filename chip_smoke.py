@@ -955,12 +955,18 @@ def _path_kernels(kernel: str, step: bool = False) -> tuple:
     return (*path, *STEP_KERNELS) if step else path
 
 
-def _step_launches(kernel: str, iters: int) -> dict:
-    """The launches of one fixed-budget sim step through `kernel`: a
-    whole-decode kernel once, a check-node kernel and the routing kernels
-    once an iteration, decode_bl's entry, the channel and the counters once."""
-    return {k: iters if k in DECODE_BL_KERNELS + ROUTE_KERNELS else 1
-            for k in _path_kernels(kernel, step=True)}
+def _step_launches(kernel: str, iters: int, frames: int) -> dict:
+    """The counters of one fixed-budget sim step of `frames` frames through
+    `kernel`: a whole-decode kernel once, a check-node kernel and the
+    routing kernels once an iteration, decode_bl's entry, the channel and
+    the counters once; in decode_bl, its loop's iterations and the frames
+    times those."""
+    out = {k: iters if k in DECODE_BL_KERNELS + ROUTE_KERNELS else 1
+           for k in _path_kernels(kernel, step=True)}
+    if kernel in DECODE_BL_KERNELS:
+        out.update({"decode_bl.loop_iterations": iters,
+                    "decode_bl.frame_iterations": frames * iters})
+    return out
 
 
 def _idle(counts: dict, kernel: str, step: bool = False) -> list:
@@ -2285,7 +2291,8 @@ def phase_throughput(device, card: str) -> dict:
                      r["frames_per_s"], ran])
         if ((r["config"], r["code"], r["iters"], r["batch"], r["n_snr"])
                 != (name, code, iters, batch, n_snr)
-                or ran != {k: r["steps"] * n for k, n in _step_launches(kernel, iters).items()}
+                or ran != {k: r["steps"] * n
+                           for k, n in _step_launches(kernel, iters, batch * n_snr).items()}
                 or r["timing"] != "cuda_events" or not r["mm_precision_applied"]
                 or not (0 < r["ms_per_step"] < math.inf and 0 < r["wall_ms_per_step"] < math.inf)
                 or not math.isclose(r["symbols_per_s"], r["frames_per_s"] * n, rel_tol=1e-12)
@@ -2348,8 +2355,9 @@ def phase_throughput(device, card: str) -> dict:
             fail(f"throughput C: rank {r} returned {got['rc']} or its launches "
                  f"{got['launches']} differ from the record's {last}")
     for row in rec["rows"]:
-        want = [_step_launches("qspa_resident_cl", scaling.ITERS) if r < row["devices"] else {}
-                for r in range(scaling.WORLD)]
+        want = [_step_launches("qspa_resident_cl", scaling.ITERS,
+                               scaling.S * scaling.B // row["devices"])
+                if r < row["devices"] else {} for r in range(scaling.WORLD)]
         if not row["counters_identical_to_1dev"] or row["launches_ranks"] != [
                 {k: 2 * v for k, v in w.items()} for w in want]:
             fail(f"throughput C: layout {row['mesh']}: {row}")
@@ -2475,7 +2483,9 @@ def phase_routing(device, card: str) -> dict:
             emit({"phase": "routing", "case": "B", "kernel": kernel, "code": code,
                   "frames": frames, "ebn0_db": ebn0, "early_term": early, "equal": equal,
                   "converged": int(got.done.sum()), "iterations": its, "launches": ran})
-            want = {k: its for k in (kernel, *ROUTE_KERNELS) if its}
+            want = {k: v for k, v in ((kernel, its), ("route_down", its), ("route_up", its),
+                                      ("decode_bl.loop_iterations", its),
+                                      ("decode_bl.frame_iterations", frames * its)) if v}
             if not all(equal.values()) or ran != {**want, "prior_bl": 1}:
                 fail(f"routing B {kernel} early_term={early}: equal {equal}, launches {ran} "
                      f"for {its} iterations")

@@ -31,19 +31,15 @@ ROWS has its own code, batch, budget and noise:
 
     python -m nbldpc_tpu_torch bench
     python -m nbldpc_tpu_torch bench --row qspa_gf16_n204_k102_c8_bf16
-    python -m nbldpc_tpu_torch bench --profile qspa_gf256_n255_k175
 
 prints the card's name and power limit, then one JSON line per (row,
-implementation), of every row or of the --row ones; with --profile, the
-device time per kernel of a few steps of one row, per implementation
-(torch.profiler).
+implementation), of every row or of the --row ones.
 """
 
 from __future__ import annotations
 
 import json
 import subprocess
-import time
 from typing import NamedTuple
 
 import torch
@@ -149,46 +145,10 @@ def measure(row: Row, cn_impl: str, reps: int = 10) -> dict:
     }
 
 
-def profile(row: Row, cn_impl: str, steps: int = 3, top: int = 12) -> dict:
-    """Device time per kernel over `steps` sim steps of `row` after one
-    warm-up step (torch.profiler): wall ms per step on the host clock, the
-    summed device ms per step, and the `top` kernels by device time."""
-    import torch.profiler as tp
-
-    step, sig, device, _ = _step(row, cn_impl)
-    step(step_generator(0, 1000, device), sig)
-    torch.cuda.synchronize(device)
-    with tp.profile(activities=[tp.ProfilerActivity.CPU, tp.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for t in range(steps):
-            step(step_generator(0, t, device), sig)
-        torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
-    kernels = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or 0
-        if dev_us > 0 and ev.device_type == tp.DeviceType.CUDA:
-            kernels.append((dev_us / 1e3 / steps, ev.count // steps, ev.key))
-    kernels.sort(reverse=True)
-    device_ms = sum(k[0] for k in kernels)
-    wall_ms = wall * 1e3 / steps
-    return {"row": row.name, "cn_impl": cn_impl, "steps": steps,
-            "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
-            "idle_share": 1.0 - device_ms / wall_ms,
-            "kernels": [{"name": k[2][:120], "ms_per_step": k[0], "launches_per_step": k[1],
-                         "share": k[0] / device_ms} for k in kernels[:top]],
-            "device": torch.cuda.get_device_name(device)}
-
-
-def main(profile_row: str | None = None, rows: list | None = None) -> int:
+def main(rows: list | None = None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("the benchmark needs a CUDA device")
     print(card_info(), flush=True)
-    if profile_row is not None:
-        row = ROWS_BY_NAME[profile_row]
-        for impl in row.impls:
-            print(json.dumps(profile(row, impl)), flush=True)
-        return 0
     unknown = [r for r in rows or () if r not in ROWS_BY_NAME]
     if unknown:
         raise ValueError(f"unknown bench rows {unknown}; rows: {list(ROWS_BY_NAME)}")

@@ -8,7 +8,6 @@
     python -m nbldpc_tpu_torch gen-codes --out DIR     # default: codes/
     python -m nbldpc_tpu_torch bench        # H100 throughput benchmark
     python -m nbldpc_tpu_torch bench --row qspa_gf16_n204_k102_c8_bf16
-    python -m nbldpc_tpu_torch bench --profile qspa_gf256_n255_k175
     python -m torch.distributed.run --nproc-per-node 2 -m nbldpc_tpu_torch run \
         --config configs/gf256_sweep_2host.json --mesh-snr 2
 
@@ -170,7 +169,7 @@ def cmd_gen_codes(args) -> int:
 def cmd_bench(args) -> int:
     from nbldpc_tpu_torch import bench
 
-    return bench.main(args.profile, args.row)
+    return bench.main(args.row)
 
 
 def main(argv=None) -> int:
@@ -180,8 +179,6 @@ def main(argv=None) -> int:
     pg = sub.add_parser("gen-codes", help="regenerate the standard code files")
     pg.add_argument("--out", help="output directory (default: the repository's codes/)")
     pb = sub.add_parser("bench", help="run the H100 throughput benchmark")
-    pb.add_argument("--profile", metavar="ROW",
-                    help="device time per kernel of one bench row (bench.ROWS names)")
     pb.add_argument("--row", action="append",
                     help="run only this bench row (bench.ROWS names; repeatable; "
                          "default: every row)")

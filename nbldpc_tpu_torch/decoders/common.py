@@ -26,6 +26,7 @@ import torch
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import route as routing
 from nbldpc_tpu_torch.kernels import sim_step
+from nbldpc_tpu_torch.utils.trace import span
 
 ROUTES = ("torch", "kernel")
 
@@ -138,6 +139,14 @@ def decode_bl(
     `done` stays at its initial value during the loop, frames done at
     initialization report 0 iterations and the rest max_iters, and the
     decision is taken after the loop.
+
+    Spans (utils/trace.py), as the JAX loop's scopes: `decode_bl.entry`,
+    then each iteration `decode_bl.sync` (the host's done.all(), with
+    early_term), `decode_bl.route_down` (JAX's vn_update),
+    `decode_bl.cn_update`, `decode_bl.route_up` (posterior) and
+    `decode_bl.syndrome` (the decision, the syndrome and the merge of
+    done). decode_bl.loop_iterations counts the iterations the loop ran,
+    decode_bl.frame_iterations the decode's frames times those.
     """
     if route not in ROUTES:
         raise ValueError(f"route={route!r}; expected one of {ROUTES}")
@@ -149,29 +158,42 @@ def decode_bl(
                                           routing.route_up_plain)
     B = llr.shape[0]
     stats_each_iter = bool(stats_each_iter) or early_term
-    llr, hard = prior_bl(llr.contiguous())                     # [N, q, B], [N, B]
-    Cv = torch.zeros((graph.n, graph.dv_max, graph.q, B), dtype=llr.dtype,
-                     device=llr.device)
-    posterior = llr
-    done = satisfied(graph, hard)
-    iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
+    with span("decode_bl.entry"):
+        llr, hard = prior_bl(llr.contiguous())                 # [N, q, B], [N, B]
+        Cv = torch.zeros((graph.n, graph.dv_max, graph.q, B), dtype=llr.dtype,
+                         device=llr.device)
+        posterior = llr
+        done = satisfied(graph, hard)
+        iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
 
     for _ in range(max_iters):
-        if early_term and bool(done.all()):
-            break
-        U = route_down(posterior, Cv, graph)                   # [M, dc, q, B]
-        Chat = cn_update_bl(U, graph)
-        Cv, posterior = route_up(Chat, llr, graph)             # [N, dv, q, B], [N, q, B]
-        if not stats_each_iter:
+        if early_term:
+            with span("decode_bl.sync"):
+                all_done = bool(done.all())
+            if all_done:
+                break
+        decode_bl.loop_iterations += 1
+        decode_bl.frame_iterations += B
+        with span("decode_bl.route_down"):
+            U = route_down(posterior, Cv, graph)               # [M, dc, q, B]
+        with span("decode_bl.cn_update"):
+            Chat = cn_update_bl(U, graph)
+        with span("decode_bl.route_up"):
+            Cv, posterior = route_up(Chat, llr, graph)         # [N, dv, q, B], [N, q, B]
+        with span("decode_bl.syndrome"):
             iters = iters + (~done).to(torch.int32)
-            continue
-        hard_new = argmax_q(posterior)
-        done_new = satisfied(graph, hard_new)
-        iters = iters + (~done).to(torch.int32)
-        hard = torch.where(done[None, :], hard, hard_new)
-        done = done | done_new
+            if stats_each_iter:
+                hard_new = argmax_q(posterior)
+                done_new = satisfied(graph, hard_new)
+                hard = torch.where(done[None, :], hard, hard_new)
+                done = done | done_new
 
     if not stats_each_iter:
-        hard = argmax_q(posterior)
-        done = satisfied(graph, hard)
+        with span("decode_bl.syndrome"):
+            hard = argmax_q(posterior)
+            done = satisfied(graph, hard)
     return DecodeResult(hard=hard.T.contiguous(), done=done, iters=iters)
+
+
+decode_bl.loop_iterations = 0
+decode_bl.frame_iterations = 0

@@ -3,17 +3,25 @@ versions, one module a kernel family.
 
 Every kernel wrapper counts its launches on an attribute of its own
 (`launches`, `launches_bf16`), and every plain version its calls
-(`calls`); `counted` lists them all, so that a run can zero them before a
-path and read which kernels it launched and whether a plain version ran.
-The submodules are imported only when the counters are read: importing
-this package builds and loads nothing.
+(`calls`). `counted` is the registry of every counter of the program:
+those, under the kernel's name, and the layers' own counters under dotted
+names (`sweep.loop_ns` on sim.run_sweep, `decode_bl.loop_iterations` and
+`decode_bl.frame_iterations` on decoders/common.decode_bl), so that a run
+can zero them before a path and read which kernels it launched, whether a
+plain version ran and what its layers counted. The submodules are
+imported only when the counters are read: importing this package builds
+and loads nothing.
 """
 
 from __future__ import annotations
 
 
 def counted() -> list:
-    """(name, function, attribute) of every kernel wrapper and plain version."""
+    """(name, function, attribute) of every counter of the program: each
+    kernel wrapper's and plain version's (no dot in the name), then the
+    layers' (a dot)."""
+    from nbldpc_tpu_torch import sim
+    from nbldpc_tpu_torch.decoders import common
     from nbldpc_tpu_torch.kernels import cn_ems, cn_qspa, cn_tems, micro, route, sim_step
     from nbldpc_tpu_torch.kernels import ems_resident as er
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
@@ -45,15 +53,18 @@ def counted() -> list:
             ("prior_bl_plain", sim_step.prior_bl_plain, "calls"),
             ("count_errors", sim_step.count_errors, "launches"),
             ("count_errors_plain", sim_step.count_errors_plain, "calls"),
-            *((f"micro_{fn.__name__}", fn, "launches") for fn in micro.WRAPPERS)]
+            *((f"micro_{fn.__name__}", fn, "launches") for fn in micro.WRAPPERS),
+            ("sweep.loop_ns", sim.run_sweep, "loop_ns"),
+            ("decode_bl.loop_iterations", common.decode_bl, "loop_iterations"),
+            ("decode_bl.frame_iterations", common.decode_bl, "frame_iterations")]
 
 
 def launch_counts() -> dict:
-    """{name: count} of every counter in `counted`."""
+    """{name: count} of every counter of the program (`counted`)."""
     return {name: getattr(fn, attr) for name, fn, attr in counted()}
 
 
 def reset_launch_counts() -> None:
-    """Set every counter in `counted` to 0."""
+    """Set every counter of the program (`counted`) to 0."""
     for _, fn, attr in counted():
         setattr(fn, attr, 0)

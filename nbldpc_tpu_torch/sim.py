@@ -12,6 +12,14 @@ all-reduced: the only traffic between ranks. Every rank draws the whole
 step's noise and keeps its block, so each frame is decoded on exactly one
 rank and the counters equal a single process's for every layout.
 
+Spans (utils/trace.py) mark each piece of the host loop and of the step
+on torch.profiler's timeline: `sweep.plan`, `sweep.generator`,
+`sweep.fetch`, `sweep.account`, `sweep.checkpoint` and `step.noise`,
+`step.channel`, `step.decode`, `step.count`. run_sweep.loop_ns counts the
+nanoseconds of the loop's own four (plan, generator, account,
+checkpoint), always, with the kernels' launch counters
+(kernels.counted).
+
 Reproducibility: the noise of macro-batch t (and, in random-codeword mode,
 its info symbols) comes from a torch.Generator seeded from (seed, t)
 through np.random.SeedSequence, so a resumed sweep draws exactly the
@@ -36,6 +44,7 @@ from nbldpc_tpu_torch.gf import get_field
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels import sim_step
 from nbldpc_tpu_torch.utils.config import DecoderConfig, RunConfig
+from nbldpc_tpu_torch.utils.trace import span
 
 
 def get_cn_update(dec: DecoderConfig):
@@ -140,19 +149,23 @@ def make_sim_step(
 
     def frames(sigmas: torch.Tensor, noise: torch.Tensor, u=None) -> dict:
         S, B = noise.shape[:2]
-        cw = None if u is None else encoder.encode(u)                 # [S,B,N]
-        llr = channel(noise, sigmas, q, cw)                            # [S,B,N,q]
-        res = decode_fn(graph, llr.reshape(S * B, N, q))
-        return count(res.hard, cw, res.iters, res.done, S, B, p)
+        with span("step.channel"):
+            cw = None if u is None else encoder.encode(u)             # [S,B,N]
+            llr = channel(noise, sigmas, q, cw)                        # [S,B,N,q]
+        with span("step.decode"):
+            res = decode_fn(graph, llr.reshape(S * B, N, q))
+        with span("step.count"):
+            return count(res.hard, cw, res.iters, res.done, S, B, p)
 
     def step(gen: torch.Generator, sigmas: torch.Tensor) -> dict:
-        noise = torch.randn((S, B, N, p), generator=gen, device=device)
-        u = None if encoder is None else torch.randint(
-            0, q, (S, B, encoder.k), generator=gen, device=device, dtype=torch.int32)
-        if block is not None:
-            slots, frame_block = block
-            noise, sigmas = noise[slots, frame_block].contiguous(), sigmas[slots]
-            u = None if u is None else u[slots, frame_block]
+        with span("step.noise"):
+            noise = torch.randn((S, B, N, p), generator=gen, device=device)
+            u = None if encoder is None else torch.randint(
+                0, q, (S, B, encoder.k), generator=gen, device=device, dtype=torch.int32)
+            if block is not None:
+                slots, frame_block = block
+                noise, sigmas = noise[slots, frame_block].contiguous(), sigmas[slots]
+                u = None if u is None else u[slots, frame_block]
         return frames(sigmas, noise, u)
 
     step.frames = frames
@@ -177,14 +190,16 @@ def step_counters(step, gen: torch.Generator, sigmas: torch.Tensor, layout=None)
     this rank's block (make_sim_step's `block`, layout.block): its counters
     are placed in the step's [6, S] and all-reduced over the layout's
     group, so every rank gets the whole step's."""
-    out = stack(step(gen, sigmas))
-    if layout is not None:
-        full = torch.zeros((out.shape[0], sigmas.shape[0]), dtype=torch.int64,
-                           device=out.device)
-        full[:, step.block[0]] = out
-        tdist.all_reduce(full, group=layout.group)
-        out = full
-    return fetch(out)
+    out = step(gen, sigmas)
+    with span("sweep.fetch"):
+        out = stack(out)
+        if layout is not None:
+            full = torch.zeros((out.shape[0], sigmas.shape[0]), dtype=torch.int64,
+                               device=out.device)
+            full[:, step.block[0]] = out
+            tdist.all_reduce(full, group=layout.group)
+            out = full
+        return fetch(out)
 
 
 @dataclasses.dataclass
@@ -268,42 +283,49 @@ def run_sweep(
         if resumed is not None:
             start_t, counters = resumed
 
+    loop_ns = (run_sweep, "loop_ns")
     t0 = time.perf_counter()
     t = start_t
     while True:
-        done = (counters.frames >= cfg.sim.max_frames) | (
-            counters.frame_errors >= cfg.sim.max_frame_errors
-        )
-        if bool(np.all(done)):
-            break
-        # SNR points that hit their stop rule give their batch slots to the
-        # still-active points (active points ordered by frames served,
-        # filled round-robin): deterministic given the counters.
-        slot_point = np.arange(S)
-        n_done = int(done.sum())
-        if 0 < n_done < S:
-            active = np.flatnonzero(~done)
-            order = active[np.argsort(counters.frames[active], kind="stable")]
-            for k, s in enumerate(np.flatnonzero(done)):
-                slot_point[s] = order[k % len(order)]
-        sig = torch.from_numpy(sigma_np[slot_point]).to(graph.device)
-        o = step_counters(step, step_generator(cfg.sim.seed, t, graph.device), sig, layout)
-        if n_done:
-            remapped = {}
-            for name, arr in o.items():
-                acc = np.zeros(S, np.int64)
-                np.add.at(acc, slot_point, np.asarray(arr, np.int64))
-                remapped[name] = acc
-            o = remapped
-        counters.add(o)
-        t += 1
+        with span("sweep.plan", loop_ns):
+            done = (counters.frames >= cfg.sim.max_frames) | (
+                counters.frame_errors >= cfg.sim.max_frame_errors
+            )
+            if bool(np.all(done)):
+                break
+            # SNR points that hit their stop rule give their batch slots to
+            # the still-active points (active points ordered by frames
+            # served, filled round-robin): deterministic given the counters.
+            slot_point = np.arange(S)
+            n_done = int(done.sum())
+            if 0 < n_done < S:
+                active = np.flatnonzero(~done)
+                order = active[np.argsort(counters.frames[active], kind="stable")]
+                for k, s in enumerate(np.flatnonzero(done)):
+                    slot_point[s] = order[k % len(order)]
+            sig = torch.from_numpy(sigma_np[slot_point]).to(graph.device)
+        with span("sweep.generator", loop_ns):
+            gen = step_generator(cfg.sim.seed, t, graph.device)
+        o = step_counters(step, gen, sig, layout)
+        with span("sweep.account", loop_ns):
+            if n_done:
+                remapped = {}
+                for name, arr in o.items():
+                    acc = np.zeros(S, np.int64)
+                    np.add.at(acc, slot_point, np.asarray(arr, np.int64))
+                    remapped[name] = acc
+                o = remapped
+            counters.add(o)
+            t += 1
         if progress:
             progress(t, counters)
-        if ckpt and cfg.sim.checkpoint_every and t % cfg.sim.checkpoint_every == 0:
-            ckpt.save(t, counters)
+        with span("sweep.checkpoint", loop_ns):
+            if ckpt and cfg.sim.checkpoint_every and t % cfg.sim.checkpoint_every == 0:
+                ckpt.save(t, counters)
     wall = time.perf_counter() - t0
     if ckpt:
-        ckpt.save(t, counters)
+        with span("sweep.checkpoint", loop_ns):
+            ckpt.save(t, counters)
     res = SweepResult(
         ebn0_db=snrs,
         counters=counters,
@@ -312,3 +334,6 @@ def run_sweep(
         config_hash=cfg.config_hash(),
     )
     return res.finalize(spec.n, get_field(spec.q).p)
+
+
+run_sweep.loop_ns = 0

@@ -1833,3 +1833,66 @@ def test_q_last_refusals_on_card(cuda_device):
         ems.decode(g, llr, merge="bubble", batch_last=False)
     with pytest.raises(ValueError, match="q-last"):
         tems.decode(g, llr, cn_impl="kernel", batch_last=False)
+
+
+# --- the program's spans on the card's timeline (utils/trace.py) -------------
+
+# (decoder, code, Eb/N0 points, frames a step): K0's path and T-EMS in
+# decode_bl with early termination, two steps each
+TRACE_SWEEPS = [
+    (dict(kind="qspa", max_iters=50), "gf16_n204_k102", (1.0, 2.0), 1024),
+    (dict(kind="tems", max_iters=20, offset=2.0, tems_nr=8), "gf64_n576_k480", (3.0, 4.0), 256),
+]
+
+
+class _NoSpan:
+    def __init__(self, name, into=None):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dec,code,ebn0,frames", TRACE_SWEEPS, ids=["qspa_k0", "tems_decode_bl"])
+def test_spans_are_no_device_ops(cuda_device, monkeypatch, dec, code, ebn0, frames):
+    """A short run_sweep under torch.profiler (CPU and CUDA): no CUDA-typed
+    event bears a span's name (the spans are plain CPU ops, not user
+    annotations), and portbench's reduction finds the same device ops as
+    the same run with the spans made no-ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench import trace as bench_trace
+
+    from nbldpc_tpu_torch import sim
+    from nbldpc_tpu_torch.decoders import common
+    from nbldpc_tpu_torch.utils import config as tcfg
+
+    cfg = tcfg.RunConfig(code=CodeConfig(name=code), decoder=tcfg.DecoderConfig(**dec),
+                         channel=tcfg.ChannelConfig(ebn0_db=ebn0),
+                         sim=tcfg.SimConfig(frames_per_step=frames, max_frames=2 * frames,
+                                            max_frame_errors=10**9, seed=2**31 + 11))
+
+    def traced():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sim.run_sweep(cfg, cuda_device)
+            torch.cuda.synchronize()
+        return list(prof.events())
+
+    sim.run_sweep(cfg, cuda_device)                     # builds and warms up
+    events = traced()
+    names = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    spans = {n for n in names if n.startswith(("sweep.", "step.", "decode_bl."))}
+    assert {"sweep.plan", "sweep.fetch", "step.decode"} <= spans
+    assert ("decode_bl.sync" in spans) == (dec["kind"] == "tems")
+    assert not [e.name for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.name in spans]
+    kernels = set(bench_trace.reduce(events)["kernels"])
+    monkeypatch.setattr(sim, "span", _NoSpan)
+    monkeypatch.setattr(common, "span", _NoSpan)
+    bare = traced()
+    assert not {e.name for e in bare} & spans
+    assert set(bench_trace.reduce(bare)["kernels"]) == kernels

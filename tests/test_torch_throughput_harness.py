@@ -154,10 +154,12 @@ def test_run_all_cpu_record_and_merge(tmp_path):
     # the CPU runs the plain versions: one QSPA check-node update and one
     # of each routing half an iteration of each of the configuration's
     # steps, the channel, decode_bl's entry and the counters once a step,
-    # and no kernel
+    # and no kernel; decode_bl's loop counts its 20 iterations a step, and
+    # its 32 frames at each of them (run_all drives no run_sweep loop)
     assert {k: v for k, v in rec["launches"].items() if v} == {
         "cn_qspa_plain": 5 * 20, "route_down_plain": 5 * 20, "route_up_plain": 5 * 20,
-        "channel_llr_plain": 5, "prior_bl_plain": 5, "count_errors_plain": 5}
+        "channel_llr_plain": 5, "prior_bl_plain": 5, "count_errors_plain": 5,
+        "decode_bl.loop_iterations": 5 * 20, "decode_bl.frame_iterations": 5 * 20 * 32}
     # a later configuration, then the first again: merged in CONFIGS order,
     # the rerun replacing its record in place
     assert run_all.main([*common, "--only", "gf4_qspa_qc"]) == 0
