@@ -900,17 +900,63 @@ def phase_ems_resident(device):
 def phase_cn_tems(device):
     """K5 against its plain version (offset 2.0, config 4's) at GF(16),
     config 4's shape with the exact scan and n_r = 8, GF(256), then config
-    4's shape at n_r = 8 on tie-heavy inputs (4 levels)."""
+    4's shape at n_r = 8 on tie-heavy inputs (4 levels); then K5 with a
+    frame list (CN_TEMS_LISTS)."""
     from nbldpc_tpu_torch.kernels import cn_tems
 
     cases = [("gf16_n204_k102", 8192, 0, 0), ("gf64_n576_k480", 1024, 0, 0),
              ("gf64_n576_k480", 1024, 8, 0), ("gf256_n255_k175", 512, 8, 0),
              ("gf64_n576_k480", 1024, 8, 4)]
-    return [_hold_cn("cn_tems", device, code, B, cn_tems.cn_update,
+    rows = [_hold_cn("cn_tems", device, code, B, cn_tems.cn_update,
                      cn_tems.cn_update_plain, (2.0, n_r),
                      lambda q, dc, _offset, n_r: tems_check_ops(q, dc, n_r), levels,
                      n_r=n_r, offset=2.0, tie_levels=levels)
             for code, B, n_r, levels in cases]
+    _hold_cn_tems_lists(device)
+    return rows
+
+
+# K5 with a frame list (decode_bl's frames not yet done) at config 4's shape
+# [96, 12, 64, 1024], n_r = 8: (label, the listed frames) 40% and 10% of
+# the frames drawn at random, and the second of four slots of 256 frames
+CN_TEMS_LISTS = [("active40", 0.4), ("active10", 0.1), ("slot2", "slot")]
+
+
+def _hold_cn_tems_lists(device) -> None:
+    """K5 and its plain version each given the same U, list and an output
+    filled with 7.0: the listed columns of the two outputs equal (max abs
+    error 0.0) and finite, every other column of both still 7.0, and K5's
+    counter moved by the listed frames in one launch."""
+    import torch
+
+    from nbldpc_tpu_torch.kernels import cn_tems
+
+    B = 1024
+    U = _u_for(_graph("gf64_n576_k480", device), B, device)
+    for label, share in CN_TEMS_LISTS:
+        if share == "slot":
+            listed = (torch.arange(B) >= B // 4) & (torch.arange(B) < B // 2)
+        else:
+            listed = torch.rand(B, generator=torch.Generator().manual_seed(11)) < share
+        active = torch.nonzero(listed).flatten().to(torch.int32).to(device)
+        listed = listed.to(device)
+        out, ref = torch.full_like(U, 7.0), torch.full_like(U, 7.0)
+        launches, frames = cn_tems.cn_update.launches, cn_tems.cn_update.frame_iterations
+        got = cn_tems.cn_update(U, 2.0, 8, active, out)
+        counted = (cn_tems.cn_update.launches - launches,
+                   cn_tems.cn_update.frame_iterations - frames)
+        cn_tems.cn_update_plain(U, 2.0, 8, active, ref)
+        torch.cuda.synchronize()
+        err = float((out[..., listed] - ref[..., listed]).abs().max())
+        kept = bool((out[..., ~listed] == 7.0).all()) and bool((ref[..., ~listed] == 7.0).all())
+        finite = bool(torch.isfinite(out[..., listed]).all())
+        n = active.numel()
+        emit({"phase": "cn_tems", "case": f"list_{label}", "shape": list(U.shape), "n_r": 8,
+              "offset": 2.0, "listed": n, "max_abs_err": err, "others_untouched": kept,
+              "finite": finite, "launches": counted[0], "frames_counted": counted[1]})
+        if got is not out or err != 0.0 or not kept or not finite or counted != (1, n):
+            fail(f"cn_tems list {label} ({n} of {B} frames): max abs err {err}, others "
+                 f"untouched {kept}, finite {finite}, launches and frames {counted}")
 
 
 def _counters():
@@ -960,12 +1006,14 @@ def _step_launches(kernel: str, iters: int, frames: int) -> dict:
     `kernel`: a whole-decode kernel once, a check-node kernel and the
     routing kernels once an iteration, decode_bl's entry, the channel and
     the counters once; in decode_bl, its loop's iterations and the frames
-    times those."""
+    times those (K5's frames too: a fixed budget retires none)."""
     out = {k: iters if k in DECODE_BL_KERNELS + ROUTE_KERNELS else 1
            for k in _path_kernels(kernel, step=True)}
     if kernel in DECODE_BL_KERNELS:
         out.update({"decode_bl.loop_iterations": iters,
                     "decode_bl.frame_iterations": frames * iters})
+    if kernel == "cn_tems":
+        out["cn_tems.frame_iterations"] = frames * iters
     return out
 
 
@@ -2467,8 +2515,9 @@ def phase_routing(device, card: str) -> dict:
         g = _graph(code, device)
         llr = _llrs(g, frames, [ebn0], device)
 
-        def cn(U, _g, fn=fns[kernel], args=args):
-            return fn(U, *args)
+        def cn(U, _g, active, out, fn=fns[kernel], args=args):
+            # K5 takes decode_bl's frame list; the others compute every frame
+            return fn(U, *args, active, out) if kernel == "cn_tems" else fn(U, *args)
 
         for early, stats in ((True, True), (False, False)):
             _reset_counters()
@@ -2483,9 +2532,14 @@ def phase_routing(device, card: str) -> dict:
             emit({"phase": "routing", "case": "B", "kernel": kernel, "code": code,
                   "frames": frames, "ebn0_db": ebn0, "early_term": early, "equal": equal,
                   "converged": int(got.done.sum()), "iterations": its, "launches": ran})
+            # K5 computes the frames not yet done: with early termination the
+            # frame-iterations `iters` counts, else every frame
+            k5_frames = int(got.iters.sum()) if early else frames * its
             want = {k: v for k, v in ((kernel, its), ("route_down", its), ("route_up", its),
                                       ("decode_bl.loop_iterations", its),
-                                      ("decode_bl.frame_iterations", frames * its)) if v}
+                                      ("decode_bl.frame_iterations", frames * its),
+                                      ("cn_tems.frame_iterations",
+                                       k5_frames * (kernel == "cn_tems"))) if v}
             if not all(equal.values()) or ran != {**want, "prior_bl": 1}:
                 fail(f"routing B {kernel} early_term={early}: equal {equal}, launches {ran} "
                      f"for {its} iterations")
@@ -2681,7 +2735,10 @@ def phase_sim_step(device, card: str) -> tuple:
 # apart from its plain version (phase cn_qspa), which a frame that never
 # converges may amplify over 50 iterations; K0 runs probability-domain BP,
 # reported only. Config 5's EMS shape is cut to 512 frames for time (its
-# bench step has 4096).
+# bench step has 4096). tems_cfg4_early: with early termination K5 computes
+# only the frames not yet done (decode_bl's frame list), so its path, held
+# exactly to the q-last path as the plain path is, is held frame for frame
+# to the plain path, and K5's counter to the frame-iterations `iters` counts.
 Q_LAST_PLAIN_MIN = 1.0
 Q_LAST_CASES = [
     ("qspa_flagship", "gf16_n204_k102_c8", "qspa", {}, 8192, 50, 0.63, False, False,
@@ -2694,6 +2751,8 @@ Q_LAST_CASES = [
      False, {"kernel": ("cn_ems", 1.0)}),
     ("tems_cfg4", "gf64_n576_k480", "tems", {"n_r": 8, "offset": 2.0}, 1024, 20, 3.5, True,
      False, {"kernel": ("cn_tems", 1.0)}),
+    ("tems_cfg4_early", "gf64_n576_k480", "tems", {"n_r": 8, "offset": 2.0}, 1024, 20, 3.5,
+     True, True, {"kernel": ("cn_tems", 1.0)}),
 ]
 
 
@@ -2773,6 +2832,10 @@ def phase_q_last(device, card: str) -> list:
             timing["plain_ms" if impl == "torch" else f"{kernel}_ms"] = ms
             if kernel is not None and (not ran.get(kernel) or _ran_plain(counts)):
                 fail(f"q_last {label} {impl}: {kernel} did not run alone: {ran}")
+            k5_frames = int(got.iters.sum()) if early else frames * iters
+            if kernel == "cn_tems" and ran.get("cn_tems.frame_iterations") != k5_frames:
+                fail(f"q_last {label} {impl}: K5 computed "
+                     f"{ran.get('cn_tems.frame_iterations')} frames, not {k5_frames}")
             if least is not None and agree["agreement"] < least:
                 fail(f"q_last {label} {impl}: frame agreement {agree['agreement']} "
                      f"below {least}: {agree}")

@@ -33,7 +33,9 @@ probes at 0 and 200 iterations; route_cfg for decode_bl's routing kernels
 at config 5's and config 4's steps, which a tree from before them reports
 as absent; plain route keeps both; sim_step for the sim step's kernels
 (the channel, decode_bl's entry, the counters) at the flagship's, config
-4's and config 5's steps, absent from a tree before them).
+4's and config 5's steps, absent from a tree before them; k5_gf64_nr8
+also times K5 at 4096 frames with and without a frame list, the lists
+absent from a tree whose cn_update takes none).
 
 Prints the card's name and power limit, then one JSON line per case:
 device ms (CUDA events, mean over `reps` calls after one warm-up; for the
@@ -49,6 +51,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
@@ -109,6 +112,15 @@ K5_CASES = [("k5_gf16_exact", "gf16_n204_k102", 8192, 0, 0),
             ("k5_gf64_nr8", "gf64_n576_k480", 1024, 8, 0),
             ("k5_gf64_nr8_ties", "gf64_n576_k480", 1024, 8, 4),
             ("k5_gf256_nr8", "gf256_n255_k175", 512, 8, 0)]
+# (case, code, frames, n_r, frames listed): K5 at config 4's check node and
+# 4096 frames, at full width and with a frame list (decode_bl's retired
+# frames): 40% and 10% of the frames drawn at random, and the first quarter
+# (one SNR slot of four); a tree whose cn_update takes no list reports those
+# as absent
+K5_LIST_CASES = [("k5_gf64_nr8_4096", "gf64_n576_k480", 4096, 8, None),
+                 ("k5_gf64_nr8_4096_active40", "gf64_n576_k480", 4096, 8, 0.4),
+                 ("k5_gf64_nr8_4096_active10", "gf64_n576_k480", 4096, 8, 0.1),
+                 ("k5_gf64_nr8_4096_slot25", "gf64_n576_k480", 4096, 8, "slot")]
 # (case, code, frames): K1 at [102,4,16,8192], at phase highq_qspa's GF(64)
 # shape [96,12,64,2048] and at config 5's bench step [80,7,256,4096]
 K1_CASES = [("k1_gf16", "gf16_n204_k102", 8192),
@@ -249,6 +261,27 @@ def run_kernels(device, reps: int, only=()):
         yield {"case": case, "shape": list(U.shape), "n_r": n_r, "tie_levels": levels,
                "digest": _digest(out),
                "ms": cuda_ms(lambda: cn_tems.cn_update(U, 2.0, n_r), 10 * reps)}
+    for case, code, B, n_r, share in keep(K5_LIST_CASES):
+        if share is not None and "active" not in inspect.signature(cn_tems.cn_update).parameters:
+            yield {"case": case, "absent": True}
+            continue
+        U = _u_for(_graph(code, device), B, device)
+        if share is None:
+            active, out = None, None
+        elif share == "slot":
+            active, out = torch.arange(B // 4, dtype=torch.int32, device=device), U.clone()
+        else:
+            listed = torch.rand(B, generator=torch.Generator().manual_seed(3)) < share
+            active = torch.nonzero(listed).flatten().to(torch.int32).to(device)
+            out = U.clone()
+        res = cn_tems.cn_update(U, 2.0, n_r, *(() if active is None else (active, out)))
+        yield {"case": case, "shape": list(U.shape), "n_r": n_r,
+               "frames_listed": B if active is None else active.numel(),
+               "digest": _digest(res if active is None else res[..., active.long()]),
+               "ms": cuda_ms(lambda: cn_tems.cn_update(
+                   U, 2.0, n_r, *(() if active is None else (active, out))), 10 * reps)}
+        del U, out
+        torch.cuda.empty_cache()
     for case, code, B in keep(K1_CASES):
         g = _graph(code, device)
         U = _u_for(g, B, device)
@@ -578,10 +611,12 @@ def builds_trial(device, names, reps: int):
         U = _u_for(_graph(code, device), B, device, levels)
         ref = _digest(cn_tems.cn_update(U, 2.0, n_r))
         out = torch.empty_like(U)
+        # no frame list, where the entry point takes one
+        no_list = (None, 0) if len(_build.SIGNATURES["cn_tems_update"]) == 11 else ()
         for name in k5:
             fn = entry(name, "cn_tems_update")
             ms = cuda_ms(lambda: checked(fn(U.data_ptr(), out.data_ptr(), *U.shape, n_r, 2.0,
-                                        stream), name), 10 * reps)
+                                            *no_list, stream), name), 10 * reps)
             yield {"case": case, "build": name, "ms": ms, "same": _digest(out) == ref}
 
 

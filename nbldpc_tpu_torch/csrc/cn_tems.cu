@@ -53,6 +53,16 @@
 // stride padded so the copies meet no bank conflict); the outputs overwrite
 // the tile in place and leave in one pass. One barrier in, one barrier out,
 // none per column. Frames past B compute on zeros and store nothing.
+//
+// Frame list: given `active` (n_active ascending frame indices, int32),
+// block i takes the list's entries i * frames ... i * frames + frames - 1
+// in place of frames i * frames ...: the same copies from and to those
+// columns, the same arithmetic in between, so each listed (check, frame)
+// comes out bit for bit as at full width, and every other column of `out`
+// is left as it was. decoders/common.decode_bl lists the frames whose
+// syndrome does not hold yet. A dense list keeps neighbouring frames in one
+// block, so the rows stay in runs. Entries past n_active compute on zeros
+// and store nothing.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -160,7 +170,8 @@ size_t smem_bytes(int dc, int warps) {
 template <int Q>
 __global__ void __launch_bounds__(32 * kMaxWarps)
 cn_tems_kernel(const float* __restrict__ U, float* __restrict__ out, int dc, int B,
-               int n_r, float offset, int lg_frames) {
+               int n_r, float offset, int lg_frames, const int* __restrict__ active,
+               int n_active) {
   constexpr int W = Shape<Q>::kWidth;
   constexpr int NS = Shape<Q>::kSyms;
   extern __shared__ float smem[];
@@ -178,14 +189,17 @@ cn_tems_kernel(const float* __restrict__ U, float* __restrict__ out, int dc, int
   const float* Um = U + (size_t)blockIdx.y * dc * js;
   float* Om = out + (size_t)blockIdx.y * dc * js;
   const int entries = dc * Q * frames;
+  // the block's frames x W threads: each copies the rows of one frame, its
+  // column `col` of U and of out
+  const int fc = threadIdx.x & (frames - 1);
+  const int i = b0 + fc;
+  const bool valid = i < (active ? n_active : B);
+  const int col = !valid ? 0 : (active ? active[i] : i);
+  float* Tc = tile + (size_t)fc * S;
 
   // ---- the block's whole tile, once: row-major in U, frame-major here ----
-  for (int e = threadIdx.x; e < entries; e += blockDim.x) {
-    const int f = e & (frames - 1), row = e >> lg_frames;
-    const bool valid = b0 + f < B;
-    copy4_async(tile + (size_t)f * S + row, Um + (size_t)row * B + (valid ? b0 + f : 0),
-                valid);
-  }
+  for (int e = threadIdx.x; e < entries; e += blockDim.x)
+    copy4_async(Tc + (e >> lg_frames), Um + (size_t)(e >> lg_frames) * B + col, valid);
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
@@ -311,16 +325,16 @@ cn_tems_kernel(const float* __restrict__ U, float* __restrict__ out, int dc, int
 
   // ---- the outputs, in one pass ----
   __syncthreads();
-  for (int e = threadIdx.x; e < entries; e += blockDim.x) {
-    const int f = e & (frames - 1), row = e >> lg_frames;
-    if (b0 + f < B) Om[(size_t)row * B + b0 + f] = tile[(size_t)f * S + row];
-  }
+  if (valid)
+    for (int e = threadIdx.x; e < entries; e += blockDim.x)
+      Om[(size_t)(e >> lg_frames) * B + col] = Tc[e >> lg_frames];
 }
 
 template <int Q>
 cudaError_t launch(const float* U, float* out, int M, int dc, int B, int n_r,
-                   float offset, cudaStream_t stream) {
-  if (M > 65535 || dc < 3 || dc > kMaxDc || n_r < 0 || n_r >= Q)
+                   float offset, const int* active, int n_active, cudaStream_t stream) {
+  if (M > 65535 || dc < 3 || dc > kMaxDc || n_r < 0 || n_r >= Q ||
+      (active && (n_active < 1 || n_active > B)))
     return cudaErrorInvalidValue;
   // 16 warps a block unless that leaves fewer than three blocks an SM
   // (faster at GF(256); benchmarks/kernel_ab.py --builds k5_warps16)
@@ -332,26 +346,31 @@ cudaError_t launch(const float* U, float* out, int M, int dc, int B, int n_r,
       cn_tems_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const int frames = warps * Shape<Q>::kPerWarp;
-  const dim3 grid((B + frames - 1) / frames, M);
+  const int n = active ? n_active : B;
+  const dim3 grid((n + frames - 1) / frames, M);
   cn_tems_kernel<Q><<<grid, 32 * warps, bytes, stream>>>(U, out, dc, B, n_r, offset,
-                                                         __builtin_ctz(frames));
+                                                         __builtin_ctz(frames), active,
+                                                         n_active);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// active: n_active ascending frame indices in [0, B) to compute, or null for
+// all B frames
 extern "C" int cn_tems_update(const float* U, float* out, int M, int dc, int q, int B,
-                              int n_r, float offset, void* stream) {
+                              int n_r, float offset, const int* active, int n_active,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (q) {
-    case 2: return launch<2>(U, out, M, dc, B, n_r, offset, s);
-    case 4: return launch<4>(U, out, M, dc, B, n_r, offset, s);
-    case 8: return launch<8>(U, out, M, dc, B, n_r, offset, s);
-    case 16: return launch<16>(U, out, M, dc, B, n_r, offset, s);
-    case 32: return launch<32>(U, out, M, dc, B, n_r, offset, s);
-    case 64: return launch<64>(U, out, M, dc, B, n_r, offset, s);
-    case 128: return launch<128>(U, out, M, dc, B, n_r, offset, s);
-    case 256: return launch<256>(U, out, M, dc, B, n_r, offset, s);
+    case 2: return launch<2>(U, out, M, dc, B, n_r, offset, active, n_active, s);
+    case 4: return launch<4>(U, out, M, dc, B, n_r, offset, active, n_active, s);
+    case 8: return launch<8>(U, out, M, dc, B, n_r, offset, active, n_active, s);
+    case 16: return launch<16>(U, out, M, dc, B, n_r, offset, active, n_active, s);
+    case 32: return launch<32>(U, out, M, dc, B, n_r, offset, active, n_active, s);
+    case 64: return launch<64>(U, out, M, dc, B, n_r, offset, active, n_active, s);
+    case 128: return launch<128>(U, out, M, dc, B, n_r, offset, active, n_active, s);
+    case 256: return launch<256>(U, out, M, dc, B, n_r, offset, active, n_active, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -13,8 +13,10 @@ dc_max, q, B] / [N, dv_max, q, B], priors [N, q, B], hard decisions [N,
 B]. q-last layout (decode and vn_update, the decoders' batch_last=False):
 messages [B, M, dc_max, q] / [B, N, dv_max, q], priors [B, N, q], plain
 PyTorch on the input's device, no kernel. Messages are log-domain,
-normalized so the max over q is 0. Converged frames keep running (no
-dynamic shapes); only their hard/done/iters outputs are frozen.
+normalized so the max over q is 0. Once a frame is done its hard/done/iters
+outputs are frozen. The routing keeps computing it (no dynamic shapes);
+decode_bl hands its CN update the list of frames not yet done, which the
+T-EMS check node computes alone and the others ignore.
 """
 
 from __future__ import annotations
@@ -38,6 +40,24 @@ class DecodeResult(NamedTuple):
 
 
 CnUpdateFn = Callable[[torch.Tensor, TannerGraph], torch.Tensor]
+# decode_bl's CN update: (U, graph, active, out) -> Chat, where `active`
+# lists the frames it must compute (None: all) and `out` is its previous
+# output (None at first), whose other columns it may keep
+CnUpdateBlFn = Callable[[torch.Tensor, TannerGraph, torch.Tensor | None,
+                         torch.Tensor | None], torch.Tensor]
+
+
+def full_width(cn_update: CnUpdateFn) -> CnUpdateBlFn:
+    """A CN update of (U, graph) as decode_bl's: it computes every frame and
+    ignores the list and the previous output."""
+    return lambda U, graph, _active, _out: cn_update(U, graph)
+
+
+def active_frames(done: torch.Tensor, n_active: int) -> torch.Tensor:
+    """done [B] bool and its count of False -> the frames not done, int32
+    [n_active] in ascending order, built on done's device with no host
+    sync (the first n_active entries of a stable sort of done)."""
+    return torch.argsort(done, stable=True)[:n_active].to(torch.int32)
 
 
 def argmax_q(post: torch.Tensor) -> torch.Tensor:
@@ -119,7 +139,7 @@ def decode(
 def decode_bl(
     graph: TannerGraph,
     llr: torch.Tensor,
-    cn_update_bl: CnUpdateFn,
+    cn_update_bl: CnUpdateBlFn,
     max_iters: int,
     early_term: bool = True,
     stats_each_iter: bool = True,
@@ -133,17 +153,27 @@ def decode_bl(
     and kernels/sim_step.py (the CUDA kernels on a CUDA tensor),
     route="torch" through their plain versions.
 
-    early_term=True stops once every frame is done (checked on the host
-    each iteration). stats_each_iter=False (fixed-budget throughput mode,
+    cn_update_bl is called as (U, graph, active, out), `out` its previous
+    output (None at first). early_term=True stops once every frame is done:
+    the host reads the count of frames not done each iteration, its one
+    sync, and `active` lists those frames (int32, ascending; None where no
+    frame is done, and always without early_term). A CN update may compute
+    only the listed columns and keep the others of `out` (the T-EMS check
+    node does): a done frame's messages are then its last ones, which only
+    its frozen outputs could read. Each frame's messages depend on its own
+    LLRs alone, so the result is bit for bit that of a full-width update.
+
+    stats_each_iter=False (fixed-budget throughput mode,
     forced True when early_term is set) skips the per-iteration decision:
     `done` stays at its initial value during the loop, frames done at
     initialization report 0 iterations and the rest max_iters, and the
     decision is taken after the loop.
 
     Spans (utils/trace.py), as the JAX loop's scopes: `decode_bl.entry`,
-    then each iteration `decode_bl.sync` (the host's done.all(), with
-    early_term), `decode_bl.route_down` (JAX's vn_update),
-    `decode_bl.cn_update`, `decode_bl.route_up` (posterior) and
+    then each iteration `decode_bl.sync` (the host's read of the count of
+    frames not done, with early_term), `decode_bl.route_down` (JAX's
+    vn_update), `decode_bl.cn_update` (with the frame list),
+    `decode_bl.route_up` (posterior) and
     `decode_bl.syndrome` (the decision, the syndrome and the merge of
     done). decode_bl.loop_iterations counts the iterations the loop ran,
     decode_bl.frame_iterations the decode's frames times those.
@@ -165,19 +195,22 @@ def decode_bl(
         posterior = llr
         done = satisfied(graph, hard)
         iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
+        Chat = active = None
 
     for _ in range(max_iters):
         if early_term:
             with span("decode_bl.sync"):
-                all_done = bool(done.all())
-            if all_done:
+                n_active = B - int(done.sum())
+            if n_active == 0:
                 break
         decode_bl.loop_iterations += 1
         decode_bl.frame_iterations += B
         with span("decode_bl.route_down"):
             U = route_down(posterior, Cv, graph)               # [M, dc, q, B]
         with span("decode_bl.cn_update"):
-            Chat = cn_update_bl(U, graph)
+            if early_term and n_active < B:
+                active = active_frames(done, n_active)
+            Chat = cn_update_bl(U, graph, active, Chat)
         with span("decode_bl.route_up"):
             Cv, posterior = route_up(Chat, llr, graph)         # [N, dv, q, B], [N, q, B]
         with span("decode_bl.syndrome"):

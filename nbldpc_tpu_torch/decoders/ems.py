@@ -356,6 +356,6 @@ def decode(
         fn = cn_ems.cn_update_bubble if impl == "kernel" else cn_ems.cn_update_bubble_plain
     else:
         fn = cn_ems.cn_update if impl == "kernel" else cn_ems.cn_update_plain
-    cn = lambda U, _graph: fn(U, nm, offset)
+    cn = common.full_width(lambda U, _graph: fn(U, nm, offset))
     return common.decode_bl(graph, llr, cn, max_iters, early_term,
                             stats_each_iter=stats_each_iter, route=impl)

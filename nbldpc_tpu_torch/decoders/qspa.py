@@ -123,6 +123,7 @@ def decode(
                                       mm_precision)
         hard, done, iters = qr.resident_decode(dec, llr)
         return common.DecodeResult(hard=hard, done=done, iters=iters)
-    cn = qspa_cn_update_bl_kernel if impl == "kernel" else qspa_cn_update_bl
+    cn = common.full_width(qspa_cn_update_bl_kernel if impl == "kernel"
+                           else qspa_cn_update_bl)
     return common.decode_bl(graph, llr, cn, max_iters, early_term,
                             stats_each_iter=stats_each_iter, route=impl)

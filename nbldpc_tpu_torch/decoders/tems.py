@@ -198,7 +198,9 @@ def decode(
 
     n_r > 0 truncates the two-deviation search to the n_r most reliable
     rows; stats_each_iter=False is the fixed-budget throughput mode
-    (ignored by the q-last path, batch_last=False)."""
+    (ignored by the q-last path, batch_last=False). With early_term the
+    check node computes only the frames not yet done (decode_bl's frame
+    list)."""
     from nbldpc_tpu_torch.kernels import cn_tems
 
     if graph.dc_max < 3:
@@ -209,6 +211,6 @@ def decode(
         return common.decode(graph, llr, cn, max_iters, early_term)
     impl = pick_impl(cn_impl, llr)
     fn = cn_tems.cn_update if impl == "kernel" else cn_tems.cn_update_plain
-    cn = lambda U, _graph: fn(U, offset, n_r)
+    cn = lambda U, _graph, active, out: fn(U, offset, n_r, active, out)
     return common.decode_bl(graph, llr, cn, max_iters, early_term,
                             stats_each_iter=stats_each_iter, route=impl)

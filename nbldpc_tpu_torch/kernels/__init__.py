@@ -6,7 +6,9 @@ Every kernel wrapper counts its launches on an attribute of its own
 (`calls`). `counted` is the registry of every counter of the program:
 those, under the kernel's name, and the layers' own counters under dotted
 names (`sweep.loop_ns` on sim.run_sweep, `decode_bl.loop_iterations` and
-`decode_bl.frame_iterations` on decoders/common.decode_bl), so that a run
+`decode_bl.frame_iterations` on decoders/common.decode_bl,
+`cn_tems.frame_iterations` on cn_tems.cn_update: the frames the T-EMS
+check node computed, kernel or plain version), so that a run
 can zero them before a path and read which kernels it launched, whether a
 plain version ran and what its layers counted. The submodules are
 imported only when the counters are read: importing this package builds
@@ -56,7 +58,8 @@ def counted() -> list:
             *((f"micro_{fn.__name__}", fn, "launches") for fn in micro.WRAPPERS),
             ("sweep.loop_ns", sim.run_sweep, "loop_ns"),
             ("decode_bl.loop_iterations", common.decode_bl, "loop_iterations"),
-            ("decode_bl.frame_iterations", common.decode_bl, "frame_iterations")]
+            ("decode_bl.frame_iterations", common.decode_bl, "frame_iterations"),
+            ("cn_tems.frame_iterations", cn_tems.cn_update, "frame_iterations")]
 
 
 def launch_counts() -> dict:

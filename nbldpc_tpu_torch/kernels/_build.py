@@ -39,8 +39,8 @@ SIGNATURES = {
     # U, out, M, dc, q, B, nm, offset, stream
     "cn_ems_update": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
     "cn_ems_update_bubble": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # U, out, M, dc, q, B, n_r, offset, stream
-    "cn_tems_update": [_P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # U, out, M, dc, q, B, n_r, offset, active (or null), n_active, stream
+    "cn_tems_update": [_P, _P, _I, _I, _I, _I, _I, _F, _P, _I, _P],
     "qspa_resident_decode": [_P, _P, _P, _P, _P,        # llr, hard, done, iters, scratch
                              _I, _I, _I, _I, _I, _I,    # B N M dc dv q
                              _P, _P, _P, _P, _P,        # tables
@@ -226,12 +226,18 @@ def launch(wrapper, name: str, device, *args, counter: str = "launches") -> None
     setattr(wrapper, counter, getattr(wrapper, counter) + 1)
 
 
-def launch_cn(wrapper, name: str, U, *args):
+def launch_cn(wrapper, name: str, U, *args, out=None):
     """Launch the C entry point `name`(U, out, M, dc, q, B, *args, stream) on
-    a checked U, count the launch on `wrapper.launches` and return out."""
+    a checked U, count the launch on `wrapper.launches` and return out: a
+    new tensor, or `out` (U's shape, float32, contiguous, on U's device)."""
     import torch
 
-    out = torch.empty_like(U)
+    if out is None:
+        out = torch.empty_like(U)
+    elif out.shape != U.shape or out.dtype != U.dtype or out.device != U.device \
+            or not out.is_contiguous():
+        raise ValueError(f"{name}: out must be a contiguous tensor of U's shape, type "
+                         "and device")
     if U.numel():
         launch(wrapper, name, U.device, U.data_ptr(), out.data_ptr(), *U.shape, *args)
     return out

@@ -725,6 +725,88 @@ def test_cn_tems_wrapper_rejects_bad_input(cuda_device):
     assert cn_tems.cn_update.launches == before + 1
 
 
+# K5 with a frame list (decode_bl's retired frames): config 4's check node
+# at 4096 frames with n_r 8, and the exact scan at [102, 4, 16, 8192]
+K5_LIST_CASES = [("gf64_n576_k480", 4096, 8), ("gf16_n204_k102", 8192, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [7.0, None])
+@pytest.mark.parametrize("share", [1.0, 0.4, 0.03, 0.0])
+@pytest.mark.parametrize("code,B,n_r", K5_LIST_CASES)
+def test_cn_tems_kernel_with_a_frame_list(cuda_device, code, B, n_r, share, fill):
+    """The listed columns of `out` equal K5 at full width bit for bit, every
+    other column is untouched (zeros where no `out` is given); one launch
+    (none for an empty list), the listed frames counted."""
+    g = _graph(code, cuda_device)
+    U = _random_u(g, B, cuda_device)
+    full = cn_tems.cn_update(U, 2.0, n_r)
+    listed = torch.rand(B, generator=torch.Generator().manual_seed(5)) < share
+    active = torch.nonzero(listed).flatten().to(torch.int32).to(cuda_device)
+    out = None if fill is None else torch.full_like(U, fill)
+    launches, frames = cn_tems.cn_update.launches, cn_tems.cn_update.frame_iterations
+    got = cn_tems.cn_update(U, 2.0, n_r, active, out)
+    torch.cuda.synchronize()
+    assert got is out if out is not None else got.shape == U.shape
+    n = active.numel()
+    assert (n == B) == (share == 1.0) and (n == 0) == (share == 0.0)
+    assert cn_tems.cn_update.launches == launches + (n > 0)
+    assert cn_tems.cn_update.frame_iterations == frames + n
+    listed = listed.to(cuda_device)
+    assert torch.equal(got[..., listed], full[..., listed])
+    assert bool((got[..., ~listed] == (fill or 0.0)).all())
+
+
+@pytest.mark.cuda
+def test_cn_tems_kernel_refuses_a_bad_frame_list(cuda_device):
+    U = torch.zeros((2, 4, 16, 8), device=cuda_device)
+    for bad in (torch.arange(3, device=cuda_device),                 # int64
+                torch.arange(3, dtype=torch.int32),                  # on the CPU
+                torch.arange(9, dtype=torch.int32, device=cuda_device)):   # more than B
+        with pytest.raises(ValueError, match="active"):
+            cn_tems.cn_update(U, 0.0, 0, bad, torch.empty_like(U))
+    with pytest.raises(ValueError, match="out"):
+        cn_tems.cn_update(U, 0.0, 0, torch.arange(3, dtype=torch.int32, device=cuda_device),
+                          torch.empty((2, 4, 16, 9), device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_tems_sweep_steps_with_retired_frames_equal_full_width(cuda_device, monkeypatch):
+    """Three steps of gf64_tems_earlyterm (4 points x 1024 frames): the
+    counters equal those of K5 at full width each iteration (no frame
+    list), K5 launches as often, and it computes exactly the
+    frame-iterations the frames needed."""
+    from nbldpc_tpu_torch import sim
+    from nbldpc_tpu_torch.decoders import common
+    from nbldpc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from nbldpc_tpu_torch.utils.config import load_config
+
+    cfg = load_config(CODES.parent / "configs" / "gf64_tems_earlyterm.json")
+    g = TannerGraph(cfg.code.load(), device=cuda_device)
+    points = cfg.channel.ebn0_db
+    sig = torch.tensor([ebn0_to_sigma(x, g.spec.k / g.n) for x in points],
+                       dtype=torch.float32, device=cuda_device)
+    step = sim.make_sim_step(g, cfg.decoder, cfg.sim.frames_per_step, len(points))
+
+    def run():
+        reset_launch_counts()
+        out = [sim.step_counters(step, sim.step_generator(2**31 + 5, t, cuda_device), sig)
+               for t in range(3)]
+        return out, launch_counts()
+
+    got, counts = run()
+    monkeypatch.setattr(common, "active_frames", lambda done, n_active: None)
+    ref, ref_counts = run()
+    for a, b in zip(got, ref):
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+    iter_sum = sum(int(c["iter_sum"].sum()) for c in got)
+    frames = len(points) * cfg.sim.frames_per_step
+    assert counts["cn_tems"] == ref_counts["cn_tems"] == counts["decode_bl.loop_iterations"]
+    assert counts["cn_tems.frame_iterations"] == iter_sum
+    assert ref_counts["cn_tems.frame_iterations"] == frames * counts["decode_bl.loop_iterations"]
+    assert iter_sum < ref_counts["cn_tems.frame_iterations"]
+
+
 # The probes P1-P7 at the JAX scripts' full shapes. Each kernel repeats its
 # plain version's operations in the same order, P4's IEEE divisions and
 # P5's expf included (0.0 measured on the H100): exact.
@@ -1424,6 +1506,13 @@ def test_run_all_row_launches_its_kernel(cuda_device, tmp_path, config, kernel):
             for name in ([kernel] if "resident" in kernel else [kernel, "route_down", "route_up"])}
     want.update({name: rec["steps"] for name in (
         ["channel_llr", "count_errors"] + ([] if "resident" in kernel else ["prior_bl"]))})
+    if "resident" not in kernel:
+        # decode_bl's loop counters; K5 computes every frame (a fixed budget)
+        frames = rec["batch"] * rec["n_snr"]
+        want.update({"decode_bl.loop_iterations": rec["steps"] * per_step,
+                     "decode_bl.frame_iterations": rec["steps"] * per_step * frames})
+        if kernel == "cn_tems":
+            want["cn_tems.frame_iterations"] = rec["steps"] * per_step * frames
     assert {k: v for k, v in rec["launches"].items() if v} == want
     assert rec["config"] == config and rec["batch"] == 32 and rec["timing"] == "cuda_events"
     assert rec["device"] == torch.cuda.get_device_name(cuda_device)
@@ -1508,13 +1597,14 @@ def test_route_kernels_match_plain_at_step_shapes(cuda_device, code, B, levels):
 # (label, code, the CN kernel as decode_bl calls it, Eb/N0): K1, K2, K2b and
 # K5 on their paths' codes, K1 and K5 also on the code with CN and VN pads
 ROUTE_DECODES = [
-    ("k1", "gf256_n255_k175", lambda U, _g: cn_qspa.cn_update(U), 2.5),
-    ("k1", "irregular_gf16", lambda U, _g: cn_qspa.cn_update(U), 3.0),
-    ("k2", "gf256_n255_k175", lambda U, _g: cn_ems.cn_update(U, 16, 0.1), 2.5),
-    ("k2", "gf64_n576_k480", lambda U, _g: cn_ems.cn_update(U, 8, 0.1), 3.0),
-    ("k2b", "gf256_n255_k175", lambda U, _g: cn_ems.cn_update_bubble(U, 16, 0.0), 2.5),
-    ("k5", "gf64_n576_k480", lambda U, _g: cn_tems.cn_update(U, 2.0, 8), 3.5),
-    ("k5", "irregular_gf16", lambda U, _g: cn_tems.cn_update(U, 2.0, 0), 3.0),
+    ("k1", "gf256_n255_k175", lambda U, _g, _a, _o: cn_qspa.cn_update(U), 2.5),
+    ("k1", "irregular_gf16", lambda U, _g, _a, _o: cn_qspa.cn_update(U), 3.0),
+    ("k2", "gf256_n255_k175", lambda U, _g, _a, _o: cn_ems.cn_update(U, 16, 0.1), 2.5),
+    ("k2", "gf64_n576_k480", lambda U, _g, _a, _o: cn_ems.cn_update(U, 8, 0.1), 3.0),
+    ("k2b", "gf256_n255_k175", lambda U, _g, _a, _o: cn_ems.cn_update_bubble(U, 16, 0.0),
+     2.5),
+    ("k5", "gf64_n576_k480", lambda U, _g, a, o: cn_tems.cn_update(U, 2.0, 8, a, o), 3.5),
+    ("k5", "irregular_gf16", lambda U, _g, a, o: cn_tems.cn_update(U, 2.0, 0, a, o), 3.0),
 ]
 
 

@@ -166,5 +166,5 @@ def test_dispatch_and_refusals(small_codes):
     assert qr.decode_plain.calls == calls + 1 and res.hard.shape == (2, g.n)
     with pytest.raises(ValueError, match="mm_precision"):
         tqspa.decode(g, llr, mm_precision="fp16")
-    res = common.decode_bl(g, llr[:0], tqspa.qspa_cn_update_bl, 3)
+    res = common.decode_bl(g, llr[:0], common.full_width(tqspa.qspa_cn_update_bl), 3)
     assert res.hard.shape == (0, g.n)

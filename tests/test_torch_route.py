@@ -163,10 +163,10 @@ MODES = {"early_term": dict(early_term=True),
 # CN updates through the wrappers a "kernel" decode calls (on CPU tensors
 # their plain versions)
 DECODERS = {
-    "qspa": lambda U, _g: cn_qspa.cn_update(U),
-    "ems": lambda U, _g: cn_ems.cn_update(U, 8, 0.3),
-    "ems_bubble": lambda U, _g: cn_ems.cn_update_bubble(U, 8, 0.0),
-    "tems": lambda U, _g: cn_tems.cn_update(U, 2.0, 4),
+    "qspa": common.full_width(lambda U, _g: cn_qspa.cn_update(U)),
+    "ems": common.full_width(lambda U, _g: cn_ems.cn_update(U, 8, 0.3)),
+    "ems_bubble": common.full_width(lambda U, _g: cn_ems.cn_update_bubble(U, 8, 0.0)),
+    "tems": lambda U, _g, active, out: cn_tems.cn_update(U, 2.0, 4, active, out),
 }
 
 

@@ -96,7 +96,7 @@ def ranks(setup, tmp_path_factory):
 def test_sharded_equals_decode_bl(setup, ranks, world, early, name):
     spec, llrs = setup
     ref = common.decode_bl(TannerGraph(spec, "cpu"), torch.from_numpy(llrs[name]),
-                           qspa.qspa_cn_update_bl, ITERS, early)
+                           common.full_width(qspa.qspa_cn_update_bl), ITERS, early)
     want = tuple(t.numpy() for t in ref)
     for r, got in enumerate(ranks[world]):
         for a, b, what in zip(got[(name, early)], want, ("hard", "done", "iters")):
@@ -138,7 +138,7 @@ def test_sharded_equals_jax_sharded(setup, ranks, world, early, name):
 def test_sharded_other_cns_equal_decode_bl(setup, ranks, cn, world, early, name):
     spec, llrs = setup
     ref = common.decode_bl(TannerGraph(spec, "cpu"), torch.from_numpy(llrs[name]),
-                           _port_cn(cn), ITERS, early)
+                           common.full_width(_port_cn(cn)), ITERS, early)
     want = tuple(t.numpy() for t in ref)
     for r, got in enumerate(ranks[world]):
         for a, b, what in zip(got[(cn, name, early)], want, ("hard", "done", "iters")):
@@ -202,6 +202,6 @@ def test_single_rank_group_equals_decode_bl(setup, tmp_path):
         got = sharded.decode_edge_sharded(g, llr, qspa.qspa_cn_update_bl, ITERS)
     finally:
         tdist.destroy_process_group()
-    want = common.decode_bl(g, llr, qspa.qspa_cn_update_bl, ITERS)
+    want = common.decode_bl(g, llr, common.full_width(qspa.qspa_cn_update_bl), ITERS)
     for a, b in zip(got, want):
         assert torch.equal(a, b)

@@ -187,3 +187,173 @@ def test_cli_run_gf64_tems_config_cpu(tmp_path):
     assert got["config"]["decoder"]["tems_nr"] == 8
     assert all(0.0 <= f <= 1.0 for f in got["fer"])
     assert all(0.0 <= a <= 2.0 for a in got["avg_iters"])
+
+
+# --- frame retirement: the T-EMS check node computes only undone frames ------
+
+RETIRE_CASES = [("gf16_tiny", 0), ("gf16_tiny", 8), ("q64", 0), ("q64", 8)]
+
+
+def _mixed_llrs(spec):
+    """16 frames, half at 1.0 dB and half at 4.0 dB, interleaved, so that
+    frames retire at different iterations and some never do."""
+    lo, hi = noisy_llrs(spec, 8, 1.0, seed=3)[1], noisy_llrs(spec, 8, 4.0, seed=4)[1]
+    return torch.from_numpy(np.stack([lo, hi], axis=1).reshape(16, *lo.shape[1:]))
+
+
+@pytest.mark.parametrize("code,n_r", RETIRE_CASES)
+def test_retired_decode_equals_full_width(small_codes, highq_codes, code, n_r, monkeypatch):
+    """decode_bl with its frame list returns what it does with none (the
+    check node at full width every iteration), and the check node computes
+    exactly the frame-iterations that `iters` counts."""
+    from nbldpc_tpu_torch.decoders import common
+
+    g = port_graph(_spec(small_codes, highq_codes, code))
+    llr = _mixed_llrs(_spec(small_codes, highq_codes, code))
+    cn = lambda U, _g, active, out: cn_tems.cn_update_plain(U, 0.5, n_r, active, out)
+    before = cn_tems.cn_update.frame_iterations
+    got = common.decode_bl(g, llr, cn, 12, early_term=True)
+    counted = cn_tems.cn_update.frame_iterations - before
+    monkeypatch.setattr(common, "active_frames", lambda done, n_active: None)
+    ref = common.decode_bl(g, llr, cn, 12, early_term=True)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    iters = got.iters
+    assert len(set(iters.tolist())) >= 3                  # frames retire at different times
+    assert counted == int(iters.sum()) < 16 * int(iters.max())
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("code,n_r", RETIRE_CASES)
+def test_cn_tems_frame_iterations_counter(small_codes, highq_codes, code, n_r, mode):
+    """tems.decode: the counter equals iters.sum() with early termination,
+    and frames x the loop's iterations in the fixed-budget mode (no list)."""
+    from nbldpc_tpu_torch.decoders import common
+    from nbldpc_tpu_torch.kernels import launch_counts
+
+    spec = _spec(small_codes, highq_codes, code)
+    llr = _mixed_llrs(spec)
+    before = launch_counts()
+    res = tems.decode(port_graph(spec), llr, max_iters=12, offset=0.5, n_r=n_r,
+                      cn_impl="torch", **MODES[mode])
+    after = launch_counts()
+    counted = after["cn_tems.frame_iterations"] - before["cn_tems.frame_iterations"]
+    loops = after["decode_bl.loop_iterations"] - before["decode_bl.loop_iterations"]
+    assert common.decode_bl.frame_iterations - before["decode_bl.frame_iterations"] \
+        == 16 * loops
+    if mode == "early_term":
+        assert counted == int(res.iters.sum()) < 16 * loops
+    else:
+        assert counted == 16 * loops == 16 * 12
+
+
+@pytest.mark.parametrize("pattern", ["none_done", "all_done", "one_left", "mixed"])
+def test_active_frames_lists_the_frames_not_done(pattern):
+    from nbldpc_tpu_torch.decoders import common
+
+    B = 37
+    done = {"none_done": torch.zeros(B, dtype=torch.bool),
+            "all_done": torch.ones(B, dtype=torch.bool),
+            "one_left": torch.arange(B) != 29,
+            "mixed": torch.from_numpy(np.random.default_rng(2).random(B) < 0.6)}[pattern]
+    n_active = int((~done).sum())
+    got = common.active_frames(done, n_active)
+    assert got.dtype == torch.int32 and got.shape == (n_active,)
+    assert torch.equal(got, torch.nonzero(~done).flatten().to(torch.int32))
+
+
+@pytest.mark.parametrize("fill", [7.0, None])
+@pytest.mark.parametrize("share", [1.0, 0.4, 0.03, 0.0])
+@pytest.mark.parametrize("code,n_r", RETIRE_CASES)
+def test_plain_cn_with_a_list_writes_only_its_columns(small_codes, highq_codes, code, n_r,
+                                                      share, fill):
+    """The plain check node with a frame list: the listed columns of `out`
+    equal the full-width update's, every other column keeps its value
+    (zeros where no `out` is given)."""
+    jg = jgraph.TannerGraph(_spec(small_codes, highq_codes, code))
+    U = torch.from_numpy(random_u(jg, B=40, seed=9)[1])
+    rng = np.random.default_rng(int(share * 100))
+    active = torch.from_numpy(np.flatnonzero(rng.random(40) < share).astype(np.int32))
+    if share == 1.0:
+        assert active.numel() == 40
+    full = cn_tems.cn_update_plain(U, 2.0, n_r)
+    out = None if fill is None else torch.full_like(U, fill)
+    before = cn_tems.cn_update.frame_iterations
+    got = cn_tems.cn_update(U, 2.0, n_r, active, out)            # a CPU tensor: plain
+    assert got is out if out is not None else got.shape == U.shape
+    assert cn_tems.cn_update.frame_iterations == before + active.numel()
+    listed = torch.zeros(40, dtype=torch.bool)
+    listed[active.long()] = True
+    assert torch.equal(got[..., listed], full[..., listed])
+    assert bool((got[..., ~listed] == (fill or 0.0)).all())
+
+
+def test_plain_cn_without_a_list_ignores_out():
+    U = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 4, 16, 8))
+                         .astype(np.float32))
+    out = torch.full_like(U, 7.0)
+    got = cn_tems.cn_update_plain(U, 0.0, 0, None, out)
+    assert got is not out and bool((out == 7.0).all())
+    assert torch.equal(got, cn_tems.cn_update_plain(U, 0.0, 0))
+
+
+def test_frame_list_refusals():
+    U = torch.zeros((2, 4, 16, 8))
+    for bad in (torch.arange(3), torch.zeros((1, 3), dtype=torch.int32),
+                torch.arange(9, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="active"):
+            cn_tems.cn_update_plain(U, 0.0, 0, bad, torch.empty_like(U))
+
+
+@pytest.mark.parametrize("launches,value", [
+    ({"cn_tems": 10, "cn_tems.frame_iterations": 160}, 50.0),     # 80 of 160
+    ({"cn_tems": 10, "cn_tems.frame_iterations": 80}, 100.0),
+    ({"cn_tems": 10}, None),                                       # no counter: the parent
+    ({"qspa_resident": 10, "cn_tems.frame_iterations": 0}, None),  # a path without K5
+])
+def test_k5_useful_share_reader(launches, value):
+    from portbench import manifest
+
+    counters = np.zeros((2, 6, 4), np.int64)
+    counters[:, 4] = 10                                            # iter_sum: 80 in all
+    got = manifest.load_reader("k5_useful_share")({"counters": counters, "S": 4, "B": 4,
+                                                   "launches": launches})
+    assert got == (None if value is None else pytest.approx(value))
+
+
+@pytest.mark.parametrize("launches,kernels,share", [
+    ({"cn_tems.frame_iterations": 160}, {"cn_tems_kernel_64": (2e-3, 10)}, 0.5),   # 160 of 320
+    ({"cn_tems.frame_iterations": 320}, {"cn_tems_kernel_64": (2e-3, 10)}, 1.0),
+    ({"cn_tems": 10}, {"cn_tems_kernel_64": (2e-3, 10)}, None),    # no counter: the parent
+    ({"cn_tems.frame_iterations": 160}, {"k0_kernel": (2e-3, 10)}, None),     # K5 absent
+])
+def test_k5_frame_roofline_reader(launches, kernels, share):
+    """k5_frame_roofline is k5_roofline (every launch charged S B frames)
+    times the share of those frames K5 computed."""
+    from portbench import bounds, manifest
+
+    ctx = {"launches": launches, "kernels": kernels, "S": 4, "B": 8,
+           "shape": bounds.Shape(64, 6, 576, 96, 12, 2, 1152), "decoder": {"tems_nr": 8}}
+    got = manifest.load_reader("k5_frame_roofline")(ctx)
+    if share is None:
+        assert got is None
+    else:
+        assert got == pytest.approx(share * manifest.load_reader("k5_roofline")(ctx))
+
+
+def test_traced_cpu_run_reads_k5_useful_share():
+    """A tiny traced run of the T-EMS cell on the CPU: the check node
+    computed exactly the frame-iterations the window's frames needed."""
+    import time
+
+    from portbench import manifest, run
+
+    torch.set_num_threads(4)
+    cell = manifest.load_cell("gf64_tems.waterfall")
+    out = run.run_cell(cell, 2**31 + 77, 0.01, True, torch.device("cpu"),
+                       time.perf_counter(), frames=4, check_steps=1)
+    torch.set_num_threads(1)
+    metrics = out["result"]["metrics"]
+    assert metrics["k5_useful_share"]["value"] == 100.0
+    assert metrics["k5_useful_share"]["unit"] == "%"
+    assert metrics["decode_bl.loop_useful_share"]["value"] <= 100.0
