@@ -33,7 +33,7 @@ class Shape(NamedTuple):
 
 def shape_of(code) -> Shape:
     """The Shape of a reference.Code."""
-    return Shape(code.q, code.p, code.n, code.m, code.dc, code.dv, code.edges)
+    return Shape(code.q, code.p, code.n, code.m, code.dc_max, code.dv, code.edges)
 
 
 def bound(ops: float, nbytes: float, peak_ops: float = PEAK_F32_OPS) -> dict:

@@ -15,7 +15,8 @@ from (seed, step index) by the sweep's documented rule.
            llr[a] = -(2 / sigma^2) sum_i y_i bit_i(a), bits LSB first,
            sigma^2 = 1 / (2 R 10^(Eb/N0 / 10));
   decode   flooding BP: v -> c messages V = posterior - C (normalized, max
-           0), permuted into the check's x = h c domain; the check update
+           0), permuted into the check's x = h c domain; the check update,
+           on the checks of each degree together as one tensor
            (QSPA: the xor-convolution of the other edges' pmfs through the
            Walsh-Hadamard transform, floored at 1e-12, then the log;
            T-EMS: the best path of at most two deviations from the
@@ -69,14 +70,16 @@ def field_tables(q: int) -> tuple:
 
 @dataclasses.dataclass
 class Code:
-    """A parity-check code over GF(q) with a regular check degree: the
-    edges in check-major order (edge m * dc + j is check m's j-th)."""
+    """A parity-check code over GF(q) with a regular variable degree and
+    checks of any degree: the edges in check-major order (check m's edges
+    are edge_start[m] .. edge_start[m] + check_deg[m] - 1, in the row's
+    order)."""
 
     q: int
     n: int
     m: int
-    dc: int
     dv: int
+    check_deg: np.ndarray     # [M] degree of each check
     edge_var: np.ndarray      # [E] variable of each edge
     edge_w: np.ndarray        # [E] GF weight h of each edge
     var_edges: np.ndarray     # [N, dv] each variable's edges, in check order
@@ -90,8 +93,23 @@ class Code:
         return self.n - self.m
 
     @property
+    def dc_max(self) -> int:
+        return int(self.check_deg.max())
+
+    @property
     def edges(self) -> int:
-        return self.m * self.dc
+        return int(self.check_deg.sum())
+
+    @property
+    def edge_start(self) -> np.ndarray:
+        return np.concatenate(([0], np.cumsum(self.check_deg)[:-1])).astype(np.int64)
+
+    def degree_groups(self) -> list:
+        """For each check degree d, ascending, the edges [M_d, d] of the
+        checks of degree d, a row a check in check order."""
+        start = self.edge_start
+        return [start[self.check_deg == d][:, None] + np.arange(d)
+                for d in np.unique(self.check_deg)]
 
 
 def load_code(name: str, codes_dir: Path = CODES_DIR) -> Code:
@@ -101,15 +119,15 @@ def load_code(name: str, codes_dir: Path = CODES_DIR) -> Code:
     lines = [ln for ln in (codes_dir / f"{name}.alist").read_text().splitlines()
              if ln.strip() and not ln.lstrip().startswith("#")]
     n, m, q = (int(x) for x in lines[0].split())
-    dc_list = [int(x) for x in lines[3].split()]
-    if len(set(dc_list)) != 1:
-        raise ValueError(f"{name}: the reference takes a regular check degree only")
-    dc = dc_list[0]
+    check_deg = np.asarray([int(x) for x in lines[3].split()], np.int64)
+    if len(check_deg) != m:
+        raise ValueError(f"{name}: {len(check_deg)} row degrees, expected {m}")
     edge_var, edge_w = [], []
-    for row in lines[4 + n:4 + n + m]:
+    for i, row in enumerate(lines[4 + n:4 + n + m]):
         nums = [int(x) for x in row.split()]
-        if len(nums) != 2 * dc:
-            raise ValueError(f"{name}: a row with {len(nums) // 2} entries, expected {dc}")
+        if len(nums) != 2 * check_deg[i]:
+            raise ValueError(f"{name}: row {i} has {len(nums) // 2} entries, "
+                             f"expected {check_deg[i]}")
         edge_var += [c - 1 for c in nums[0::2]]
         edge_w += nums[1::2]
     edge_var = np.asarray(edge_var, np.int64)
@@ -117,7 +135,7 @@ def load_code(name: str, codes_dir: Path = CODES_DIR) -> Code:
     if len(set(dv_count.tolist())) != 1:
         raise ValueError(f"{name}: the reference takes a regular variable degree only")
     var_edges = np.argsort(edge_var, kind="stable").reshape(n, int(dv_count[0]))
-    return Code(q=q, n=n, m=m, dc=dc, dv=int(dv_count[0]), edge_var=edge_var,
+    return Code(q=q, n=n, m=m, dv=int(dv_count[0]), check_deg=check_deg, edge_var=edge_var,
                 edge_w=np.asarray(edge_w, np.int64), var_edges=var_edges)
 
 
@@ -166,16 +184,28 @@ class Decoder:
         self.edge_w = t(code.edge_w)
         self.var_edges = t(code.var_edges)
         self.iota = torch.arange(q, device=self.device)
+        groups = code.degree_groups()
+        # a code of one check degree is one view of the edges; otherwise each
+        # degree's edges are gathered, decoded and scattered back
+        self.groups = None if len(groups) == 1 else [t(idx) for idx in groups]
+
+    def by_degree(self, x: torch.Tensor) -> list:
+        """x [A, E, ...] -> its edges of each check degree, [A, M_d, d, ...]."""
+        if self.groups is None:
+            return [x.view(x.shape[0], self.code.m, self.code.dc_max, *x.shape[2:])]
+        return [x[:, idx] for idx in self.groups]
 
     def syndrome_ok(self, hard: torch.Tensor) -> torch.Tensor:
         """hard [A, N] -> [A] bool: every check sums to 0 over GF(q)."""
         c = self.code
         prod = self.mul[self.edge_w * c.q + hard[:, self.edge_var].long()]
-        prod = prod.view(-1, c.m, c.dc)
-        s = prod[:, :, 0]
-        for j in range(1, c.dc):
-            s = s ^ prod[:, :, j]
-        return (s == 0).all(dim=1)
+        sums = []
+        for g in self.by_degree(prod):
+            s = g[:, :, 0]
+            for j in range(1, g.shape[2]):
+                s = s ^ g[:, :, j]
+            sums.append(s)
+        return (torch.cat(sums, dim=1) == 0).all(dim=1)
 
     def decode(self, llr: torch.Tensor) -> tuple:
         """llr [B, N, q] -> (hard [B, N] int64, done [B] bool, iters [B] int64)."""
@@ -195,7 +225,7 @@ class Decoder:
             V = post[:, self.edge_var] - C                              # [A, E, q]
             V = V - V.amax(dim=-1, keepdim=True)
             U = torch.gather(V, 2, self.down.expand_as(V))              # x-domain
-            Chat = self.check(U.view(-1, c.m, c.dc, c.q)).view_as(U)
+            Chat = self.checks(U)
             C = torch.gather(Chat, 2, self.up.expand_as(Chat))          # c-domain
             Cs = C[:, self.var_edges]                                   # [A, N, dv, q]
             acc = Cs[:, :, 0]
@@ -210,6 +240,16 @@ class Decoder:
             keep = torch.nonzero(~ok).flatten()
             act, pri, C, post = act[keep], pri[keep], C[keep], post[keep]
         return hard, done, iters
+
+    def checks(self, U: torch.Tensor) -> torch.Tensor:
+        """U [A, E, q] -> Chat [A, E, q]: each degree's checks updated as one
+        [A, M_d, d, q] tensor, their outputs put back on their edges."""
+        if self.groups is None:
+            return self.check(self.by_degree(U)[0]).view_as(U)
+        Chat = torch.empty_like(U)
+        for idx, g in zip(self.groups, self.by_degree(U)):
+            Chat[:, idx] = self.check(g)
+        return Chat
 
     def check(self, U: torch.Tensor) -> torch.Tensor:
         """U [A, M, dc, q] (x-domain, max 0 over q) -> Chat, the same shape."""

@@ -1,5 +1,8 @@
 """The frozen bound arithmetic reproduces PERF.md's kernel table at its
-shapes: K0 0.799 ms, K5 0.180 ms, route_down 0.2255 ms."""
+shapes: K0 0.799 ms, K5 0.180 ms, route_down 0.2255 ms, and at config 5's
+step (GF(256) (255,175): 510 edges in 80 checks of degree 6 and 7, 560
+check slots) K0-cl 4.478 ms, route_down 1.659 ms, route_up 1.916 ms and
+channel_llr 0.3292 ms."""
 
 import pytest
 
@@ -32,3 +35,21 @@ def test_channel_at_the_flagship_and_config_4():
 
 def test_the_gf16_code_has_the_flagship_shape():
     assert bounds.shape_of(reference.load_code("gf16_n204_k102")) == FLAGSHIP
+
+
+def test_config_5_code_has_its_true_edge_count_and_largest_degree():
+    g = bounds.shape_of(reference.load_code("gf256_n255_k175"))
+    assert g == bounds.Shape(q=256, p=8, n=255, m=80, dc_max=7, dv_max=2, edges=510)
+
+
+def test_k0cl_routing_and_channel_at_config_5():
+    g = bounds.shape_of(reference.load_code("gf256_n255_k175"))
+    k0cl = bounds.resident_qspa_bound(g, 4096, 4096 * 20)
+    assert k0cl["bound_by"] == "operations"
+    assert k0cl["bound_ms"] == pytest.approx(4.478, abs=5e-4)
+    rb = bounds.route_bounds(g, 4096)
+    assert rb["route_down"]["bound_by"] == rb["route_up"]["bound_by"] == "bytes"
+    assert rb["route_down"]["bound_ms"] == pytest.approx(1.659, abs=5e-4)
+    assert rb["route_up"]["bound_ms"] == pytest.approx(1.916, abs=5e-4)
+    ch = bounds.channel_bound(g, 8, 512)
+    assert ch["bound_by"] == "bytes" and ch["bound_ms"] == pytest.approx(0.3292, abs=5e-5)

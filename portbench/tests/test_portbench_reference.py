@@ -44,9 +44,9 @@ def _xor_conv(a, b):
 
 
 def _tiny_code():
-    # two checks of degree 3 over GF(4), variables 0..3, dv = ... regular 2? use
-    # a (4, 2) code with dc = 4 is not regular in dv; build one directly
-    return reference.Code(q=4, n=3, m=2, dc=3, dv=2, edge_var=np.array([0, 1, 2, 0, 1, 2]),
+    # two checks of degree 3 over GF(4) on three variables of degree 2
+    return reference.Code(q=4, n=3, m=2, dv=2, check_deg=np.array([3, 3]),
+                          edge_var=np.array([0, 1, 2, 0, 1, 2]),
                           edge_w=np.array([1, 2, 3, 3, 1, 2]),
                           var_edges=np.array([[0, 3], [1, 4], [2, 5]]))
 
@@ -92,7 +92,8 @@ def _tems_brute(U, offset):
 
 @pytest.mark.parametrize("q,dc,seed", [(4, 3, 0), (8, 4, 1), (8, 5, 2), (16, 4, 3)])
 def test_tems_check_exact_scan_is_the_two_deviation_brute_force(q, dc, seed):
-    code = reference.Code(q=q, n=dc, m=1, dc=dc, dv=1, edge_var=np.arange(dc),
+    code = reference.Code(q=q, n=dc, m=1, dv=1, check_deg=np.array([dc]),
+                          edge_var=np.arange(dc),
                           edge_w=np.ones(dc, np.int64), var_edges=np.arange(dc)[:, None])
     dec = reference.Decoder(code, "cpu", "tems", 5, offset=0.7, n_r=0, dtype=torch.float64)
     rng = np.random.default_rng(seed)
