@@ -1001,12 +1001,13 @@ def _path_kernels(kernel: str, step: bool = False) -> tuple:
     return (*path, *STEP_KERNELS) if step else path
 
 
-def _step_launches(kernel: str, iters: int, frames: int) -> dict:
+def _step_launches(kernel: str, iters: int, frames: int, grid_blocks: int = 0) -> dict:
     """The counters of one fixed-budget sim step of `frames` frames through
     `kernel`: a whole-decode kernel once, a check-node kernel and the
     routing kernels once an iteration, decode_bl's entry, the channel and
     the counters once; in decode_bl, its loop's iterations and the frames
-    times those (K5's frames too: a fixed budget retires none)."""
+    times those (K5's frames too: a fixed budget retires none); K0-cl's
+    cluster kernel adds `grid_blocks`, its grid (_cluster_grid)."""
     out = {k: iters if k in DECODE_BL_KERNELS + ROUTE_KERNELS else 1
            for k in _path_kernels(kernel, step=True)}
     if kernel in DECODE_BL_KERNELS:
@@ -1014,7 +1015,19 @@ def _step_launches(kernel: str, iters: int, frames: int) -> dict:
                     "decode_bl.frame_iterations": frames * iters})
     if kernel == "cn_tems":
         out["cn_tems.frame_iterations"] = frames * iters
+    if kernel == "qspa_resident_cl":
+        out["qspa_cluster.grid_blocks"] = grid_blocks
     return out
+
+
+def _cluster_grid(code: str, frames: int, device) -> int:
+    """The blocks of the persistent grid K0-cl's f32 cluster kernel launches
+    for `frames` frames of `code`: min(frames, cudaOccupancyMaxActiveClusters)
+    clusters of the plan's size."""
+    from nbldpc_tpu_torch.kernels import qspa_resident as qr
+
+    dec = qr.ResidentQSPA(_graph(code, device), 1)
+    return min(frames, qr.cluster_occupancy(dec, device)) * dec.cluster_plan.size
 
 
 def _idle(counts: dict, kernel: str, step: bool = False) -> list:
@@ -2339,8 +2352,10 @@ def phase_throughput(device, card: str) -> dict:
                      r["frames_per_s"], ran])
         if ((r["config"], r["code"], r["iters"], r["batch"], r["n_snr"])
                 != (name, code, iters, batch, n_snr)
-                or ran != {k: r["steps"] * n
-                           for k, n in _step_launches(kernel, iters, batch * n_snr).items()}
+                or ran != {k: r["steps"] * n for k, n in _step_launches(
+                    kernel, iters, batch * n_snr,
+                    _cluster_grid(code, batch * n_snr, device)
+                    if kernel == "qspa_resident_cl" else 0).items()}
                 or r["timing"] != "cuda_events" or not r["mm_precision_applied"]
                 or not (0 < r["ms_per_step"] < math.inf and 0 < r["wall_ms_per_step"] < math.inf)
                 or not math.isclose(r["symbols_per_s"], r["frames_per_s"] * n, rel_tol=1e-12)
@@ -2403,8 +2418,9 @@ def phase_throughput(device, card: str) -> dict:
             fail(f"throughput C: rank {r} returned {got['rc']} or its launches "
                  f"{got['launches']} differ from the record's {last}")
     for row in rec["rows"]:
-        want = [_step_launches("qspa_resident_cl", scaling.ITERS,
-                               scaling.S * scaling.B // row["devices"])
+        frames = scaling.S * scaling.B // row["devices"]
+        want = [_step_launches("qspa_resident_cl", scaling.ITERS, frames,
+                               _cluster_grid(scaling.CODE, frames, device))
                 if r < row["devices"] else {} for r in range(scaling.WORLD)]
         if not row["counters_identical_to_1dev"] or row["launches_ranks"] != [
                 {k: 2 * v for k, v in w.items()} for w in want]:

@@ -455,7 +455,7 @@ template <int Q, class T>
 cudaError_t launch(const float* llr, int* hard, uint8_t* done, int* iters, int B, int N,
                    int M, int dc, int dv, int C, int nv, int cpr, int rc, int W, int smem,
                    const Tables& t, int max_iters, int early_term, int stats_each_iter,
-                   cudaStream_t stream) {
+                   int* grid_blocks, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = configure<Q, T>(dc, dv, C, nv, cpr, rc, W, smem, &cfg, &attr);
@@ -469,6 +469,7 @@ cudaError_t launch(const float* llr, int* hard, uint8_t* done, int* iters, int B
   err = cudaLaunchKernelEx(&cfg, qspa_cluster_kernel<Q, T>, llr, hard, done, iters, B, N, M,
                            dc, dv, nv, cpr, rc, t, max_iters, early_term, stats_each_iter);
   if (err != cudaSuccess) return err;
+  if (grid_blocks) *grid_blocks = cfg.gridDim.x;
   return cudaGetLastError();
 }
 
@@ -486,18 +487,20 @@ int occupancy(int q, int dc, int dv, int C, int nv, int cpr, int rc, int W, int 
 template <class T>
 int decode(const float* llr, int* hard, uint8_t* done, int* iters, int B, int N, int M, int dc,
            int dv, int q, int C, int nv, int cpr, int rc, int W, int smem, const Tables& t,
-           int max_iters, int early_term, int stats_each_iter, cudaStream_t s) {
+           int max_iters, int early_term, int stats_each_iter, int* grid_blocks,
+           cudaStream_t s) {
+  if (grid_blocks) *grid_blocks = 0;
   if (B == 0) return cudaSuccess;
   switch (q) {
     case 64:
       return launch<64, T>(llr, hard, done, iters, B, N, M, dc, dv, C, nv, cpr, rc, W, smem,
-                           t, max_iters, early_term, stats_each_iter, s);
+                           t, max_iters, early_term, stats_each_iter, grid_blocks, s);
     case 128:
       return launch<128, T>(llr, hard, done, iters, B, N, M, dc, dv, C, nv, cpr, rc, W, smem,
-                            t, max_iters, early_term, stats_each_iter, s);
+                            t, max_iters, early_term, stats_each_iter, grid_blocks, s);
     case 256:
       return launch<256, T>(llr, hard, done, iters, B, N, M, dc, dv, C, nv, cpr, rc, W, smem,
-                            t, max_iters, early_term, stats_each_iter, s);
+                            t, max_iters, early_term, stats_each_iter, grid_blocks, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -521,16 +524,19 @@ extern "C" int qspa_cluster_occupancy_bf16(int q, int dc, int dv, int C, int nv,
 // The decode of B frames under a plan from kernels/qspa_resident.py:
 // clusters of C blocks of W warps, nv posterior rows and cpr checks per
 // rank (rc checks per round of the CN phase), `smem` bytes of shared
-// memory per block in all (checked against the layout above). Returns
-// cudaErrorInvalidValue for a plan or q the kernel does not take.
+// memory per block in all (checked against the layout above). Writes the
+// blocks of the grid it launched to *grid_blocks (0 when B is 0; NULL
+// skips it). Returns cudaErrorInvalidValue for a plan or q the kernel
+// does not take.
 extern "C" int qspa_cluster_decode(
     const float* llr, int* hard, uint8_t* done, int* iters, int B, int N, int M, int dc,
     int dv, int q, int C, int nv, int cpr, int rc, int W, int smem, const int* edge_info,
     const int* row_src, const int* row_var, const int* n2e, const int* gf_log,
-    const int* gf_exp, int max_iters, int early_term, int stats_each_iter, void* stream) {
+    const int* gf_exp, int max_iters, int early_term, int stats_each_iter, int* grid_blocks,
+    void* stream) {
   const Tables t{edge_info, row_src, row_var, n2e, gf_log, gf_exp};
   return decode<float>(llr, hard, done, iters, B, N, M, dc, dv, q, C, nv, cpr, rc, W, smem, t,
-                       max_iters, early_term, stats_each_iter,
+                       max_iters, early_term, stats_each_iter, grid_blocks,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -540,9 +546,10 @@ extern "C" int qspa_cluster_decode_bf16(
     const float* llr, int* hard, uint8_t* done, int* iters, int B, int N, int M, int dc,
     int dv, int q, int C, int nv, int cpr, int rc, int W, int smem, const int* edge_info,
     const int* row_src, const int* row_var, const int* n2e, const int* gf_log,
-    const int* gf_exp, int max_iters, int early_term, int stats_each_iter, void* stream) {
+    const int* gf_exp, int max_iters, int early_term, int stats_each_iter, int* grid_blocks,
+    void* stream) {
   const Tables t{edge_info, row_src, row_var, n2e, gf_log, gf_exp};
   return decode<state::bf16>(llr, hard, done, iters, B, N, M, dc, dv, q, C, nv, cpr, rc, W,
-                             smem, t, max_iters, early_term, stats_each_iter,
+                             smem, t, max_iters, early_term, stats_each_iter, grid_blocks,
                              static_cast<cudaStream_t>(stream));
 }

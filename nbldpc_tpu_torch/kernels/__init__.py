@@ -8,7 +8,10 @@ those, under the kernel's name, and the layers' own counters under dotted
 names (`sweep.loop_ns` on sim.run_sweep, `decode_bl.loop_iterations` and
 `decode_bl.frame_iterations` on decoders/common.decode_bl,
 `cn_tems.frame_iterations` on cn_tems.cn_update: the frames the T-EMS
-check node computed, kernel or plain version), so that a run
+check node computed, kernel or plain version; `qspa_cluster.grid_blocks`
+on qspa_resident.resident_decode_cl: the blocks of the persistent grid
+each launch of K0-cl's cluster kernel had, as the library reports it,
+either precision), so that a run
 can zero them before a path and read which kernels it launched, whether a
 plain version ran and what its layers counted. The submodules are
 imported only when the counters are read: importing this package builds
@@ -59,7 +62,8 @@ def counted() -> list:
             ("sweep.loop_ns", sim.run_sweep, "loop_ns"),
             ("decode_bl.loop_iterations", common.decode_bl, "loop_iterations"),
             ("decode_bl.frame_iterations", common.decode_bl, "frame_iterations"),
-            ("cn_tems.frame_iterations", cn_tems.cn_update, "frame_iterations")]
+            ("cn_tems.frame_iterations", cn_tems.cn_update, "frame_iterations"),
+            ("qspa_cluster.grid_blocks", qr.resident_decode_cl, "grid_blocks")]
 
 
 def launch_counts() -> dict:

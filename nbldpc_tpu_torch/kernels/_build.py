@@ -67,7 +67,8 @@ SIGNATURES = {
                             _I, _I, _I, _I, _I, _I,     # plan: C rows checks round warps smem
                             _P, _P, _P,                 # edge_info row_src row_var
                             _P, _P, _P,                 # n2e gf_log gf_exp
-                            _I, _I, _I, _P],            # iters, modes, stream
+                            _I, _I, _I,                 # iters, modes
+                            ctypes.POINTER(_I), _P],    # out: the grid's blocks; stream
     # q dc dv C rows checks round warps smem, out: clusters that run at once
     "qspa_cluster_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "ems_resident_decode": [_P, _P, _P, _P,             # llr, hard, done, iters

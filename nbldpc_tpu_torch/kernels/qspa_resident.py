@@ -46,6 +46,7 @@ import torch
 from nbldpc_tpu_torch.decoders.common import argmax_q, satisfied
 from nbldpc_tpu_torch.graph import TannerGraph
 from nbldpc_tpu_torch.kernels.wht import wht_axis
+from nbldpc_tpu_torch.utils.trace import span
 
 PROB_FLOOR = 1e-12
 # per-block shared memory a kernel may ask for on sm_90
@@ -540,9 +541,11 @@ def resident_decode_cl(dec: ResidentQSPA, llr: torch.Tensor):
     cluster kernel (csrc/qspa_cluster.cu, a persistent grid of clusters,
     each frame's state in its blocks' shared memory, laid out by
     `dec.cluster_plan`); a code whose state no cluster holds goes to
-    `resident_decode_cl_scratch`. Raises ValueError on a tensor it does not
-    take, a CPU tensor included; the kernel's own check of the plan raises
-    RuntimeError."""
+    `resident_decode_cl_scratch`. Each launch adds the blocks of the grid
+    the library launched (min(B, occupancy) clusters of `plan.size`) to
+    `grid_blocks`; the library call is the span `qspa_cluster.launch`.
+    Raises ValueError on a tensor it does not take, a CPU tensor included;
+    the kernel's own check of the plan raises RuntimeError."""
     plan = dec.cluster_plan
     if plan is None:
         return resident_decode_cl_scratch(dec, llr)
@@ -556,20 +559,24 @@ def resident_decode_cl(dec: ResidentQSPA, llr: torch.Tensor):
     from nbldpc_tpu_torch.kernels import _build
 
     c = dec.cluster
-    _build.launch(resident_decode_cl, name, llr.device,
-                  llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
-                  llr.shape[0], g.n, g.m, g.dc_max, g.dv_max, g.q,
-                  plan.size, plan.rows, plan.checks, plan.round_checks, plan.warps,
-                  plan.smem_bytes, c["edge_info"].data_ptr(), c["row_src"].data_ptr(),
-                  c["row_var"].data_ptr(), dec.n2e.data_ptr(), c["gf_log"].data_ptr(),
-                  c["gf_exp"].data_ptr(),
-                  dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),
-                  counter=counter)
+    blocks = ctypes.c_int(0)
+    with span("qspa_cluster.launch"):
+        _build.launch(resident_decode_cl, name, llr.device,
+                      llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
+                      llr.shape[0], g.n, g.m, g.dc_max, g.dv_max, g.q,
+                      plan.size, plan.rows, plan.checks, plan.round_checks, plan.warps,
+                      plan.smem_bytes, c["edge_info"].data_ptr(), c["row_src"].data_ptr(),
+                      c["row_var"].data_ptr(), dec.n2e.data_ptr(), c["gf_log"].data_ptr(),
+                      c["gf_exp"].data_ptr(),
+                      dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),
+                      ctypes.byref(blocks), counter=counter)
+    resident_decode_cl.grid_blocks += blocks.value
     return hard, done, iters
 
 
 resident_decode_cl.launches = 0
 resident_decode_cl.launches_bf16 = 0
+resident_decode_cl.grid_blocks = 0
 
 
 def cluster_occupancy(dec: ResidentQSPA, device) -> int:

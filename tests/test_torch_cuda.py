@@ -8,6 +8,7 @@ without a card. Run them there with:
 
 from pathlib import Path
 
+import ctypes
 import functools
 import json
 import math
@@ -305,6 +306,55 @@ def test_resident_cl_kernel_cfg5_bench_shape(cuda_device):
     # fixed budget (throughput mode)
     g = _graph("gf256_n255_k175", cuda_device)
     _hold_resident(g, _zero_cw_llrs(g, 4096, 3.0, cuda_device), (20, False, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cluster_grid_blocks_count_the_launched_grid(cuda_device, precision):
+    """qspa_cluster.grid_blocks adds the grid each launch had, as the
+    library reports it: min(B, cudaOccupancyMaxActiveClusters) clusters of
+    the plan's size, in either precision, and nothing for no frames."""
+    from nbldpc_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    g = _graph("gf256_n255_k175", cuda_device)
+    dec = qr.ResidentQSPA(g, 20, mm_precision=precision)
+    occupancy = qr.cluster_occupancy(dec, cuda_device)
+    size = dec.cluster_plan.size
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert 1 <= occupancy and occupancy * size <= sms
+    reset_launch_counts()
+    for B in (4096, 5, 0):
+        qr.resident_decode(dec, _zero_cw_llrs(g, B, 3.0, cuda_device))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["qspa_resident_cl" + ("" if precision == "f32" else "_bf16")] == 2
+    assert counts["qspa_cluster.grid_blocks"] == (min(4096, occupancy) + min(5, occupancy)) * size
+
+
+@pytest.mark.cuda
+def test_cfg5_sim_step_runs_the_cluster_kernel(cuda_device):
+    """BASELINE config 5's QSPA step (8 slots x 512 frames) through
+    make_sim_step, as run_sweep builds it: one K0-cl cluster launch, its
+    grid counted, no plain version and no K1."""
+    from nbldpc_tpu_torch import sim
+    from nbldpc_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from nbldpc_tpu_torch.utils.config import load_config
+
+    cfg = load_config(CODES.parent / "configs" / "gf256_sweep_2host.json")
+    g = TannerGraph(cfg.code.load(), device=cuda_device)
+    points = cfg.channel.ebn0_db
+    sig = torch.tensor([ebn0_to_sigma(x, g.spec.k / g.n) for x in points],
+                       dtype=torch.float32, device=cuda_device)
+    step = sim.make_sim_step(g, cfg.decoder, cfg.sim.frames_per_step, len(points))
+    reset_launch_counts()
+    out = sim.step_counters(step, sim.step_generator(2**31 + 27, 0, cuda_device), sig)
+    ran = {k: v for k, v in launch_counts().items() if v}
+    dec = qr.get_resident_decoder(g, cfg.decoder.max_iters, cfg.decoder.early_term)
+    assert ran["qspa_resident_cl"] == 1
+    assert ran["qspa_cluster.grid_blocks"] == (qr.cluster_occupancy(dec, cuda_device)
+                                               * dec.cluster_plan.size)
+    assert not [k for k in ran if k.endswith("_plain") or k.startswith("cn_qspa")]
+    assert out["frames"].tolist() == [cfg.sim.frames_per_step] * len(points)
 
 
 @pytest.mark.cuda
@@ -1331,13 +1381,15 @@ def test_resident_cl_cluster_bf16_writes_only_its_outputs(cuda_device, code):
     hard, iters = hard.view(torch.int32), iters.view(torch.int32)
     dbuf = torch.full((B + 2 * _GUARD,), 0xAB, dtype=torch.uint8, device=cuda_device)
     done = dbuf[_GUARD:_GUARD + B]
+    grid = ctypes.c_int(0)
     _build.check(_build.library().qspa_cluster_decode_bf16(
         llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(), B, g.n, g.m,
         g.dc_max, g.dv_max, g.q, plan.size, plan.rows, plan.checks, plan.round_checks,
         plan.warps, plan.smem_bytes, c["edge_info"].data_ptr(), c["row_src"].data_ptr(),
         c["row_var"].data_ptr(), dec.n2e.data_ptr(), c["gf_log"].data_ptr(),
-        c["gf_exp"].data_ptr(), 20, 0, 0, _build.stream_ptr(cuda_device)),
+        c["gf_exp"].data_ptr(), 20, 0, 0, ctypes.byref(grid), _build.stream_ptr(cuda_device)),
         "qspa_cluster_decode_bf16")
+    assert grid.value == min(B, qr.cluster_occupancy(dec, cuda_device)) * plan.size
     assert all(_guards_intact(b) for b in bufs)
     assert bool((dbuf[:_GUARD] == 0xAB).all() and (dbuf[-_GUARD:] == 0xAB).all())
     want = qr.resident_decode_cl(dec, llr)
@@ -1513,6 +1565,11 @@ def test_run_all_row_launches_its_kernel(cuda_device, tmp_path, config, kernel):
                      "decode_bl.frame_iterations": rec["steps"] * per_step * frames})
         if kernel == "cn_tems":
             want["cn_tems.frame_iterations"] = rec["steps"] * per_step * frames
+    if kernel == "qspa_resident_cl":
+        # the persistent grid of each launch: min(frames, occupancy) clusters
+        dec = qr.ResidentQSPA(_graph(rec["code"], cuda_device), rec["iters"])
+        want["qspa_cluster.grid_blocks"] = rec["steps"] * dec.cluster_plan.size * min(
+            rec["batch"] * rec["n_snr"], qr.cluster_occupancy(dec, cuda_device))
     assert {k: v for k, v in rec["launches"].items() if v} == want
     assert rec["config"] == config and rec["batch"] == 32 and rec["timing"] == "cuda_events"
     assert rec["device"] == torch.cuda.get_device_name(cuda_device)
