@@ -25,7 +25,7 @@ Phases, in order, each printing one JSON line (any failure exits non-zero):
                 GF(64) and at config 5's bench shape, beside the scratch
                 kernel on the same LLRs; then K0-cl's scratch kernel, which
                 takes the codes whose state no cluster holds, on two such
-                codes (GF(256), N = 1200 and GF(64), N = 1800) in the modes
+                codes (GF(256), N = 1200 and GF(64), N = 2400) in the modes
                 of phase 4
   6. cn_ems   - the EMS check-node kernels (classic and bubble) against
                 their plain version, exact to 0.0, both also on tie-heavy
@@ -676,11 +676,11 @@ HIGHQ = (("gf64_n576_k480", 1024, [3.0, 3.5]), ("gf256_n255_k175", 512, [2.0, 2.
 # A GF(256) code whose state (4.9 MB a frame) no cluster holds: K0-cl's
 # scratch kernel decodes it. (n, m, seed) of a random dv = 2 code, and
 # the frames and Eb/N0 of its checks in phases resident_cl and main; and a
-# GF(64) code no cluster holds either (1.8 MB a frame), checked and timed
+# GF(64) code no cluster holds either (2.5 MB a frame), checked and timed
 # beside it in phase resident_cl
 OVERSIZE = (1200, 400, 3)
 OVERSIZE_FRAMES, OVERSIZE_EBN0 = 512, 2.5
-OVERSIZE_GF64 = (1800, 600, 3)
+OVERSIZE_GF64 = (2400, 800, 3)
 
 
 def oversize_spec(q: int = 256):
@@ -715,6 +715,7 @@ def phase_resident_cl(device):
         dec = qr.ResidentQSPA(g, 1)
         plan = dec.cluster_plan
         emit({"phase": "resident_cl", "code": code, "cluster_size": plan.size,
+              "in_place": plan.in_place,
               "warps": plan.warps, "checks_per_rank": plan.checks,
               "checks_per_round": plan.round_checks, "rows_per_rank": plan.rows,
               "smem_bytes": plan.smem_bytes,
@@ -741,7 +742,7 @@ def phase_resident_cl(device):
         result.update(r)
     result["max_abs_err"] = worst
     scratch = {}
-    for q, code in ((256, "oversize_gf256_n1200"), (64, "oversize_gf64_n1800")):
+    for q, code in ((256, "oversize_gf256_n1200"), (64, "oversize_gf64_n2400")):
         g = TannerGraph(oversize_spec(q), device)
         dec = qr.ResidentQSPA(g, 1)
         if dec.cluster_plan is not None:
@@ -1001,13 +1002,14 @@ def _path_kernels(kernel: str, step: bool = False) -> tuple:
     return (*path, *STEP_KERNELS) if step else path
 
 
-def _step_launches(kernel: str, iters: int, frames: int, grid_blocks: int = 0) -> dict:
+def _step_launches(kernel: str, iters: int, frames: int, grid: tuple = (0, 0)) -> dict:
     """The counters of one fixed-budget sim step of `frames` frames through
     `kernel`: a whole-decode kernel once, a check-node kernel and the
     routing kernels once an iteration, decode_bl's entry, the channel and
     the counters once; in decode_bl, its loop's iterations and the frames
     times those (K5's frames too: a fixed budget retires none); K0-cl's
-    cluster kernel adds `grid_blocks`, its grid (_cluster_grid)."""
+    cluster kernel adds `grid`, its grid's blocks and clusters
+    (_cluster_grid)."""
     out = {k: iters if k in DECODE_BL_KERNELS + ROUTE_KERNELS else 1
            for k in _path_kernels(kernel, step=True)}
     if kernel in DECODE_BL_KERNELS:
@@ -1016,18 +1018,20 @@ def _step_launches(kernel: str, iters: int, frames: int, grid_blocks: int = 0) -
     if kernel == "cn_tems":
         out["cn_tems.frame_iterations"] = frames * iters
     if kernel == "qspa_resident_cl":
-        out["qspa_cluster.grid_blocks"] = grid_blocks
+        out["qspa_cluster.grid_blocks"], out["qspa_cluster.frame_slots"] = grid
     return out
 
 
-def _cluster_grid(code: str, frames: int, device) -> int:
-    """The blocks of the persistent grid K0-cl's f32 cluster kernel launches
-    for `frames` frames of `code`: min(frames, cudaOccupancyMaxActiveClusters)
-    clusters of the plan's size."""
+def _cluster_grid(code: str, frames: int, device) -> tuple:
+    """(blocks, clusters) of the persistent grid K0-cl's f32 cluster kernel
+    launches for `frames` frames of `code`: min(frames,
+    cudaOccupancyMaxActiveClusters) clusters of the plan's size, a frame
+    each."""
     from nbldpc_tpu_torch.kernels import qspa_resident as qr
 
     dec = qr.ResidentQSPA(_graph(code, device), 1)
-    return min(frames, qr.cluster_occupancy(dec, device)) * dec.cluster_plan.size
+    clusters = min(frames, qr.cluster_occupancy(dec, device))
+    return clusters * dec.cluster_plan.size, clusters
 
 
 def _idle(counts: dict, kernel: str, step: bool = False) -> list:
@@ -1374,7 +1378,7 @@ def _smoke_spec(code: str):
     made = {"gf32_random": lambda: random_regular_spec(*K0_GF32),
             "gf4_dv3_random": lambda: random_regular_spec(*K0_DV3),
             "oversize_gf256_n1200": lambda: oversize_spec(256),
-            "oversize_gf64_n1800": lambda: oversize_spec(64)}
+            "oversize_gf64_n2400": lambda: oversize_spec(64)}
     return made[code]() if code in made else CodeConfig(name=code).load()
 
 
@@ -1409,7 +1413,7 @@ def phase_random_cw(device, card: str):
     from nbldpc_tpu_torch.utils.config import DecoderConfig
 
     codes = sorted(p.stem for p in (ROOT / "codes").glob("*.alist"))
-    for code in (*codes, "oversize_gf256_n1200", "oversize_gf64_n1800", "gf32_random",
+    for code in (*codes, "oversize_gf256_n1200", "oversize_gf64_n2400", "gf32_random",
                  "gf4_dv3_random"):
         spec = _smoke_spec(code)
         B = 8192 if spec.q <= 32 else 4096
@@ -1500,7 +1504,7 @@ BF16_HOLDS = [
     ("k0cl_gf64", "qspa_resident_cl", "gf64_n576_k480", [3.0, 3.5], 1024, 20),
     ("scratch_gf256", "qspa_resident_cl_scratch", "oversize_gf256_n1200", [2.5],
      OVERSIZE_FRAMES, 20),
-    ("scratch_gf64", "qspa_resident_cl_scratch", "oversize_gf64_n1800", [2.5],
+    ("scratch_gf64", "qspa_resident_cl_scratch", "oversize_gf64_n2400", [2.5],
      OVERSIZE_FRAMES, 20),
 ]
 # the bench rows' steps of the two bf16 rows, held and timed as well
@@ -2355,7 +2359,7 @@ def phase_throughput(device, card: str) -> dict:
                 or ran != {k: r["steps"] * n for k, n in _step_launches(
                     kernel, iters, batch * n_snr,
                     _cluster_grid(code, batch * n_snr, device)
-                    if kernel == "qspa_resident_cl" else 0).items()}
+                    if kernel == "qspa_resident_cl" else (0, 0)).items()}
                 or r["timing"] != "cuda_events" or not r["mm_precision_applied"]
                 or not (0 < r["ms_per_step"] < math.inf and 0 < r["wall_ms_per_step"] < math.inf)
                 or not math.isclose(r["symbols_per_s"], r["frames_per_s"] * n, rel_tol=1e-12)

@@ -27,7 +27,10 @@ design choices and the parts of K0, K0-cl's scratch kernel, K3, K5, K1 and
 K2b) and times each build beside the library's kernel.
 --only keeps the kernel cases whose names start with one of the given
 prefixes (k0cl for K0-cl: its scratch kernel on the codes no cluster
-holds, both its kernels on two that one does; p1, p2, p4, p5, route_new
+holds, both its kernels on two that one does, the cluster kernel also in
+bf16 and at config 5's cell step, and, where the tree has
+`cluster_plan_at`, under every other f32 partition of those codes that
+fits (cluster size, layout); p1, p2, p4, p5, route_new
 and route_old for the probes; p1, p2, p5 and the route also time those
 probes at 0 and 200 iterations; route_cfg for decode_bl's routing kernels
 at config 5's and config 4's steps, which a tree from before them reports
@@ -95,17 +98,24 @@ K0_CASES = [("k0_bench", "gf16_n204_k102_c8", 8192, [0.63], False, 50, False, Fa
             ("k0_gf32", "gf32_random", 2048, [2.0], True, 50, False, False)]
 # (case, q, iterations, early_term, stats_each_iter): K0-cl's scratch
 # kernel on chip_smoke.py's codes no cluster holds (oversize_spec: GF(256),
-# N = 1200, and GF(64), N = 1800), 512 frames at 2.5 dB in the three modes
+# N = 1200, and GF(64), N = 2400), 512 frames at 2.5 dB in the three modes
 # of its phase resident_cl, throughput (the timed one) first
 K0CL_CASES = [(f"k0cl_scratch_gf{q}{suffix}", q, iters, et, stats)
               for q in (256, 64)
               for suffix, iters, et, stats in (("", 20, False, False), ("_early", 20, True, True),
                                                ("_one_iter", 1, False, True))]
-# (case, code, frames, Eb/N0): K0-cl's cluster kernel and, beside it, its
-# scratch kernel on the codes a cluster holds, 20 iterations, throughput:
-# config 5's bench step and phase resident_cl's GF(64) (576,480) shape
-K0CL_CLUSTER_CASES = [("k0cl_cluster_cfg5", "gf256_n255_k175", 4096, 3.0),
-                      ("k0cl_cluster_gf64", "gf64_n576_k480", 2048, 3.0)]
+# (case, code, frames per point, Eb/N0 points (None: config 5's 8),
+# (iterations, early_term, stats_each_iter), precision): K0-cl's cluster
+# kernel and, beside it, its scratch kernel on the codes a cluster holds:
+# config 5's bench step (20 iterations, throughput) in f32 and bf16, phase
+# resident_cl's GF(64) (576,480) shape, and config 5's sim step as the
+# cell gf256_qspa.cfg5 decodes it (512 frames at each of its 8 points, 20
+# iterations, early termination; scratch kernel not run)
+K0CL_CLUSTER_CASES = [
+    ("k0cl_cluster_cfg5", "gf256_n255_k175", 4096, [3.0], (20, False, False), "f32"),
+    ("k0cl_cluster_gf64", "gf64_n576_k480", 2048, [3.0], (20, False, False), "f32"),
+    ("k0cl_cluster_cfg5_bf16", "gf256_n255_k175", 4096, [3.0], (20, False, False), "bf16"),
+    ("k0cl_cluster_cfg5_cell", "gf256_n255_k175", 512, None, (20, True, True), "f32")]
 # (case, code, frames, n_r, tie levels): chip_smoke.py's phase cn_tems
 K5_CASES = [("k5_gf16_exact", "gf16_n204_k102", 8192, 0, 0),
             ("k5_gf64_exact", "gf64_n576_k480", 1024, 0, 0),
@@ -246,15 +256,40 @@ def run_kernels(device, reps: int, only=()):
                "frames_at_once": qr.scratch_occupancy(dec, device),
                "cluster_size": qr.scratch_layout(dec)[0].size,
                "ms": cuda_ms(lambda: qr.resident_decode_cl_scratch(dec, llr), reps)}
-    for case, code, frames, ebn0 in keep(K0CL_CLUSTER_CASES):
+    for case, code, frames, points, mode, precision in keep(K0CL_CLUSTER_CASES):
         g = _graph(code, device)
-        dec, llr = qr.ResidentQSPA(g, 20, False, False), _llrs(g, frames, [ebn0], device)
+        points = json.loads((HERE / CFG5).read_text())["channel"]["ebn0_db"] \
+            if points is None else points
+        dec = qr.ResidentQSPA(g, *mode, mm_precision=precision)
+        llr = _llrs(g, frames, points, device)
         out = qr.resident_decode_cl(dec, llr)
-        scratch = qr.resident_decode_cl_scratch(dec, llr)
-        yield {"case": case, "code": code, "frames": frames, "iters": 20,
-               "digest": _digest(*out), "scratch_digest": _digest(*scratch),
-               "ms": cuda_ms(lambda: qr.resident_decode_cl(dec, llr), reps),
-               "scratch_ms": cuda_ms(lambda: qr.resident_decode_cl_scratch(dec, llr), reps)}
+        plan = dec.cluster_plan
+        rec = {"case": case, "code": code, "frames": llr.shape[0], "iters": mode[0],
+               "early_term": mode[1], "precision": precision,
+               "frame_iterations": int(out[2].sum()), "digest": _digest(*out),
+               "cluster_size": plan.size, "in_place": getattr(plan, "in_place", False),
+               "ms": cuda_ms(lambda: qr.resident_decode_cl(dec, llr), reps)}
+        if not mode[1]:
+            scratch = qr.resident_decode_cl_scratch(dec, llr)
+            rec.update(scratch_digest=_digest(*scratch), scratch_ms=cuda_ms(
+                lambda: qr.resident_decode_cl_scratch(dec, llr), reps))
+        yield rec
+        # every other f32 partition of the code that fits (size, layout),
+        # where the tree can set one: each decodes every frame the same, so
+        # its digest is the plan's
+        if precision != "f32" or not hasattr(qr, "cluster_plan_at"):
+            continue
+        for size in qr.CLUSTER_SIZES:
+            for in_place in (False, True):
+                other = qr.cluster_plan_at(g, size, 4, in_place)
+                if other is None or (size, in_place) == (plan.size, plan.in_place):
+                    continue
+                dec._set_cluster_plan(other)
+                yield {"case": f"{case}_c{size}{'_in_place' if in_place else ''}",
+                       "cluster_size": size, "in_place": in_place,
+                       "digest": _digest(*qr.resident_decode_cl(dec, llr)),
+                       "ms": cuda_ms(lambda: qr.resident_decode_cl(dec, llr), reps)}
+        dec._set_cluster_plan(plan)
     for case, code, B, n_r, levels in keep(K5_CASES):
         U = _u_for(_graph(code, device), B, device, levels)
         out = cn_tems.cn_update(U, 2.0, n_r)

@@ -8,10 +8,10 @@
 // argmax, the syndrome check, the check phase's steps B (softmax sums) and
 // C (spectra), the scratch kernel's step D (the leave-one-out products
 // over the spectra in the buffer, which the cluster kernel's bf16 build
-// runs too), the tables' copy into shared memory and the frame loop with
-// its outputs. What differs (where the posterior and the messages live:
-// the frame's init, steps A, D and E, the variable phase) stays in each
-// kernel's source. Both are built with the state's element T = float and
+// and its in-place layout run too), the tables' copy into shared memory
+// and the frame loop with its outputs. What differs (where the posterior
+// and the messages live: the frame's init, steps A, D and E, the variable
+// phase) stays in each kernel's source. Both are built with the state's element T = float and
 // T = bf16 (state.cuh).
 
 #pragma once

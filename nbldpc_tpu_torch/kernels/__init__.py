@@ -9,9 +9,10 @@ names (`sweep.loop_ns` on sim.run_sweep, `decode_bl.loop_iterations` and
 `decode_bl.frame_iterations` on decoders/common.decode_bl,
 `cn_tems.frame_iterations` on cn_tems.cn_update: the frames the T-EMS
 check node computed, kernel or plain version; `qspa_cluster.grid_blocks`
-on qspa_resident.resident_decode_cl: the blocks of the persistent grid
-each launch of K0-cl's cluster kernel had, as the library reports it,
-either precision), so that a run
+and `qspa_cluster.frame_slots` on qspa_resident.resident_decode_cl: the
+blocks of the persistent grid each launch of K0-cl's cluster kernel had,
+and its frame slots (its clusters, a frame each), as the library reports
+them, either precision), so that a run
 can zero them before a path and read which kernels it launched, whether a
 plain version ran and what its layers counted. The submodules are
 imported only when the counters are read: importing this package builds
@@ -63,7 +64,8 @@ def counted() -> list:
             ("decode_bl.loop_iterations", common.decode_bl, "loop_iterations"),
             ("decode_bl.frame_iterations", common.decode_bl, "frame_iterations"),
             ("cn_tems.frame_iterations", cn_tems.cn_update, "frame_iterations"),
-            ("qspa_cluster.grid_blocks", qr.resident_decode_cl, "grid_blocks")]
+            ("qspa_cluster.grid_blocks", qr.resident_decode_cl, "grid_blocks"),
+            ("qspa_cluster.frame_slots", qr.resident_decode_cl, "frame_slots")]
 
 
 def launch_counts() -> dict:

@@ -63,14 +63,18 @@ SIGNATURES = {
     # q dc dv C rows checks round warps smem post_shared, out: clusters at once
     "qspa_scratch_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "qspa_cluster_decode": [_P, _P, _P, _P,             # llr, hard, done, iters
+                            _P, _I,                     # prior scratch, its clusters
                             _I, _I, _I, _I, _I, _I,     # B N M dc dv q
-                            _I, _I, _I, _I, _I, _I,     # plan: C rows checks round warps smem
+                            _I, _I, _I, _I, _I, _I, _I,  # plan: C rows checks round
+                                                        # warps in_place smem
                             _P, _P, _P,                 # edge_info row_src row_var
                             _P, _P, _P,                 # n2e gf_log gf_exp
                             _I, _I, _I,                 # iters, modes
-                            ctypes.POINTER(_I), _P],    # out: the grid's blocks; stream
-    # q dc dv C rows checks round warps smem, out: clusters that run at once
-    "qspa_cluster_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
+                            ctypes.POINTER(_I), ctypes.POINTER(_I),  # out: the grid's
+                            _P],                        # blocks and clusters; stream
+    # q dc dv C rows checks round warps in_place smem, out: clusters that
+    # run at once
+    "qspa_cluster_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
     "ems_resident_decode": [_P, _P, _P, _P,             # llr, hard, done, iters
                             _I, _I, _I, _I, _I, _I,     # B N M dc dv q
                             _I, _F,                     # nm, offset

@@ -139,15 +139,20 @@ def log_mismatches(device) -> int:
 
 
 def cluster_smem_bytes(q: int, dc: int, dv: int, rows: int, checks: int,
-                       round_checks: int, es: int = 4) -> int:
-    """Shared memory of one block of the cluster kernel: prior and posterior
-    rows and the checks' message rows (elements of `es` bytes), a round's
-    edge rows of q + 4 floats and their sums, hard decisions, two flags and
-    the rank's tables (csrc/qspa_cluster.cu, dyn_bytes), plus its static
-    n2e [q], log [q] and exp [2q] int tables."""
+                       round_checks: int, es: int = 4, in_place: bool = False) -> int:
+    """Shared memory of one block of the cluster kernel (csrc/qspa_cluster.cu,
+    dyn_bytes), plus its static n2e [q], log [q] and exp [2q] int tables.
+    Buffered (f32 or bf16): prior and posterior rows and the checks'
+    message rows (elements of `es` bytes), a round's edge rows of q + 4
+    floats and their sums, hard decisions, two flags and the rank's tables.
+    In place (f32): posterior rows, the checks' message rows of q + 4
+    floats (the check phase's buffer) and their sums, hard decisions, two
+    flags and the tables; the prior waits in global memory."""
+    ints = rows + checks * dc + rows * dv + rows + 2
+    if in_place:
+        return 4 * (rows * q + checks * dc * (q + 5) + ints) + 16 * q
     return (es * (2 * rows * q + checks * dc * q)
-            + 4 * (round_checks * dc * (q + 5) + rows + 2 + checks * dc + rows * dv + rows)
-            + 16 * q)
+            + 4 * (round_checks * dc * (q + 5) + ints) + 16 * q)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -156,7 +161,9 @@ class ClusterPlan:
     rank r owns the checks [r * checks, (r + 1) * checks) with their message
     rows, and the variables v with vn_rank[v] == r, at posterior row
     vn_row[v]; each block runs `warps` warps in `smem_bytes` of shared
-    memory, its check-node phase `round_checks` checks at a time."""
+    memory. Its layout: buffered (the check phase runs `round_checks`
+    checks at a time through a buffer) or `in_place` (the message rows are
+    the buffer, every check at once; the priors in a global scratch)."""
     size: int
     warps: int
     checks: int             # checks per rank
@@ -165,6 +172,7 @@ class ClusterPlan:
     vn_rank: np.ndarray     # [N]
     vn_row: np.ndarray      # [N]
     smem_bytes: int
+    in_place: bool
 
 
 def _place_variables(vn_edge: np.ndarray, E: int, dc: int, size: int, checks: int):
@@ -185,28 +193,39 @@ def _place_variables(vn_edge: np.ndarray, E: int, dc: int, size: int, checks: in
     return rank, row, int(count.max())
 
 
-def plan_cluster(graph: TannerGraph, es: int = 4) -> ClusterPlan | None:
-    """The cluster kernel's partition of a frame for 32 < q <= 256, state
-    elements of `es` bytes: the smallest cluster size whose share of the
-    state (prior, posterior and messages) and working buffers fit a
-    block's shared memory, its check rounds as few as fit. None when no
-    size fits (or dc exceeds the kernel's limit): K0-cl then runs the
-    scratch kernel."""
+def cluster_plan_at(graph: TannerGraph, size: int, es: int = 4,
+                    in_place: bool = False) -> ClusterPlan | None:
+    """The cluster kernel's partition of a frame over a cluster of `size`
+    blocks, state elements of `es` bytes: buffered, its check rounds
+    through the buffer as few as fit; or `in_place` (f32). None where it
+    does not fit a block's shared memory."""
     g = graph
-    q, m, dc = g.q, g.m, g.dc_max
-    if not K0_MAX_Q < q <= MAX_Q or dc > CLUSTER_MAX_DC:
+    q, m, dc, dv = g.q, g.m, g.dc_max, g.dv_max
+    checks = math.ceil(m / size)
+    rank, row, rows = _place_variables(g.np["vn_edge"], m * dc, dc, size, checks)
+    if max(rows, checks * dc) > 0xFFFF:
         return None
-    E = m * dc
-    for size in CLUSTER_SIZES:
-        checks = math.ceil(m / size)
-        rank, row, rows = _place_variables(g.np["vn_edge"], E, dc, size, checks)
-        for rounds in range(1, checks + 1):
-            round_checks = math.ceil(checks / rounds)
-            smem = cluster_smem_bytes(q, dc, g.dv_max, rows, checks, round_checks, es)
-            if smem <= MAX_SMEM_BYTES:
-                return ClusterPlan(size, CLUSTER_WARPS[q], checks, rows, round_checks,
-                                   rank, row, smem)
+    for rounds in ((1,) if in_place else range(1, checks + 1)):
+        round_checks = math.ceil(checks / rounds)
+        smem = cluster_smem_bytes(q, dc, dv, rows, checks, round_checks, es, in_place)
+        if smem <= MAX_SMEM_BYTES:
+            return ClusterPlan(size, CLUSTER_WARPS[q], checks, rows, round_checks, rank, row,
+                               smem, in_place)
     return None
+
+
+def plan_cluster(graph: TannerGraph, es: int = 4) -> ClusterPlan | None:
+    """The cluster kernel's partition for 32 < q <= 256, state elements of
+    `es` bytes: buffered, the smallest cluster that holds a frame; in f32,
+    in place where that holds a frame on fewer blocks (more frames on the
+    card at once). None when nothing fits (or dc exceeds the kernel's
+    limit): K0-cl then runs the scratch kernel."""
+    g = graph
+    if not K0_MAX_Q < g.q <= MAX_Q or g.dc_max > CLUSTER_MAX_DC:
+        return None
+    plans = [p for size in CLUSTER_SIZES for in_place in (False, True)[:1 + (es == 4)]
+             if (p := cluster_plan_at(g, size, es, in_place)) is not None]
+    return plans[0] if plans else None
 
 
 def scratch_smem_bytes(q: int, dc: int, dv: int, rows: int, checks: int,
@@ -266,7 +285,7 @@ def plan_scratch(graph: TannerGraph, es: int = 4) -> ScratchPlan | None:
                 best = (rounds, ScratchPlan(
                     size, CLUSTER_WARPS[q], checks, rows, round_checks, rank, row,
                     scratch_smem_bytes(q, dc, dv, rows, checks, round_checks, shared, es),
-                    shared, size * (checks * dc + (0 if shared else rows)) * q))
+                    False, shared, size * (checks * dc + (0 if shared else rows)) * q))
         if best is not None:
             return best[1]
     return None
@@ -361,10 +380,20 @@ class ResidentQSPA:
 
         # K0-cl's cluster kernel: its partition (None: the scratch kernel,
         # whose partition and tables `scratch_layout` makes when first asked)
-        self.cluster_plan = plan_cluster(g, es) if q > K0_MAX_Q else None
-        if self.cluster_plan is not None:
-            self.cluster = {k: t(v) for k, v in cluster_tables(g, self.cluster_plan).items()}
-            self.cluster.update(gf_log=t(gf.log), gf_exp=t(gf.exp))
+        self._set_cluster_plan(plan_cluster(g, es) if q > K0_MAX_Q else None)
+
+    def _set_cluster_plan(self, plan: ClusterPlan | None) -> None:
+        """Run K0-cl's cluster kernel under `plan` and its tables: plan_cluster's
+        at construction; in tests and kernel timings, another partition of
+        the code (cluster_plan_at), which decodes every frame the same."""
+        self.cluster_plan = plan
+        self.__dict__.pop("cluster", None)
+        self.__dict__.pop("_prior", None)
+        if plan is not None:
+            g = self.graph
+            host = dict(cluster_tables(g, plan), gf_log=g.gf.log, gf_exp=g.gf.exp)
+            self.cluster = {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.int32))
+                            .to(g.device) for k, v in host.items()}
 
     # ---- plain version ----------------------------------------------------
 
@@ -536,14 +565,39 @@ resident_decode.launches = 0
 resident_decode.launches_bf16 = 0
 
 
+def _plan_cluster_args(plan: ClusterPlan) -> tuple:
+    """The cluster plan as the C entry points take it."""
+    return (plan.size, plan.rows, plan.checks, plan.round_checks, plan.warps,
+            int(plan.in_place), plan.smem_bytes)
+
+
+def _prior_scratch(dec: ResidentQSPA, device) -> tuple:
+    """(scratch, clusters): in place, the global scratch of the cluster
+    kernel's priors on `device`, a slice of size x rows x q floats for each
+    of the clusters that run at once (cluster_occupancy), made once per
+    decoder and device (its launches share it, in stream order); buffered,
+    (None, 0)."""
+    plan = dec.cluster_plan
+    if not plan.in_place:
+        return None, 0
+    made = dec.__dict__.setdefault("_prior", {})
+    if device not in made:
+        clusters = cluster_occupancy(dec, device)
+        made[device] = (torch.empty(clusters * plan.size * plan.rows * dec.graph.q,
+                                    dtype=torch.float32, device=device), clusters)
+    return made[device]
+
+
 def resident_decode_cl(dec: ResidentQSPA, llr: torch.Tensor):
     """K0-cl on a CUDA tensor llr [B, N, q] f32, q in {64, 128, 256}: the
-    cluster kernel (csrc/qspa_cluster.cu, a persistent grid of clusters,
-    each frame's state in its blocks' shared memory, laid out by
-    `dec.cluster_plan`); a code whose state no cluster holds goes to
+    cluster kernel (csrc/qspa_cluster.cu, a persistent grid of clusters, a
+    frame a cluster, each frame's state in its blocks' shared memory, laid
+    out by `dec.cluster_plan`; in place the priors in `_prior_scratch`); a
+    code whose state no cluster holds goes to
     `resident_decode_cl_scratch`. Each launch adds the blocks of the grid
     the library launched (min(B, occupancy) clusters of `plan.size`) to
-    `grid_blocks`; the library call is the span `qspa_cluster.launch`.
+    `grid_blocks` and its clusters, the frames it holds at once, to
+    `frame_slots`; the library call is the span `qspa_cluster.launch`.
     Raises ValueError on a tensor it does not take, a CPU tensor included;
     the kernel's own check of the plan raises RuntimeError."""
     plan = dec.cluster_plan
@@ -554,29 +608,33 @@ def resident_decode_cl(dec: ResidentQSPA, llr: torch.Tensor):
     if llr.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {llr.device}")
     hard, done, iters = checked_outputs(dec, llr, name)
-    if llr.shape[0] == 0:
+    B = llr.shape[0]
+    if B == 0:
         return hard, done, iters
     from nbldpc_tpu_torch.kernels import _build
 
     c = dec.cluster
-    blocks = ctypes.c_int(0)
+    prior, clusters = _prior_scratch(dec, llr.device)
+    blocks, slots = ctypes.c_int(0), ctypes.c_int(0)
     with span("qspa_cluster.launch"):
         _build.launch(resident_decode_cl, name, llr.device,
                       llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(),
-                      llr.shape[0], g.n, g.m, g.dc_max, g.dv_max, g.q,
-                      plan.size, plan.rows, plan.checks, plan.round_checks, plan.warps,
-                      plan.smem_bytes, c["edge_info"].data_ptr(), c["row_src"].data_ptr(),
+                      None if prior is None else prior.data_ptr(), clusters,
+                      B, g.n, g.m, g.dc_max, g.dv_max, g.q, *_plan_cluster_args(plan),
+                      c["edge_info"].data_ptr(), c["row_src"].data_ptr(),
                       c["row_var"].data_ptr(), dec.n2e.data_ptr(), c["gf_log"].data_ptr(),
                       c["gf_exp"].data_ptr(),
                       dec.max_iters, int(dec.early_term), int(dec.stats_each_iter),
-                      ctypes.byref(blocks), counter=counter)
+                      ctypes.byref(blocks), ctypes.byref(slots), counter=counter)
     resident_decode_cl.grid_blocks += blocks.value
+    resident_decode_cl.frame_slots += slots.value
     return hard, done, iters
 
 
 resident_decode_cl.launches = 0
 resident_decode_cl.launches_bf16 = 0
 resident_decode_cl.grid_blocks = 0
+resident_decode_cl.frame_slots = 0
 
 
 def cluster_occupancy(dec: ResidentQSPA, device) -> int:
@@ -584,13 +642,13 @@ def cluster_occupancy(dec: ResidentQSPA, device) -> int:
     the clusters of the persistent grid."""
     from nbldpc_tpu_torch.kernels import _build
 
-    g, plan = dec.graph, dec.cluster_plan
+    g = dec.graph
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
         name = _entry(dec, "qspa_cluster_occupancy")[0]
         _build.check(getattr(_build.library(), name)(
-            g.q, g.dc_max, g.dv_max, plan.size, plan.rows, plan.checks,
-            plan.round_checks, plan.warps, plan.smem_bytes, ctypes.byref(out)), name)
+            g.q, g.dc_max, g.dv_max, *_plan_cluster_args(dec.cluster_plan),
+            ctypes.byref(out)), name)
     return out.value
 
 

@@ -2,8 +2,8 @@
 (255,175), 50 checks of degree 6 and 30 of degree 7, QSPA, 20 iterations,
 early termination, 8 Eb/N0 points) on the CPU: the port's sweep step held
 to the benchmark's plain reference (portbench/reference.py), K0-cl's
-cluster partition of the code, its grid counter, and the readers of
-K0-cl's two per-layer metrics. This file imports no JAX."""
+cluster partition of the code, its grid and frame-slot counters, and the
+readers of K0-cl's three per-layer metrics. This file imports no JAX."""
 
 import types
 
@@ -112,13 +112,12 @@ def test_a_bfloat16_reference_fails_the_tolerances(cfg, code, ref):
 
 def test_the_cpu_step_leaves_the_grid_counter_at_zero(port):
     _, counts = port
-    assert counts["qspa_cluster.grid_blocks"] == 0
+    assert counts["qspa_cluster.grid_blocks"] == counts["qspa_cluster.frame_slots"] == 0
     assert counts["qspa_resident_cl"] == counts["qspa_resident_cl_bf16"] == 0
 
 
-def test_plan_cluster_spreads_the_code_over_eight_blocks_each_edge_once(graph, code):
-    plan = qr.plan_cluster(graph)
-    assert plan.size == 8 and plan.size * plan.checks >= graph.m
+def _each_edge_once(graph, code, plan):
+    assert plan.size * plan.checks >= graph.m
     t = qr.cluster_tables(graph, plan)
     dc, E = graph.dc_max, graph.m * graph.dc_max
     info = t["edge_info"]
@@ -136,13 +135,34 @@ def test_plan_cluster_spreads_the_code_over_eight_blocks_each_edge_once(graph, c
     assert np.array_equal(np.sort(edge), slots)
 
 
+def test_plan_cluster_spreads_the_code_over_eight_blocks_each_edge_once(graph, code):
+    # buffered, the code takes 8 blocks; plan_cluster takes it in place (below)
+    plan = qr.cluster_plan_at(graph, 8)
+    assert (plan.size, plan.in_place) == (8, False)
+    _each_edge_once(graph, code, plan)
+
+
+def test_plan_cluster_takes_the_code_in_place_on_four_blocks_each_edge_once(graph, code):
+    plan = qr.plan_cluster(graph)
+    assert (plan.size, plan.in_place) == (4, True)
+    _each_edge_once(graph, code, plan)
+
+
 def test_grid_blocks_is_a_counter_of_the_program():
+    _is_a_counter_of_the_program("grid_blocks")
+
+
+def test_frame_slots_is_a_counter_of_the_program():
+    _is_a_counter_of_the_program("frame_slots")
+
+
+def _is_a_counter_of_the_program(counter):
     names = {name: (fn, attr) for name, fn, attr in counted()}
-    assert names["qspa_cluster.grid_blocks"] == (qr.resident_decode_cl, "grid_blocks")
-    qr.resident_decode_cl.grid_blocks = 7
-    assert launch_counts()["qspa_cluster.grid_blocks"] == 7
+    assert names[f"qspa_cluster.{counter}"] == (qr.resident_decode_cl, counter)
+    setattr(qr.resident_decode_cl, counter, 7)
+    assert launch_counts()[f"qspa_cluster.{counter}"] == 7
     reset_launch_counts()
-    assert launch_counts()["qspa_cluster.grid_blocks"] == 0
+    assert launch_counts()[f"qspa_cluster.{counter}"] == 0
 
 
 CLUSTER_KERNEL = "void (anonymous namespace)::qspa_cluster_kernel<256, float>(float const*)"
@@ -154,7 +174,7 @@ def _ctx(code, **over):
     ctx = {"kernels": {CLUSTER_KERNEL: [0.044, 2]}, "S": 8, "B": 512,
            "shape": bounds.shape_of(code), "counters": counters,
            "launches": {"qspa_resident_cl": 10, "qspa_resident_cl_bf16": 0,
-                        "qspa_cluster.grid_blocks": 1200}}
+                        "qspa_cluster.grid_blocks": 1200, "qspa_cluster.frame_slots": 300}}
     ctx.update(over)
     return ctx
 
@@ -202,3 +222,23 @@ def test_grid_sm_share_is_none_without_a_cluster_launch(code, card_of_132_sms, l
 def test_grid_sm_share_is_none_without_a_card(code, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert manifest.load_reader("k0cl.grid_sm_share")(_ctx(code)) is None
+
+
+def test_frames_in_flight_on_a_hand_built_ctx(code):
+    # 10 launches of 30 clusters of 4 blocks, a frame a cluster
+    assert manifest.load_reader("k0cl.frames_in_flight")(_ctx(code)) == 30
+    # f32 and bf16 launches together: 4 of 30 clusters and 2 of 15 clusters
+    mixed = _ctx(code, launches={"qspa_resident_cl": 4, "qspa_resident_cl_bf16": 2,
+                                 "qspa_cluster.grid_blocks": 4 * 30 * 4 + 2 * 15 * 4,
+                                 "qspa_cluster.frame_slots": 4 * 30 + 2 * 15})
+    assert manifest.load_reader("k0cl.frames_in_flight")(mixed) == 25
+
+
+@pytest.mark.parametrize("launches", [
+    {"qspa_resident": 10},                                        # no counter: the parent
+    {"qspa_resident_cl": 0, "qspa_resident_cl_bf16": 0, "qspa_cluster.frame_slots": 0},
+    {"qspa_resident_cl_scratch": 3, "qspa_cluster.grid_blocks": 0,
+     "qspa_cluster.frame_slots": 0}],
+    ids=["absent", "k0", "scratch"])
+def test_frames_in_flight_is_none_without_a_cluster_launch(code, launches):
+    assert manifest.load_reader("k0cl.frames_in_flight")(_ctx(code, launches=launches)) is None

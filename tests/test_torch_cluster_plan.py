@@ -1,9 +1,10 @@
 """K0-cl's cluster partition (kernels/qspa_resident.py: plan_cluster,
-cluster_tables, cn_shift) and the tables the cluster kernel
-(csrc/qspa_cluster.cu) reads: each check and variable owned by one rank,
-each rank within a block's shared memory, the cluster sizes of the repo's
-codes, the scratch path for a code no cluster holds, and the log/exp form
-of h^-1 x equal to the graph's perm_down table."""
+cluster_plan_at, cluster_tables, cn_shift) and the tables the cluster
+kernel (csrc/qspa_cluster.cu) reads: each check and variable owned by one
+rank, each rank within a block's shared memory, the cluster sizes and
+layouts of the repo's codes, the scratch path for a code no
+cluster holds, and the log/exp form of h^-1 x equal to the graph's
+perm_down table."""
 
 from pathlib import Path
 
@@ -21,10 +22,21 @@ CODES = Path(__file__).resolve().parents[1] / "codes"
 ALISTS = sorted(p.stem for p in CODES.glob("*.alist"))
 
 
+# random codes of the card tests: (q, N, M, seed)
+RANDOM = {"gf128_n96_m24": (128, 96, 24, 7),     # one block, buffered
+          "gf64_n1800_m600": (64, 1800, 600, 3)}   # 8 blocks in place, none buffered
+
+
 def _graph(name):
-    if name == "gf128_n96_m24":             # the GF(128) code of the card tests
-        return TannerGraph(random_regular_spec(128, 96, 24, seed=7), "cpu")
+    if name in RANDOM:
+        q, n, m, seed = RANDOM[name]
+        return TannerGraph(random_regular_spec(q, n, m, seed=seed), "cpu")
     return TannerGraph(CodeConfig(path=str(CODES / f"{name}.alist")).load(), "cpu")
+
+
+def _layout(plan):
+    """cluster_smem_bytes' layout arguments for `plan`."""
+    return 4, plan.in_place
 
 
 PLANNED = ["gf64_n576_k480", "gf256_n255_k175", "gf128_n96_m24"]
@@ -63,18 +75,21 @@ def test_plan_fits_shared_memory(code):
         rows = int((plan.vn_rank == r).sum())
         checks = max(0, min(plan.checks, g.m - r * plan.checks))
         mine = qr.cluster_smem_bytes(g.q, g.dc_max, g.dv_max, rows, checks,
-                                     plan.round_checks)
+                                     plan.round_checks, *_layout(plan))
         assert mine <= plan.smem_bytes
-    # the next smaller cluster does not fit, even one check per round
+    # the next smaller cluster does not fit one frame, in either layout
+    # (buffered even one check per round; in place the prior off chip)
     if plan.size > 1:
         half = plan.size // 2
         checks = -(-g.m // half)
         rows = -(-g.n // half)
         assert (qr.cluster_smem_bytes(g.q, g.dc_max, g.dv_max, rows, checks, 1)
                 > qr.MAX_SMEM_BYTES)
+        assert (qr.cluster_smem_bytes(g.q, g.dc_max, g.dv_max, rows, checks, checks, 4, True)
+                > qr.MAX_SMEM_BYTES)
 
 
-@pytest.mark.parametrize("code,sizes", [("gf256_n255_k175", (8,)), ("gf64_n576_k480", (1, 2, 4)),
+@pytest.mark.parametrize("code,sizes", [("gf256_n255_k175", (4,)), ("gf64_n576_k480", (1, 2, 4)),
                                         ("gf128_n96_m24", (1, 2))])
 def test_plan_cluster_size(code, sizes):
     plan = qr.plan_cluster(_graph(code))
@@ -156,11 +171,12 @@ def test_perm_from_logs_matches_perm_down_small_codes(small_codes, name):
 
 
 # K0-cl's scratch kernel (csrc/qspa_resident_cl.cu): its partition
-# (plan_scratch) for the codes no cluster holds, GF(256) from about N = 480
-# and GF(64) from about N = 1800 (random dv = 2 codes, M = N / 3), and for
-# a code whose posterior no cluster of 8 holds either (GF(256), N = 2400)
-OVERSIZE = {"gf256_n480": (256, 480, 160), "gf256_n1200": (256, 1200, 400),
-            "gf64_n1800": (64, 1800, 600), "gf256_n2400": (256, 2400, 800)}
+# (plan_scratch) for the codes no cluster holds, GF(256) from about N = 600
+# and GF(64) from about N = 2250 (random dv = 2 codes, M = N / 3; the
+# cluster kernel's in-place layout holds them up to there), and for a code
+# whose posterior no cluster of 8 holds either (GF(256), N = 2400)
+OVERSIZE = {"gf256_n720": (256, 720, 240), "gf256_n1200": (256, 1200, 400),
+            "gf64_n2400": (64, 2400, 800), "gf256_n2400": (256, 2400, 800)}
 
 
 def _oversize(name):
@@ -244,3 +260,45 @@ def test_scratch_plan_takes_the_fewest_rounds(q, n, m):
     assert plan.post_shared and plan.smem_bytes <= qr.MAX_SMEM_BYTES
     assert (-(-plan.checks // plan.round_checks), plan.size) == _fewest_rounds(g)
     assert qr.plan_scratch(_graph("gf16_n204_k102")) is None      # K0's field
+
+
+# The layout plan_cluster picks by shape (f32): in place where that holds
+# a frame on fewer blocks than buffered (more frames on the card at once),
+# else buffered; bf16 always buffered
+@pytest.mark.parametrize("code,size,in_place", [
+    ("gf256_n255_k175", 4, True),       # buffered: 8 blocks; in place: 4
+    ("gf64_n576_k480", 4, False),       # 4 blocks either way: buffered
+    ("gf128_n96_m24", 1, False),        # 1 block either way: buffered
+    ("gf64_n1800_m600", 8, True)])      # no cluster holds it buffered
+def test_plan_cluster_layout_by_shape(code, size, in_place):
+    g = _graph(code)
+    plan = qr.plan_cluster(g)
+    assert (plan.size, plan.in_place) == (size, in_place)
+    buffered = next((p for s in qr.CLUSTER_SIZES if (p := qr.cluster_plan_at(g, s)) is not None),
+                    None)
+    assert buffered is None or not buffered.in_place
+    # in place exactly where buffered takes more blocks (or none holds it)
+    assert in_place == (buffered is None or buffered.size > plan.size)
+    bf16 = qr.plan_cluster(g, es=2)
+    assert not bf16.in_place
+
+
+@pytest.mark.parametrize("code,size", [("gf256_n255_k175", 4), ("gf256_n255_k175", 8),
+                                       ("gf64_n576_k480", 4), ("gf128_n96_m24", 1)])
+def test_in_place_plan_fits_shared_memory(code, size):
+    """In place (f32): the posterior rows, the message rows q + 4 floats
+    apart and their sums, hard decisions and tables within a block, every
+    check in one round, the priors off chip: fewer bytes than buffered in
+    one round at the same size; config 5's code fits 4 blocks so, where
+    buffered needs 8."""
+    g = _graph(code)
+    plan = qr.cluster_plan_at(g, size, 4, True)
+    assert plan is not None and plan.in_place and plan.round_checks == plan.checks
+    assert plan.smem_bytes == qr.cluster_smem_bytes(
+        g.q, g.dc_max, g.dv_max, plan.rows, plan.checks, plan.checks, *_layout(plan))
+    assert plan.smem_bytes <= qr.MAX_SMEM_BYTES
+    assert plan.smem_bytes < qr.cluster_smem_bytes(g.q, g.dc_max, g.dv_max, plan.rows,
+                                                   plan.checks, plan.checks)
+    if (code, size) == ("gf256_n255_k175", 4):
+        assert plan.smem_bytes == 217384
+        assert qr.cluster_plan_at(g, 4) is None

@@ -313,7 +313,8 @@ def test_resident_cl_kernel_cfg5_bench_shape(cuda_device):
 def test_cluster_grid_blocks_count_the_launched_grid(cuda_device, precision):
     """qspa_cluster.grid_blocks adds the grid each launch had, as the
     library reports it: min(B, cudaOccupancyMaxActiveClusters) clusters of
-    the plan's size, in either precision, and nothing for no frames."""
+    the plan's size, in either precision, and nothing for no frames;
+    qspa_cluster.frame_slots those clusters, a frame each."""
     from nbldpc_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     g = _graph("gf256_n255_k175", cuda_device)
@@ -329,13 +330,39 @@ def test_cluster_grid_blocks_count_the_launched_grid(cuda_device, precision):
     counts = launch_counts()
     assert counts["qspa_resident_cl" + ("" if precision == "f32" else "_bf16")] == 2
     assert counts["qspa_cluster.grid_blocks"] == (min(4096, occupancy) + min(5, occupancy)) * size
+    assert counts["qspa_cluster.frame_slots"] == min(4096, occupancy) + min(5, occupancy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_cluster_prior_scratch_is_made_once(cuda_device, precision, monkeypatch):
+    """In place (config 5's code in f32) the priors' scratch is made at the
+    decoder's first launch on a device, one slice of size x rows x q floats
+    for each cluster that runs at once, and every later launch reuses it
+    without asking for the occupancy again; buffered (bf16) has none."""
+    g = _graph("gf256_n255_k175", cuda_device)
+    dec = qr.ResidentQSPA(g, 20, mm_precision=precision)
+    occupancy, plan = qr.cluster_occupancy(dec, cuda_device), dec.cluster_plan
+    asked = []
+    monkeypatch.setattr(qr, "cluster_occupancy",
+                        lambda *a: asked.append(a) or occupancy)
+    for B in (5, 4096, 1):
+        qr.resident_decode(dec, _zero_cw_llrs(g, B, 3.0, cuda_device))
+    torch.cuda.synchronize()
+    assert plan.in_place == (precision == "f32")
+    if plan.in_place:
+        scratch, clusters = dec._prior[torch.device(cuda_device)]
+        assert len(asked) == 1 and clusters == occupancy
+        assert scratch.numel() == occupancy * plan.size * plan.rows * g.q
+    else:
+        assert not asked and "_prior" not in dec.__dict__
 
 
 @pytest.mark.cuda
 def test_cfg5_sim_step_runs_the_cluster_kernel(cuda_device):
     """BASELINE config 5's QSPA step (8 slots x 512 frames) through
     make_sim_step, as run_sweep builds it: one K0-cl cluster launch, its
-    grid counted, no plain version and no K1."""
+    grid and frame slots counted, no plain version and no K1."""
     from nbldpc_tpu_torch import sim
     from nbldpc_tpu_torch.kernels import launch_counts, reset_launch_counts
     from nbldpc_tpu_torch.utils.config import load_config
@@ -353,6 +380,7 @@ def test_cfg5_sim_step_runs_the_cluster_kernel(cuda_device):
     assert ran["qspa_resident_cl"] == 1
     assert ran["qspa_cluster.grid_blocks"] == (qr.cluster_occupancy(dec, cuda_device)
                                                * dec.cluster_plan.size)
+    assert ran["qspa_cluster.frame_slots"] == qr.cluster_occupancy(dec, cuda_device)
     assert not [k for k in ran if k.endswith("_plain") or k.startswith("cn_qspa")]
     assert out["frames"].tolist() == [cfg.sim.frames_per_step] * len(points)
 
@@ -369,14 +397,18 @@ def test_resident_cl_scratch_kernel_oversize_code(cuda_device, mode):
 
 # K0-cl's scratch kernel (csrc/qspa_resident_cl.cu, a frame a cluster, the
 # messages in a global slice a cluster) on random dv = 2 codes no cluster
-# holds: GF(256) from about N = 480, GF(64) from about N = 1800
-SCRATCH_CODES = {"gf256_n480": (256, 480, 160), "gf256_n1200": (256, 1200, 400),
-                 "gf64_n1800": (64, 1800, 600)}
+# holds: GF(256) from about N = 600, GF(64) from about N = 2250
+SCRATCH_CODES = {"gf256_n720": (256, 720, 240), "gf256_n1200": (256, 1200, 400),
+                 "gf64_n2400": (64, 2400, 800)}
+# and random codes the cluster kernel holds in place: GF(256) N = 480 and
+# GF(64) N = 1800 on 8 blocks, the priors in global memory (the scratch
+# kernel's until its in-place layout)
+RANDOM_CODES = {**SCRATCH_CODES, "gf256_n480": (256, 480, 160), "gf64_n1800": (64, 1800, 600)}
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_graph(code, device):
-    q, n, m = SCRATCH_CODES[code]
+def _random_graph(code, device):
+    q, n, m = RANDOM_CODES[code]
     return TannerGraph(random_regular_spec(q, n, m, seed=3), device=device)
 
 
@@ -387,7 +419,7 @@ def _scratch_graph(code, device):
 def test_resident_cl_scratch_kernel_codes_no_cluster_holds(cuda_device, code, mode, B):
     """One frame, a few, fewer than the clusters that run at once and more
     (512: a second round of frames)."""
-    g = _scratch_graph(code, cuda_device)
+    g = _random_graph(code, cuda_device)
     _hold_resident(g, _zero_cw_llrs(g, B, 2.5, cuda_device), mode,
                    qr.resident_decode_cl_scratch)
 
@@ -426,24 +458,28 @@ def test_resident_cl_scratch_kernel_any_code(cuda_device, code, mode):
 # them, which an agreement >= 0.995 with the plain version let pass)
 RUN_ON_CODES = [("cluster", "gf256_n255_k175", 2.0), ("cluster", "gf64_n576_k480", 3.0),
                 ("scratch", "gf256_n255_k175", 2.0), ("scratch", "gf256_n1200", 2.5),
-                ("scratch", "gf64_n1800", 2.5)]
+                ("scratch", "gf64_n1800", 2.5), ("cluster", "gf64_n1800", 2.5)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["16x", "at_once_plus_1", "odd"])
 @pytest.mark.parametrize("mode", RESIDENT_MODES)
 @pytest.mark.parametrize("kernel,code,ebn0", RUN_ON_CODES)
-def test_resident_cl_frames_in_a_row_equal_frames_alone(cuda_device, kernel, code, ebn0, mode):
+def test_resident_cl_frames_in_a_row_equal_frames_alone(cuda_device, kernel, code, ebn0, mode,
+                                                        batch):
     """B = 16 x the clusters that run at once, so every cluster decodes 16
-    frames in a row: hard, done and iters equal, bit for bit, those of
+    frames in a row; one more frame than the clusters; an odd B between (2
+    x the clusters + 7): hard, done and iters equal, bit for bit, those of
     each frame decoded alone (B = 1, one frame on one cluster)."""
-    g = _scratch_graph(code, cuda_device) if code in SCRATCH_CODES else _graph(code, cuda_device)
+    g = _random_graph(code, cuda_device) if code in RANDOM_CODES else _graph(code, cuda_device)
     dec = qr.ResidentQSPA(g, *mode)
     if kernel == "cluster":
         fn, at_once = qr.resident_decode_cl, qr.cluster_occupancy(dec, cuda_device)
     else:
         fn, at_once = qr.resident_decode_cl_scratch, qr.scratch_occupancy(dec, cuda_device)
     counter = fn.launches
-    llr = _zero_cw_llrs(g, 16 * at_once, ebn0, cuda_device)
+    B = {"16x": 16 * at_once, "at_once_plus_1": at_once + 1, "odd": 2 * at_once + 7}[batch]
+    llr = _zero_cw_llrs(g, B, ebn0, cuda_device)
     together = fn(dec, llr)
     alone = [fn(dec, llr[b:b + 1].contiguous()) for b in range(llr.shape[0])]
     assert fn.launches == counter + 1 + llr.shape[0]
@@ -465,6 +501,39 @@ def test_resident_cl_two_kernels_agree_bit_for_bit(cuda_device, code, mode):
     llr = _zero_cw_llrs(g, 300, 2.5, cuda_device)
     for a, b in zip(qr.resident_decode_cl(dec, llr), qr.resident_decode_cl_scratch(dec, llr)):
         assert torch.equal(a, b)
+
+
+def _alternating_llrs(g, B, device):
+    """LLRs of B all-zero codewords, 2.0 dB and 5.5 dB frames in turn."""
+    low, high = _zero_cw_llrs(g, B, 2.0, device), _zero_cw_llrs(g, B, 5.5, device, seed=6)
+    odd = (torch.arange(B, device=device) % 2 == 1)[:, None, None]
+    return torch.where(odd, high, low).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", RESIDENT_MODES)
+@pytest.mark.parametrize("code", ["gf256_n255_k175", "gf64_n576_k480"])
+def test_resident_cl_every_partition_decodes_unequal_frames_as_alone(cuda_device, code, mode):
+    """Frames at 2.0 and 5.5 dB in turn, so neighbouring clusters run very
+    different iteration counts: under every f32 partition of the code that
+    fits (cluster size; buffered or in place), B = 2 x the clusters at
+    once + 3 frames give hard, done and iters equal, bit for bit, to each
+    frame decoded alone under the plan."""
+    g = _graph(code, cuda_device)
+    dec = qr.ResidentQSPA(g, *mode)
+    plans = [p for size in qr.CLUSTER_SIZES for in_place in (False, True)
+             if (p := qr.cluster_plan_at(g, size, 4, in_place)) is not None]
+    assert any(p.in_place for p in plans) and any(not p.in_place for p in plans)
+    B = 2 * max(qr.cluster_occupancy(dec, cuda_device), 32) + 3
+    llr = _alternating_llrs(g, B, cuda_device)
+    alone = [qr.resident_decode_cl(dec, llr[b:b + 1].contiguous()) for b in range(B)]
+    want = [torch.cat(parts) for parts in zip(*alone)]
+    if mode[1]:                 # early termination: the 2.0 dB frames run longer
+        assert want[2][0::2].float().mean() > want[2][1::2].float().mean()
+    for plan in plans:
+        dec._set_cluster_plan(plan)
+        got = qr.resident_decode_cl(dec, llr)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (plan.size, plan.in_place)
 
 
 @pytest.mark.cuda
@@ -604,8 +673,8 @@ RANDOM_CW_KERNELS = {"k0": qr.resident_decode, "cluster": qr.resident_decode_cl,
 def _case_graph(code, device):
     if code == "gf32":
         return TannerGraph(K0_CODES["gf32"](), device=device)
-    if code in SCRATCH_CODES:
-        return _scratch_graph(code, device)
+    if code in RANDOM_CODES:
+        return _random_graph(code, device)
     return _graph(code, device)
 
 
@@ -1223,8 +1292,8 @@ BF16_KERNELS = {"k0": qr.resident_decode, "cluster": qr.resident_decode_cl,
 
 
 def _bf16_graph(code, device):
-    if code in SCRATCH_CODES:
-        return _scratch_graph(code, device)
+    if code in RANDOM_CODES:
+        return _random_graph(code, device)
     if code in BF16_SCRATCH_CODES:
         return TannerGraph(random_regular_spec(*BF16_SCRATCH_CODES[code], seed=3), device=device)
     if code == "gf32_random":
@@ -1342,7 +1411,7 @@ def test_resident_cl_scratch_writes_only_its_outputs(cuda_device, code):
     side of any of them; its outputs equal the wrapper's."""
     from nbldpc_tpu_torch.kernels import _build
 
-    g, B = _scratch_graph(code, cuda_device), 37
+    g, B = _random_graph(code, cuda_device), 37
     dec = qr.ResidentQSPA(g, 20, False, False)
     llr = _zero_cw_llrs(g, B, 2.5, cuda_device)
     plan, c = qr.scratch_layout(dec)
@@ -1366,35 +1435,59 @@ def test_resident_cl_scratch_writes_only_its_outputs(cuda_device, code):
     assert torch.equal(iters, want[2])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("code", ["gf256_n255_k175", "gf64_n576_k480"])
-def test_resident_cl_cluster_bf16_writes_only_its_outputs(cuda_device, code):
-    """The cluster kernel's bf16 build writes its hard decisions, done
-    flags and iteration counts, and nothing on either side of them."""
+def _cluster_writes_only(device, g, precision):
+    """The cluster kernel called directly on 37 frames at 2.5 dB, 20
+    iterations at the fixed budget: its outputs, and in place the prior
+    scratch, each between guards; the guards intact, the outputs the
+    wrapper's, the grid's blocks and frame slots the library's."""
     from nbldpc_tpu_torch.kernels import _build
 
-    g, B = _graph(code, cuda_device), 37
-    dec = qr.ResidentQSPA(g, 20, False, False, mm_precision="bf16")
+    B = 37
+    dec = qr.ResidentQSPA(g, 20, False, False, mm_precision=precision)
     plan, c = dec.cluster_plan, dec.cluster
-    llr = _zero_cw_llrs(g, B, 2.5, cuda_device)
-    bufs, (hard, iters) = zip(*(_guarded_out(shape, cuda_device) for shape in ((B, g.n), (B,))))
-    hard, iters = hard.view(torch.int32), iters.view(torch.int32)
-    dbuf = torch.full((B + 2 * _GUARD,), 0xAB, dtype=torch.uint8, device=cuda_device)
+    clusters = min(B, qr.cluster_occupancy(dec, device))
+    llr = _zero_cw_llrs(g, B, 2.5, device)
+    shapes = [(B, g.n), (B,)]
+    if plan.in_place:
+        shapes.append((clusters * plan.size * plan.rows * g.q,))
+    bufs, outs = zip(*(_guarded_out(shape, device) for shape in shapes))
+    hard, iters = outs[0].view(torch.int32), outs[1].view(torch.int32)
+    prior = outs[2].data_ptr() if plan.in_place else None
+    dbuf = torch.full((B + 2 * _GUARD,), 0xAB, dtype=torch.uint8, device=device)
     done = dbuf[_GUARD:_GUARD + B]
-    grid = ctypes.c_int(0)
-    _build.check(_build.library().qspa_cluster_decode_bf16(
-        llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(), B, g.n, g.m,
-        g.dc_max, g.dv_max, g.q, plan.size, plan.rows, plan.checks, plan.round_checks,
-        plan.warps, plan.smem_bytes, c["edge_info"].data_ptr(), c["row_src"].data_ptr(),
+    grid, slots = ctypes.c_int(0), ctypes.c_int(0)
+    name = "qspa_cluster_decode" + ("" if precision == "f32" else "_bf16")
+    _build.check(getattr(_build.library(), name)(
+        llr.data_ptr(), hard.data_ptr(), done.data_ptr(), iters.data_ptr(), prior,
+        0 if prior is None else clusters, B, g.n, g.m, g.dc_max, g.dv_max, g.q,
+        *qr._plan_cluster_args(plan), c["edge_info"].data_ptr(), c["row_src"].data_ptr(),
         c["row_var"].data_ptr(), dec.n2e.data_ptr(), c["gf_log"].data_ptr(),
-        c["gf_exp"].data_ptr(), 20, 0, 0, ctypes.byref(grid), _build.stream_ptr(cuda_device)),
-        "qspa_cluster_decode_bf16")
-    assert grid.value == min(B, qr.cluster_occupancy(dec, cuda_device)) * plan.size
+        c["gf_exp"].data_ptr(), 20, 0, 0, ctypes.byref(grid), ctypes.byref(slots),
+        _build.stream_ptr(device)), name)
+    assert (grid.value, slots.value) == (clusters * plan.size, clusters)
     assert all(_guards_intact(b) for b in bufs)
     assert bool((dbuf[:_GUARD] == 0xAB).all() and (dbuf[-_GUARD:] == 0xAB).all())
     want = qr.resident_decode_cl(dec, llr)
     assert torch.equal(hard, want[0]) and torch.equal(done.bool(), want[1])
     assert torch.equal(iters, want[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["gf256_n255_k175", "gf64_n576_k480"])
+def test_resident_cl_cluster_bf16_writes_only_its_outputs(cuda_device, code):
+    """The cluster kernel's bf16 build writes its hard decisions, done
+    flags and iteration counts, and nothing on either side of them."""
+    _cluster_writes_only(cuda_device, _graph(code, cuda_device), "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", ["gf256_n255_k175", "gf64_n576_k480", "gf64_n1800"])
+def test_resident_cl_cluster_writes_only_its_outputs(cuda_device, code):
+    """The f32 build in each layout (config 5's code in place on 4 blocks;
+    GF(64) (576,480) buffered; GF(64) N = 1800 in place on 8) writes its
+    outputs and its prior scratch, and nothing on either side of them."""
+    g = _random_graph(code, cuda_device) if code in RANDOM_CODES else _graph(code, cuda_device)
+    _cluster_writes_only(cuda_device, g, "f32")
 
 
 @pytest.mark.cuda
@@ -1404,7 +1497,7 @@ def test_resident_cl_scratch_bf16_writes_only_its_outputs(cuda_device, code):
     slices of the scratch, and nothing on either side of any of them."""
     from nbldpc_tpu_torch.kernels import _build
 
-    g, B = _scratch_graph(code, cuda_device), 37
+    g, B = _random_graph(code, cuda_device), 37
     dec = qr.ResidentQSPA(g, 20, False, False, mm_precision="bf16")
     llr = _zero_cw_llrs(g, B, 2.5, cuda_device)
     plan, c = qr.scratch_layout(dec)
@@ -1568,8 +1661,9 @@ def test_run_all_row_launches_its_kernel(cuda_device, tmp_path, config, kernel):
     if kernel == "qspa_resident_cl":
         # the persistent grid of each launch: min(frames, occupancy) clusters
         dec = qr.ResidentQSPA(_graph(rec["code"], cuda_device), rec["iters"])
-        want["qspa_cluster.grid_blocks"] = rec["steps"] * dec.cluster_plan.size * min(
-            rec["batch"] * rec["n_snr"], qr.cluster_occupancy(dec, cuda_device))
+        clusters = min(rec["batch"] * rec["n_snr"], qr.cluster_occupancy(dec, cuda_device))
+        want["qspa_cluster.grid_blocks"] = rec["steps"] * dec.cluster_plan.size * clusters
+        want["qspa_cluster.frame_slots"] = rec["steps"] * clusters
     assert {k: v for k, v in rec["launches"].items() if v} == want
     assert rec["config"] == config and rec["batch"] == 32 and rec["timing"] == "cuda_events"
     assert rec["device"] == torch.cuda.get_device_name(cuda_device)

@@ -129,13 +129,15 @@ def _code(name):
 @pytest.mark.parametrize("code,size,smem", [("gf256_n255_k175", 4, 215984),
                                             ("gf64_n576_k480", 2, 208392)])
 def test_cluster_plan_bf16(code, size, smem):
-    """bf16 state halves the ranks a cluster needs: config 5's GF(256) code
-    from 8 blocks to 4, GF(64) (576,480) from 4 to 2; the f32 plans stay."""
+    """bf16 state halves the ranks a buffered cluster needs: config 5's
+    GF(256) code from 8 blocks to 4, GF(64) (576,480) from 4 to 2 (f32's
+    buffered layout; f32 takes config 5's code in place, on 4)."""
     g = _code(code)
     plan = qr.plan_cluster(g, es=2)
     assert (plan.size, plan.smem_bytes) == (size, smem)
     assert qr.ResidentQSPA(g, 4, mm_precision="bf16").cluster_plan.size == size
-    assert qr.plan_cluster(g).size == 2 * size                # f32
+    f32 = next(p for s in qr.CLUSTER_SIZES if (p := qr.cluster_plan_at(g, s)) is not None)
+    assert f32.size == 2 * size and not f32.in_place
     assert qr.cluster_smem_bytes(g.q, g.dc_max, g.dv_max, plan.rows, plan.checks,
                                  plan.round_checks, 2) == smem
     if size > 1:                                  # the next smaller cluster does not fit

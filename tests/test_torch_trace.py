@@ -24,7 +24,7 @@ DECODE_BL_SPANS = ("decode_bl.entry", "decode_bl.sync", "decode_bl.route_down",
                    "decode_bl.cn_update", "decode_bl.route_up", "decode_bl.syndrome")
 SPANS = SWEEP_SPANS + STEP_SPANS + DECODE_BL_SPANS
 COUNTERS = ("sweep.loop_ns", "decode_bl.loop_iterations", "decode_bl.frame_iterations",
-            "cn_tems.frame_iterations", "qspa_cluster.grid_blocks")
+            "cn_tems.frame_iterations", "qspa_cluster.grid_blocks", "qspa_cluster.frame_slots")
 S, B, STEPS = 2, 8, 3
 DECODERS = {"qspa": tcfg.DecoderConfig(kind="qspa", max_iters=6),
             "tems": tcfg.DecoderConfig(kind="tems", max_iters=6, offset=0.5, tems_nr=2)}
